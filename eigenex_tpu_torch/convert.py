@@ -1,0 +1,93 @@
+"""Operators carried across from the JAX package as numpy arrays.
+
+The containers of the two packages share their layouts, so a packed
+operator moves between them as plain arrays: on the JAX side
+``np.asarray(bsr.data.astype(jnp.float32))`` (numpy has no bfloat16),
+here ``bsr_from_numpy(..., dtype=torch.bfloat16)`` -- lossless for an
+operator that was stored in bf16.  The parity tests feed both packages
+the same operator this way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .sparse.bsr import BSRMatrix
+from .sparse.coo import COOMatrix
+from .sparse.sym_bsr import SymBSRMatrix
+from .utils.device import resolve_device
+from .utils.tolerance import accumulation_dtype, as_torch_dtype
+
+__all__ = ["bsr_from_numpy", "sym_bsr_from_numpy", "coo_from_numpy", "to_numpy"]
+
+
+def _tensor(a, np_dtype=None) -> torch.Tensor:
+    a = np.ascontiguousarray(a, dtype=np_dtype)
+    if not a.flags.writeable:  # e.g. a view of a jax array: torch wants its own copy
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
+def _blocks(a, dtype, device) -> torch.Tensor:
+    t = _tensor(a)
+    if dtype is not None:
+        t = t.to(as_torch_dtype(dtype))  # cast on the host, then move
+    return t.to(device)
+
+
+def _index(a, device) -> torch.Tensor:
+    return _tensor(a, np.int32).to(device)
+
+
+def bsr_from_numpy(data, block_cols, shape, dtype=None, device=None) -> BSRMatrix:
+    """BSRMatrix from ``data (nbr, kmax, bm, bn)`` and ``block_cols
+    (nbr, kmax)``; ``dtype`` recasts the blocks (None keeps the array's)."""
+    device = resolve_device(device)
+    return BSRMatrix(
+        _blocks(data, dtype, device), _index(block_cols, device),
+        (int(shape[0]), int(shape[1])),
+    )
+
+
+def sym_bsr_from_numpy(diag, upper, upper_cols, shape, band_reach=-1, dtype=None,
+                       device=None) -> SymBSRMatrix:
+    """SymBSRMatrix from ``diag (nbr, b, b)``, ``upper (nbr, ku, b, b)``
+    and ``upper_cols (nbr, ku)``; ``band_reach`` -1 = unknown."""
+    device = resolve_device(device)
+    return SymBSRMatrix(
+        _blocks(diag, dtype, device), _blocks(upper, dtype, device),
+        _index(upper_cols, device), (int(shape[0]), int(shape[1])), int(band_reach),
+    )
+
+
+def coo_from_numpy(row, col, val, shape, device=None) -> COOMatrix:
+    """COOMatrix from triplet arrays (kept in the order given)."""
+    device = resolve_device(device)
+    return COOMatrix(
+        _index(row, device), _index(col, device),
+        _tensor(val).to(device),
+        (int(shape[0]), int(shape[1])),
+    )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    # bf16/f16 blocks come back as f32 (exact): numpy has no bfloat16
+    return t.detach().to(accumulation_dtype(t.dtype)).cpu().numpy()
+
+
+def to_numpy(container) -> dict:
+    """The arrays of a container as numpy, keyed by field name, plus
+    ``shape`` (and ``band_reach`` for SymBSR) -- the arguments of the
+    matching ``*_from_numpy``."""
+    if isinstance(container, BSRMatrix):
+        return dict(data=_host(container.data), block_cols=_host(container.block_cols),
+                    shape=container.shape)
+    if isinstance(container, SymBSRMatrix):
+        return dict(diag=_host(container.diag_data), upper=_host(container.upper_data),
+                    upper_cols=_host(container.upper_cols), shape=container.shape,
+                    band_reach=container.band_reach)
+    if isinstance(container, COOMatrix):
+        return dict(row=_host(container.row), col=_host(container.col),
+                    val=_host(container.val), shape=container.shape)
+    raise TypeError(f"not a sparse container: {type(container).__name__}")

@@ -1,0 +1,310 @@
+"""Hand-written CUDA kernels for block-sparse SpMV, their plain PyTorch
+versions, the code that builds and loads them, and their launch counts.
+
+This module replaces ``eigenex_tpu/ops/pallas_spmv.py`` for the matvec
+kernels:
+
+==================  ==========================================  =====================
+wrapper             replaces (Pallas kernel / entry point)      source
+==================  ==========================================  =====================
+:func:`bsr_spmv`    ``_spmv_kernel`` / ``bsr_matvec_pallas``    ``csrc/bsr_spmv.cu``
+:func:`sym_bsr_spmv`  ``_sym_spmv_stream_kernel``,              ``csrc/sym_bsr_spmv.cu``
+                    ``_sym_spmv_kernel``,
+                    ``_sym_spmv_ring_kernel`` /
+                    ``sym_bsr_matvec_pallas``
+==================  ==========================================  =====================
+
+and the precision rule ``_dot_mode``/``_sdot`` that all of them share
+(see ``csrc/spmv_common.cuh``): f32 or bf16 block storage, f32 x, f32
+FMA accumulation on CUDA cores, f32 output.  The SpMM kernels of that
+module are not ported yet.
+
+How the kernels reach Python: each ``.cu`` file is compiled with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface, at first
+use, from the sources in ``eigenex_tpu_torch/csrc`` and nothing else,
+into ``eigenex_tpu_torch/build``; the library is loaded with ``ctypes``,
+pointers come from ``tensor.data_ptr()`` and the stream from
+``torch.cuda.current_stream()``.  Importing this module builds nothing.
+
+Routing rule: a wrapper given CUDA tensors launches its kernel or
+raises.  It never catches a failure and carries on with the plain
+version.  The plain versions (``*_plain``) run when the tensors lie on
+the CPU, and for storage the kernels do not take (f64, complex), as in
+the reference; that route is visible because the launch count does not
+move.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..utils.exceptions import EigenexError
+
+__all__ = [
+    "bsr_spmv",
+    "bsr_spmv_plain",
+    "sym_bsr_spmv",
+    "sym_bsr_spmv_plain",
+    "build_kernels",
+    "kernel_storage",
+    "launch_counts",
+    "reset_launch_counts",
+    "KERNEL_SOURCES",
+]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG / "build"
+
+#: kernel name -> source file under ``csrc/``
+KERNEL_SOURCES = {"bsr_spmv": "bsr_spmv.cu", "sym_bsr_spmv": "sym_bsr_spmv.cu"}
+_HEADERS = ("spmv_common.cuh",)
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: block storage the kernels take -> the ``storage`` code of the C entries
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+#: columns covered by one warp-wide load (``kChunk`` in spmv_common.cuh)
+_CHUNK = 128
+
+_launches = {name: 0 for name in KERNEL_SOURCES}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def kernel_storage(dtype) -> bool:
+    """Whether blocks stored as ``dtype`` go through the CUDA kernels."""
+    return dtype in _STORAGE
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel's wrapper since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+def _find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise EigenexError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def _library_path(name: str) -> Path:
+    """Build product of one kernel, keyed by the content it is built from."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in (KERNEL_SOURCES[name],) + _HEADERS:
+        h.update((_CSRC / fname).read_bytes())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_kernels(names=None) -> dict[str, Path]:
+    """Compile the kernels that are not built yet, one ``nvcc`` per
+    source, all started together.  Returns name -> shared library.  The
+    compiler's resource report (``-Xptxas -v``) of each fresh build is
+    kept beside the library as ``<library>.log``."""
+    names = list(KERNEL_SOURCES) if names is None else list(names)
+    paths = {name: _library_path(name) for name in names}
+    todo = [name for name in names if not paths[name].exists()]
+    if not todo:
+        return paths
+    nvcc = _find_nvcc()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / KERNEL_SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{KERNEL_SOURCES[name]}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        paths[name].with_suffix(".so.log").write_text(out)
+        os.replace(tmp, paths[name])
+    if failures:
+        raise EigenexError("kernel build failed\n" + "\n".join(failures))
+    return paths
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # data, cols, x, y, nbr, kmax, bm, bn, storage, stream
+    "bsr_spmv": ("eigenex_bsr_spmv", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # diag, upper, cols, col_ptr, slot_ids, x, y, tbuf, nbr, ku, b, storage, stream
+    "sym_bsr_spmv": ("eigenex_sym_bsr_spmv",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+
+def _entry(name: str):
+    """The C entry point of a kernel, building and loading on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_kernels([name])[name]))
+        symbol, argtypes = _ARGTYPES[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return getattr(lib, _ARGTYPES[name][0])
+
+
+def _check_launch(name: str, code: int) -> None:
+    if code != 0:
+        raise EigenexError(f"{name}: kernel launch failed (cudaError {code})")
+
+
+def _kernel_vector(x: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
+    """x as the kernels take it: f32, on the blocks' device, length n,
+    contiguous and 16-byte aligned (the lanes load float4)."""
+    if x.device != device:
+        raise EigenexError(f"{what}: x is on {x.device}, the operator on {device}")
+    if x.dtype != torch.float32:
+        raise EigenexError(f"{what}: x must be float32, got {x.dtype}")
+    if x.ndim != 1 or x.shape[0] != n:
+        raise EigenexError(f"{what}: x must have shape ({n},), got {tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
+def _check_blocks(t: torch.Tensor, what: str) -> None:
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise EigenexError(f"{what}: block data must be contiguous and 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# kernel A: general BSR-ELL SpMV
+# ---------------------------------------------------------------------------
+def bsr_spmv_plain(bsr, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bsr_spmv`: gather + batched block matmul,
+    accumulating in f32 for bf16/f16 storage.  Any dtype, any device."""
+    bm, bn = bsr.block_shape
+    acc = bsr._acc_dtype
+    xb = x.reshape(bsr.n_block_cols, bn).to(acc)
+    gathered = xb[bsr.block_cols.long()]  # (nbr, kmax, bn)
+    y = torch.einsum("rkij,rkj->ri", bsr.data.to(acc), gathered)
+    return y.reshape(bsr.shape[0])
+
+
+def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for a :class:`~eigenex_tpu_torch.sparse.bsr.BSRMatrix`.
+
+    CUDA tensors launch the kernel of ``csrc/bsr_spmv.cu`` (f32 or bf16
+    blocks, bn a multiple of 128, f32 x) or raise; CPU tensors take
+    :func:`bsr_spmv_plain`."""
+    if not bsr.data.is_cuda:
+        return bsr_spmv_plain(bsr, x)
+    nbr, kmax, bm, bn = bsr.data.shape
+    if bsr.dtype not in _STORAGE:
+        raise EigenexError(f"bsr_spmv: block storage {bsr.dtype} is not float32/bfloat16")
+    if bn % _CHUNK:
+        raise EigenexError(f"bsr_spmv: block width {bn} is not a multiple of {_CHUNK}")
+    cols = bsr.block_cols
+    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != bsr.device:
+        raise EigenexError("bsr_spmv: block_cols must be contiguous int32 on the blocks' device")
+    _check_blocks(bsr.data, "bsr_spmv")
+    x = _kernel_vector(x, bsr.shape[1], bsr.device, "bsr_spmv")
+    y = torch.empty(bsr.shape[0], dtype=torch.float32, device=bsr.device)
+    entry = _entry("bsr_spmv")
+    with torch.cuda.device(bsr.device):
+        code = entry(
+            bsr.data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
+            nbr, kmax, bm, bn, _STORAGE[bsr.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch("bsr_spmv", code)
+    _launches["bsr_spmv"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# kernel B: symmetric BSR SpMV on half storage
+# ---------------------------------------------------------------------------
+def sym_bsr_spmv_plain(sym, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`sym_bsr_spmv`: gather + batched einsum +
+    ``index_add_``, accumulating in f32 for bf16/f16 storage.  Any
+    dtype (complex: Hermitian), any device."""
+    bm, bn = sym.block_shape
+    acc = sym._acc_dtype
+    xb = x.reshape(-1, bn).to(acc)
+    diag = sym.diag_data.to(acc)
+    upper = sym.upper_data.to(acc)
+    cols = sym.upper_cols.long()
+    # diagonal blocks act on the aligned x blocks
+    y = torch.einsum("rij,rj->ri", diag, xb)
+    # upper blocks: y[r] += B x[c]
+    y = y + torch.einsum("rkij,rkj->ri", upper, xb[cols])
+    # transpose (conjugate for complex) contributions: y[c] += B^H x[r];
+    # padding slots hold zero blocks and add zeros to block row 0
+    up = upper.conj() if upper.is_complex() else upper
+    contrib = torch.einsum("rkij,ri->rkj", up, xb)  # (nbr, ku, bn)
+    y.index_add_(0, cols.reshape(-1), contrib.reshape(-1, bn))
+    return y.reshape(sym.shape[0])
+
+
+def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for a :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`.
+
+    CUDA tensors launch the two-pass kernel of ``csrc/sym_bsr_spmv.cu``
+    (f32 or bf16 square blocks, b a multiple of 128, f32 x, any band
+    reach) or raise; CPU tensors take :func:`sym_bsr_spmv_plain`.  Two
+    calls on the same input give bit-equal results."""
+    if not sym.upper_data.is_cuda:
+        return sym_bsr_spmv_plain(sym, x)
+    nbr, ku, bm, bn = sym.upper_data.shape
+    if sym.dtype not in _STORAGE or sym.diag_data.dtype != sym.dtype:
+        raise EigenexError(f"sym_bsr_spmv: block storage {sym.dtype} is not float32/bfloat16")
+    if bm != bn or bn % _CHUNK:
+        raise EigenexError(
+            f"sym_bsr_spmv: blocks must be square with a side that is a multiple of "
+            f"{_CHUNK}, got {bm}x{bn}"
+        )
+    if tuple(sym.diag_data.shape) != (nbr, bm, bn) or sym.diag_data.device != sym.device:
+        raise EigenexError("sym_bsr_spmv: diag_data does not match upper_data")
+    cols = sym.upper_cols
+    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != sym.device:
+        raise EigenexError("sym_bsr_spmv: upper_cols must be contiguous int32 on the blocks' device")
+    _check_blocks(sym.diag_data, "sym_bsr_spmv")
+    _check_blocks(sym.upper_data, "sym_bsr_spmv")
+    x = _kernel_vector(x, sym.shape[1], sym.device, "sym_bsr_spmv")
+    col_ptr, slot_ids = sym.column_index()
+    y = torch.empty(sym.shape[0], dtype=torch.float32, device=sym.device)
+    tbuf = torch.empty((nbr, ku, bn), dtype=torch.float32, device=sym.device)
+    entry = _entry("sym_bsr_spmv")
+    with torch.cuda.device(sym.device):
+        code = entry(
+            sym.diag_data.data_ptr(), sym.upper_data.data_ptr(), cols.data_ptr(),
+            col_ptr.data_ptr(), slot_ids.data_ptr(), x.data_ptr(), y.data_ptr(),
+            tbuf.data_ptr(), nbr, ku, bn, _STORAGE[sym.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch("sym_bsr_spmv", code)
+    _launches["sym_bsr_spmv"] += 1
+    return y

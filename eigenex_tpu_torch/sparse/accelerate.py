@@ -1,0 +1,447 @@
+"""Scalar-sparse acceleration: band-reducing reorder + dense-block packing.
+
+Counterpart of the symmetric real route of
+``eigenex_tpu/sparse/accelerate.py``.  A scalar COO matvec is a
+gather/scatter that moves a few bytes per request; the card's bandwidth
+only flows through dense tiles.  This module is the bridge from "born
+scalar" to the block kernels of :mod:`eigenex_tpu_torch.ops.cuda_spmv`:
+
+1. **Reorder** -- a reverse Cuthill-McKee permutation over the
+   (symmetrised) pattern concentrates entries near the diagonal.
+2. **Pack** -- the permuted triplets densify into 128x128 blocks in
+   diagonal + strictly-upper (SymBSR) storage.  bf16 storage is
+   auto-selected only when *lossless* (every value round-trips bf16
+   exactly -- dyadic couplings do), and the kernels widen bf16 blocks to
+   f32 in registers, so bf16 storage never degrades Krylov convergence.
+3. **Solve in permuted space** -- the permutation is applied once to the
+   operator on the host; solvers run entirely in permuted coordinates
+   (no per-matvec gather), and eigenvectors are unpermuted at the end
+   (:meth:`AcceleratedOperator.restore`).
+
+Padding rows/cols (to the block multiple) are structurally zero: with a
+zero-padded start vector the Krylov space never leaves the embedded
+subspace, so no spurious eigenvalues enter the computed spectrum
+(:meth:`AcceleratedOperator.embed` and :func:`_padding_safe_v0` build
+such vectors).
+
+The host stages use numpy and scipy only (the JAX package's route for
+machines without a C++ toolchain); the native C++ packers are not ported
+yet.  Also not ported yet, and raising as such: complex operands (the
+real embedding), the general and rectangular packs, ``save``/``load``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.operators import LinearOperator
+from ..utils.device import resolve_device
+from ..utils.exceptions import EigenexError, not_ported
+from ..utils.prng import make_generator, random_vector
+from ..utils.tolerance import as_torch_dtype
+from .bsr import BSRMatrix, _pack_bsr_host
+from .coo import COOMatrix
+from .sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
+
+__all__ = ["AcceleratedOperator", "accelerate", "band_permutation"]
+
+
+def _as_host_triplets(A) -> tuple[np.ndarray, np.ndarray, np.ndarray, tuple[int, int]]:
+    """(rows, cols, vals, shape) host arrays from any accepted operand."""
+    if isinstance(A, COOMatrix):
+        return (
+            A.row.cpu().numpy().astype(np.int64),
+            A.col.cpu().numpy().astype(np.int64),
+            A.val.cpu().numpy(),
+            A.shape,
+        )
+    if hasattr(A, "tocoo"):  # scipy sparse
+        coo = A.tocoo()
+        return (
+            coo.row.astype(np.int64),
+            coo.col.astype(np.int64),
+            coo.data,
+            coo.shape,
+        )
+    if isinstance(A, tuple) and len(A) == 4:
+        r, c, v, shape = A
+        return (
+            np.asarray(r, np.int64),
+            np.asarray(c, np.int64),
+            np.asarray(v),
+            (int(shape[0]), int(shape[1])),
+        )
+    raise EigenexError(
+        "accelerate() expects a COOMatrix, a scipy sparse matrix, or a "
+        "(rows, cols, vals, shape) tuple"
+    )
+
+
+def _merged(r, c, v, shape):
+    """Row-major sorted, duplicate-merged triplets (full canonical form)."""
+    key = r * np.int64(shape[1]) + c
+    order = np.argsort(key, kind="stable")
+    key, v = key[order], v[order]
+    uniq, start = np.unique(key, return_index=True)
+    if len(uniq) != len(key):
+        sums = np.add.reduceat(v, start)
+        key, v = uniq, sums
+    return key // shape[1], key % shape[1], v
+
+
+def _canonicalize(r, c, v, shape):
+    """Duplicate-free triplets, NOT necessarily sorted: duplicates are
+    detected with a payload-free sort of the flat keys and the full merge
+    is paid for only when they exist."""
+    key = np.sort(r * np.int64(shape[1]) + c)
+    if len(key) > 1 and bool(np.any(key[1:] == key[:-1])):
+        return _merged(r, c, v, shape)
+    return r, c, v
+
+
+def _is_hermitian(r, c, v, shape) -> bool:
+    """Exact A == A^H on duplicate-free triplets (any order)."""
+    if shape[0] != shape[1]:
+        return False
+    key = r * np.int64(shape[1]) + c
+    tkey = c * np.int64(shape[1]) + r
+    korder = np.argsort(key, kind="stable")
+    torder = np.argsort(tkey, kind="stable")
+    if not np.array_equal(key[korder], tkey[torder]):
+        return False
+    return np.array_equal(v[korder], np.conj(v[torder]))
+
+
+def _sampled_hermitian_check(r, c, v, shape, *, sample: int = 2048, seed: int = 0):
+    """Cheap sanity check behind ``symmetric=True``: O(nnz) vectorised
+    pattern counts + a sampled mirror-value probe, instead of the full
+    O(nnz log nnz) transpose comparison the flag exists to skip.  Works
+    on UNSORTED duplicate-free triplets.
+
+    Raises :class:`EigenexError` on any detected asymmetry.  This cannot
+    PROVE Hermiticity (only the full check can), but it catches the
+    realistic misuses -- a general operator passed by mistake, a
+    triangle-only store, sign errors -- rather than silently symmetrising
+    them into a wrong answer."""
+    n_lo = int(np.count_nonzero(c < r))
+    n_up = int(np.count_nonzero(c > r))
+    if n_lo != n_up:
+        raise EigenexError(
+            f"symmetric=True, but the pattern has {n_lo} strictly-lower vs "
+            f"{n_up} strictly-upper entries -- the operator is not Hermitian "
+            "(a triangle-only store must be expanded first)"
+        )
+    off = np.nonzero(r != c)[0]
+    if off.size == 0:
+        return
+    rng = np.random.default_rng(seed)
+    pick = off if off.size <= sample else rng.choice(off, size=sample, replace=False)
+    # entries on the sampled MIRROR rows only -- small subset, own sort
+    is_mrow = np.zeros(shape[0], bool)
+    is_mrow[c[pick]] = True
+    sel = np.nonzero(is_mrow[r])[0]
+    skey = r[sel] * np.int64(shape[1]) + c[sel]
+    so = np.argsort(skey, kind="stable")
+    skey, sval = skey[so], v[sel][so]
+    tkey = c[pick] * np.int64(shape[1]) + r[pick]
+    pos = np.searchsorted(skey, tkey)
+    pos = np.minimum(pos, max(len(skey) - 1, 0))
+    found = skey[pos] == tkey if len(skey) else np.zeros(len(tkey), bool)
+    if not np.all(found):
+        i = int(pick[np.nonzero(~found)[0][0]])
+        raise EigenexError(
+            f"symmetric=True, but entry ({int(r[i])}, {int(c[i])}) has no "
+            "mirror entry -- the operator is not Hermitian"
+        )
+    if not np.array_equal(sval[pos], np.conj(v[pick])):
+        bad = int(pick[np.nonzero(sval[pos] != np.conj(v[pick]))[0][0]])
+        raise EigenexError(
+            f"symmetric=True, but entry ({int(r[bad])}, {int(c[bad])}) does "
+            "not equal the conjugate of its mirror -- the operator is not "
+            "Hermitian"
+        )
+
+
+def band_permutation(rows, cols, n: int) -> np.ndarray:
+    """Reverse Cuthill-McKee ordering of the SYMMETRISED pattern of the
+    triplets -- perm[i] = original index at new position i, so
+    ``A[perm][:, perm]`` is banded (scipy's convention, and scipy's
+    ``reverse_cuthill_mckee``)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    rows = np.ascontiguousarray(rows, np.int64)
+    cols = np.ascontiguousarray(cols, np.int64)
+    pattern = sp.csr_matrix(
+        (np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n)
+    )
+    pattern = pattern + pattern.T  # symmetrise for the general case
+    return reverse_cuthill_mckee(pattern, symmetric_mode=True).astype(np.int64)
+
+
+def _bf16_lossless(values: np.ndarray) -> bool:
+    """True iff every value round-trips bfloat16 exactly (then bf16
+    storage halves SpMV traffic at ZERO accuracy cost -- e.g. the dyadic
+    +-J/2, +-Jz/4 couplings of spin Hamiltonians).  The round trip runs
+    through ``torch.bfloat16``."""
+    v32 = torch.as_tensor(np.ascontiguousarray(values, dtype=np.float32))
+    return bool(torch.equal(v32.to(torch.bfloat16).to(torch.float32), v32))
+
+
+def _host_cast(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Cast packed block data ON THE HOST before the move to the device:
+    uploading f32 and casting there would transiently hold both copies in
+    device memory."""
+    return torch.as_tensor(a).to(dtype).to(device)
+
+
+def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device) -> SymBSRMatrix:
+    """Permuted triplets -> SymBSRMatrix: pack both triangles into
+    BSR-ELL on the host in f32, then keep the diagonal and the strictly
+    upper blocks."""
+    data, block_cols, _ = _pack_bsr_host(
+        r, c, v.astype(np.float32), (n_pad, n_pad), (block, block)
+    )
+    full = BSRMatrix(torch.as_tensor(data), torch.as_tensor(block_cols), (n_pad, n_pad))
+    sym = sym_bsr_from_bsr(full, device="cpu")
+    return SymBSRMatrix(
+        _host_cast(sym.diag_data, dtype, device),
+        _host_cast(sym.upper_data, dtype, device),
+        sym.upper_cols.to(device),
+        sym.shape,
+        sym.band_reach,
+    )
+
+
+def _padding_safe_v0(orig_n: int, padded_n: int, dtype, seed: int, device) -> torch.Tensor:
+    """Random start vector supported on the ORIGINAL coordinates only.
+
+    Structurally-zero padding rows add a spurious eigenvalue 0 of
+    multiplicity (padded_n - orig_n); a start vector with no component in
+    that exactly-invariant subspace keeps Krylov iterates out of it, so
+    the padded operator's Ritz values are those of the original."""
+    v = random_vector(make_generator(seed), orig_n, dtype, normalize=False, device=device)
+    out = torch.zeros((padded_n,), dtype=as_torch_dtype(dtype), device=device)
+    out[:orig_n] = v
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceleratedOperator:
+    """A scalar-sparse operator repacked for the block kernels.
+
+    Lives in PERMUTED + PADDED coordinates: ``matrix`` is ``P A P^T``
+    (zero-padded to the block multiple), where P is the band-reducing
+    permutation.  Solvers run here; :meth:`embed` carries original-space
+    vectors in and :meth:`restore` carries results back (one host-side
+    permutation each -- never a per-matvec gather)."""
+
+    matrix: Any  # SymBSRMatrix, permuted + padded
+    perm: np.ndarray  # (n_work,) original index at permuted position i
+    orig_shape: tuple[int, int]  # user-facing shape
+    symmetric: bool
+    complexified: bool  # always False until the real embedding is ported
+    stats: dict
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        """Padded working shape (what the solvers see)."""
+        return self.matrix.shape
+
+    @property
+    def n_work(self) -> int:
+        """Unpadded working dimension."""
+        return len(self.perm)
+
+    @property
+    def device(self) -> torch.device:
+        return self.matrix.device
+
+    def as_linear_operator(self) -> LinearOperator:
+        return self.matrix.as_linear_operator()
+
+    @property
+    def _embed_dtype(self) -> torch.dtype:
+        """Dtype of embedded vectors: the container's ACCUMULATION dtype
+        (f64 containers must not truncate inputs to f32)."""
+        return torch.float64 if self.matrix.dtype == torch.float64 else torch.float32
+
+    def embed(self, v) -> torch.Tensor:
+        """Original-space (n,) or (n, k) vector(s) -> permuted,
+        zero-padded tensor on the operator's device."""
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        squeeze = v.ndim == 1
+        if squeeze:
+            v = v[:, None]
+        if v.shape[0] != self.orig_shape[1]:
+            raise EigenexError(
+                f"embed expects length {self.orig_shape[1]}, got {v.shape[0]}"
+            )
+        if np.iscomplexobj(v):
+            raise EigenexError("complex vector for a real operator")
+        out = torch.zeros((self.shape[1], v.shape[1]), dtype=self._embed_dtype)
+        out[: self.n_work] = torch.as_tensor(v[self.perm]).to(self._embed_dtype)
+        if squeeze:
+            out = out[:, 0]
+        return out.contiguous().to(self.device)
+
+    def restore(self, V) -> np.ndarray:
+        """Permuted-padded (n_pad,) or (n_pad, k) result(s) -> original
+        coordinates, as a host array.  Inverts :meth:`embed`."""
+        V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        if V.shape[0] != self.shape[0]:
+            raise EigenexError(
+                f"restore expects length {self.shape[0]}, got {V.shape[0]}"
+            )
+        out = np.zeros((self.n_work, V.shape[1]), V.dtype)
+        out[self.perm] = V[: self.n_work]
+        if squeeze:
+            out = out[:, 0]
+        return out
+
+    # -- persistence ------------------------------------------------------
+    def save(self, path) -> None:
+        raise not_ported("AcceleratedOperator.save")
+
+    @classmethod
+    def load(cls, path) -> "AcceleratedOperator":
+        raise not_ported("AcceleratedOperator.load")
+
+
+def accelerate(
+    A,
+    *,
+    symmetric: bool | None = None,
+    symmetric_check: bool = True,
+    dtype: Any = "auto",
+    block: int = 128,
+    reorder: bool = True,
+    merge_duplicates: bool | None = None,
+    device=None,
+) -> AcceleratedOperator:
+    """Repack a scalar sparse operator for the dense-block kernels.
+
+    Parameters
+    ----------
+    A : COOMatrix | scipy sparse | (rows, cols, vals, shape)
+        The operator, in any scalar-sparse form.  Real symmetric
+        operators only for now; complex, general and rectangular operands
+        raise "not ported yet".
+    symmetric : bool | None
+        None (default) detects A == A^T exactly on the triplets.  Passing
+        True skips the full check; a cheap sampled probe (pattern counts
+        + mirror-value sample, see ``symmetric_check``) still guards the
+        claim, because the pack drops lower-triangle blocks and
+        reconstructs them as mirrors -- on a non-symmetric operator that
+        silently computes the wrong spectrum.
+    symmetric_check : bool
+        Set False to skip even the sampled probe behind
+        ``symmetric=True`` (trusted production re-packs only).
+    dtype : "auto" | dtype
+        "auto" stores bf16 when every value round-trips bf16 exactly
+        (lossless; halves traffic), else f32.  An explicit dtype forces.
+    block : int
+        Block size (the CUDA kernel takes multiples of 128; other sizes
+        run through the plain version).
+    reorder : bool
+        Apply the RCM band-reducing permutation (disable only for
+        operators already ordered, e.g. tridiagonal).
+    merge_duplicates : bool | None
+        None (default) canonicalises every operand: a cheap payload-free
+        sort detects duplicates and the full merge runs only when they
+        exist.  False skips even the detection (trusted canonical
+        triplets only -- the symmetry checks assume duplicate-free input).
+    device : where the packed blocks live (the card unless told otherwise).
+
+    Returns an :class:`AcceleratedOperator`; ``.stats`` records fill,
+    slot counts, bytes, bandwidth before/after, and pack time.
+    """
+    t0 = time.time()
+    stages: dict[str, float] = {}
+
+    def _stage(name, t_start):
+        now = time.time()
+        stages[name] = stages.get(name, 0.0) + (now - t_start)
+        return now
+
+    device = resolve_device(device)
+    r, c, v, shape = _as_host_triplets(A)
+    if shape[0] != shape[1]:
+        if symmetric:
+            raise EigenexError("a rectangular operator cannot be symmetric")
+        raise not_ported("accelerate() of a rectangular operator")
+    if np.iscomplexobj(v):
+        raise not_ported("accelerate() of a complex operator (the real embedding)")
+    if merge_duplicates is None:
+        merge_duplicates = True
+    ts = time.time()
+    if merge_duplicates:
+        r, c, v = _canonicalize(r, c, v, shape)
+    ts = _stage("merge", ts)
+
+    if symmetric is None:
+        symmetric = _is_hermitian(r, c, v, shape)
+    elif symmetric and symmetric_check:
+        _sampled_hermitian_check(r, c, v, shape)
+    ts = _stage("symmetry_check", ts)
+    if not symmetric:
+        raise not_ported("accelerate() of a non-symmetric operator (the general pack)")
+    n_work = shape[0]
+
+    bw_before = int(np.abs(r - c).max()) if len(r) else 0
+    if reorder and len(r):
+        perm = band_permutation(r, c, n_work)
+        ts = _stage("rcm", ts)
+        ip = np.empty(n_work, np.int64)
+        ip[perm] = np.arange(n_work)
+        r, c = ip[r], ip[c]
+        ts = _stage("permute", ts)
+    else:
+        perm = np.arange(n_work, dtype=np.int64)
+    bw_after = int(np.abs(r - c).max()) if len(r) else 0
+
+    nnz = len(v)
+    if isinstance(dtype, str) and dtype == "auto":
+        target = torch.bfloat16 if _bf16_lossless(v) else torch.float32
+    else:
+        target = as_torch_dtype(dtype)
+
+    # pad to 32 BLOCK rows, as the JAX package does, so that packed
+    # operators have the same shape in both packages
+    n_pad = -(-n_work // (32 * block)) * (32 * block)
+    mat = _pack_symmetric(r, c, v, n_pad, block, target, device)
+    _stage("pack_scatter", ts)
+    slots = mat.diag_data.numel() + mat.upper_data.numel()
+    applied = mat.diag_data.numel() + 2 * mat.upper_data.numel()
+
+    stats = dict(
+        nnz=nnz,
+        slots=int(slots),
+        fill=float(nnz / max(applied, 1)),
+        bytes=int(slots * mat.upper_data.element_size()),
+        dtype=str(target).replace("torch.", ""),
+        bandwidth_before=bw_before,
+        bandwidth_after=bw_after,
+        symmetric=True,
+        complexified=False,
+        pack_seconds=time.time() - t0,
+        pack_stages={k: round(s, 4) for k, s in stages.items()},
+        ku=int(mat.upper_cols.shape[1]),
+        band_reach=int(mat.band_reach),
+    )
+    return AcceleratedOperator(
+        matrix=mat,
+        perm=perm,
+        orig_shape=shape,
+        symmetric=True,
+        complexified=False,
+        stats=stats,
+    )

@@ -1,0 +1,81 @@
+"""Card-only checks of the CUDA kernels through pytest (marker ``cuda``):
+skipped with a reason where there is no NVIDIA GPU.  ``chip_smoke.py`` is the
+full check on the card; this file holds the same comparisons at small sizes
+for a machine that has both a card and the test dependencies.
+
+Tolerance: relative error <= 1e-5 against the plain version on the same
+stored operator lifted to f32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eigenex_tpu_torch import eigsh
+from eigenex_tpu_torch.convert import bsr_from_numpy
+from eigenex_tpu_torch.ops import cuda_spmv
+from eigenex_tpu_torch.sparse.sym_bsr import sym_bsr_from_bsr
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    # decided here, inside the fixture, never while the module is imported
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or interpret mode")
+    return torch.device("cuda", 0)
+
+
+def banded(nbr, b, seed, device):
+    rng = np.random.default_rng(seed)
+    data = np.zeros((nbr, 3, b, b), np.float32)
+    cols = np.zeros((nbr, 3), np.int32)
+    diag = rng.standard_normal((nbr, b, b)).astype(np.float32)
+    off = rng.standard_normal((nbr - 1, b, b)).astype(np.float32)
+    for r in range(nbr):
+        data[r, 0], cols[r, 0] = (diag[r] + diag[r].T) / 2, r
+        slot = 1
+        if r > 0:
+            data[r, slot], cols[r, slot] = off[r - 1].T, r - 1
+            slot += 1
+        if r + 1 < nbr:
+            data[r, slot], cols[r, slot] = off[r], r + 1
+    return bsr_from_numpy(data, cols, (nbr * b, nbr * b), device=device)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [128, 256])
+def test_kernels_match_plain_versions(card, storage, b):
+    bsr = banded(24, b, 0, card).astype(storage)
+    sym = sym_bsr_from_bsr(bsr)
+    x = torch.randn(bsr.shape[1], device=card, generator=torch.Generator(card).manual_seed(1))
+    for wrapper, plain, op in (
+        (cuda_spmv.bsr_spmv, cuda_spmv.bsr_spmv_plain, bsr),
+        (cuda_spmv.sym_bsr_spmv, cuda_spmv.sym_bsr_spmv_plain, sym),
+    ):
+        y = wrapper(op, x)
+        ref = plain(op.astype(torch.float32), x)
+        rel = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
+        assert rel <= 1e-5
+    assert torch.equal(cuda_spmv.sym_bsr_spmv(sym, x), cuda_spmv.sym_bsr_spmv(sym, x))
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    bsr = banded(4, 128, 0, card)
+    from eigenex_tpu_torch.utils.exceptions import EigenexError
+
+    with pytest.raises(EigenexError):
+        cuda_spmv.bsr_spmv(bsr, torch.ones(bsr.shape[1], device=card, dtype=torch.float64))
+    with pytest.raises(EigenexError):
+        cuda_spmv.bsr_spmv(bsr.astype(torch.float64), torch.ones(bsr.shape[1], device=card))
+    with pytest.raises(EigenexError):
+        cuda_spmv.sym_bsr_spmv(sym_bsr_from_bsr(bsr), torch.ones(bsr.shape[1]))  # x on the CPU
+
+
+def test_every_solver_matvec_is_a_kernel_launch(card):
+    sym = sym_bsr_from_bsr(banded(16, 128, 2, card))
+    cuda_spmv.reset_launch_counts()
+    res = eigsh(sym, k=2, which="LA", tol=1e-5, seed=0)
+    assert res.converged
+    assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": res.iterations}

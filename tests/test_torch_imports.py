@@ -1,0 +1,110 @@
+"""The port stands alone: no source of ``eigenex_tpu_torch`` nor
+``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or the JAX package, and
+importing the port needs neither CUDA nor ``triton`` nor ``nvcc``.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "eigenex_tpu_torch"
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "eigenex_tpu", "flax", "optax")
+EXPECTED_MODULES = [
+    "__init__.py", "convert.py", "core/operators.py", "ops/cuda_spmv.py",
+    "ops/orthogonalize.py", "solvers/api.py", "solvers/arnoldi.py", "solvers/lanczos.py",
+    "solvers/restart.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
+    "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py", "utils/tolerance.py",
+    "utils/trace.py",
+]
+
+
+def imported_modules(path):
+    """(module name, relative level, line) of every import statement, at
+    any depth -- imports inside functions count too."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, 0, node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or "", node.level, node.lineno
+
+
+def test_the_slice_has_its_modules():
+    have = {str(p.relative_to(PACKAGE)) for p in SOURCES if p.is_relative_to(PACKAGE)}
+    assert set(EXPECTED_MODULES) <= have
+    assert {p.name for p in (PACKAGE / "csrc").iterdir()} >= {
+        "bsr_spmv.cu", "sym_bsr_spmv.cu", "spmv_common.cuh"}
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for name, level, line in imported_modules(path):
+        if level:  # relative import: stays inside eigenex_tpu_torch
+            continue
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name}:{line} imports {name}"
+    text = path.read_text()
+    for dynamic in ("import_module(", "__import__("):
+        assert dynamic not in text, f"{path.name} imports dynamically"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_triton_is_never_imported_at_module_level(path):
+    tree = ast.parse(path.read_text())
+    for node in tree.body:  # top-level statements only
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names = [node.module or ""]
+        assert all(n.split(".")[0] != "triton" for n in names)
+
+
+def test_kernel_sources_keep_torch_headers_out():
+    for src in (PACKAGE / "csrc").iterdir():
+        text = src.read_text()
+        assert "torch/extension.h" not in text and "ATen" not in text
+        assert "atomicAdd" not in text  # deterministic sums: no float atomics
+
+
+def test_importing_the_port_is_light():
+    """In a fresh interpreter: no jax, no triton, no CUDA context, no build,
+    and no nvcc on the PATH is needed."""
+    code = (
+        "import sys, os\n"
+        "os.environ['PATH'] = ''\n"
+        "import eigenex_tpu_torch as ext\n"
+        "import eigenex_tpu_torch.ops.cuda_spmv as k\n"
+        "import eigenex_tpu_torch.convert\n"
+        "import torch\n"
+        "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not k._libs and k.launch_counts() == {'bsr_spmv': 0, 'sym_bsr_spmv': 0}\n"
+        "assert callable(ext.eigsh) and callable(ext.accelerate)\n"
+        "print('light')\n"
+    )
+    build = PACKAGE / "build"
+    before = sorted(build.iterdir()) if build.exists() else None
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "light"
+    assert (sorted(build.iterdir()) if build.exists() else None) == before  # built nothing
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    """On a machine without CUDA the script exits non-zero and prints no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the script would run")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                         text=True)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
