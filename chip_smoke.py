@@ -14,13 +14,11 @@ kernels -- at full size:
 2. ``build``             seconds to build the kernels.
 3. ``kernels``           each kernel against its plain version, every regime,
                          f32 and bf16 storage, with times and bounds.
-4. ``small_reference``   ``eigsh`` on the card against numpy's dense ``eigvalsh``
-                         on a small operator.
-5. ``eigsh_banded``      n = 262,144 banded symmetric operator (f32 half
+4. ``eigsh_banded``      n = 262,144 banded symmetric operator (f32 half
                          storage), ``eigsh(k=4, which="LA")``.
-6. ``eigsh_accelerated`` n = 262,144 scalar-sparse operator -> ``accelerate``
+5. ``eigsh_accelerated`` n = 262,144 scalar-sparse operator -> ``accelerate``
                          (RCM + bf16 blocks) -> ``eigsh`` -> eigenvectors restored.
-7. ``eigsh_bsr``         ``eigsh`` on the same operator in full BSR storage (a few restarts).
+6. ``eigsh_bsr``         ``eigsh`` on the same operator in full BSR storage (a few restarts).
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -30,8 +28,7 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, error, times and bound.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
-is then not printed), ``--nbr N`` shrinks the operators for a quick look,
-``--profile`` repeats the ``eigsh_banded`` solve under ``torch.profiler`` and
+is then not printed), ``--profile`` repeats the ``eigsh_banded`` solve under ``torch.profiler`` and
 prints the device's busy share and the kernels by time (phase ``profile``).
 """
 
@@ -57,15 +54,17 @@ from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
 # stated tolerances and sizes
 # ---------------------------------------------------------------------------
 KERNEL_REL_TOL = 1e-5      # ||kernel - plain|| / ||plain||, plain on the same blocks lifted to f32
-SMALL_EIG_REL_TOL = 1e-4   # eigsh on the card (f32) against dense f64 eigvalsh, small operator
 BANDED_TOL = 1e-5          # eigsh tol, phase eigsh_banded
 BANDED_RESID_LIMIT = 1e-4  # ||A x - lambda x|| / |lambda| of every returned pair
 ACCEL_TOL = 1e-5           # eigsh tol, phase eigsh_accelerated
 ACCEL_RESID_LIMIT = 1e-4   # same residual, in f64 on the host against the original triplets
+BSR_RESID_LIMIT = 5e-2     # same residual of the unconverged pairs of phase eigsh_bsr (3 restarts)
+BSR_TOP_RITZ_GAP = 1e-3    # ... whose top Ritz value lies within this relative distance of lambda_max
 TIMED_LAUNCHES = 20        # timed samples per kernel and per plain version, after warm-up
 
 BLOCK = 128
-FULL_NBR = 2048            # 2048 block rows of 128 -> n = 262,144
+NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
+SEED = 0
 
 #: peak rates by card, NVIDIA's data sheets: device memory bytes/s, f32 FMA flop/s
 #: outside the tensor cores.  The first key found in the card's name is used.
@@ -328,13 +327,11 @@ def residuals(matvec, lam, X) -> list[float]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of phases to run")
-    ap.add_argument("--nbr", type=int, default=FULL_NBR, help="block rows of the large operators")
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="repeat the eigsh_banded solve under torch.profiler")
     args = ap.parse_args()
     only = {p for p in args.phases.split(",") if p}
-    nbr = args.nbr
+    nbr = NBR
 
     def wanted(phase: str) -> bool:
         return not only or phase in only
@@ -373,16 +370,16 @@ def main() -> None:
 
     # -- operators shared by the phases --------------------------------------
     gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
+    gen.manual_seed(SEED)
     x = torch.randn(nbr * BLOCK, generator=gen, device=dev)
     # start vectors have a generator of their own, so that a solve does not
     # depend on which other phases ran before it
     gen_v0 = torch.Generator(device=dev)
-    gen_v0.manual_seed(args.seed + 100)
+    gen_v0.manual_seed(SEED + 100)
     v0_banded = torch.randn(nbr * BLOCK, generator=gen_v0, device=dev)
     v0_bsr = torch.randn(nbr * BLOCK, generator=gen_v0, device=dev)
     t0 = time.time()
-    data, cols = banded_block_bsr_numpy(nbr, BLOCK, seed=args.seed)
+    data, cols = banded_block_bsr_numpy(nbr, BLOCK, seed=SEED)
     bsr32 = bsr_from_numpy(data, cols, (nbr * BLOCK, nbr * BLOCK), device=dev)
     del data
     sym32 = sym_bsr_from_bsr(bsr32)
@@ -400,13 +397,13 @@ def main() -> None:
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"banded reach=1 ku=1 {tag} (stream regime)",
                 sym32.astype(dt), x, peaks))
-        scattered = random_sym_blocks(nbr, BLOCK, scattered_cols(nbr, 3, args.seed + 1), -1, gen)
+        scattered = random_sym_blocks(nbr, BLOCK, scattered_cols(nbr, 3, SEED + 1), -1, gen)
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"scattered reach=-1 ku=3 {tag} (resident regime)",
                 scattered.astype(dt), x, peaks))
         del scattered
-        far_d = (1, 2, min(100, nbr // 4), min(485, nbr // 2))
+        far_d = (1, 2, 100, 485)
         far = random_sym_blocks(nbr, BLOCK, far_reach_cols(nbr, far_d), max(far_d), gen)
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             kernel_cases.append(check_kernel(
@@ -454,24 +451,7 @@ def main() -> None:
             main_launches[name] += c
         return out, seconds, counts
 
-    # -- 4. small reference ---------------------------------------------------
-    if wanted("small_reference"):
-        sdata, scols = banded_block_bsr_numpy(16, BLOCK, seed=args.seed + 2)
-        small = sym_bsr_from_bsr(bsr_from_numpy(sdata, scols, (16 * BLOCK,) * 2, device=dev))
-        dense = small.to_dense().double().cpu().numpy()
-        want = np.linalg.eigvalsh(dense)[-3:]
-        res, seconds, counts = drive("small_reference",
-                                     lambda: eigsh(small, k=3, which="LA", tol=1e-6, seed=1))
-        rel = float(np.max(np.abs(res.eigenvalues - want) / np.abs(want)))
-        if not (res.converged and rel <= SMALL_EIG_REL_TOL):
-            fail(f"small_reference: converged={res.converged}, rel eigenvalue error {rel:.3e}")
-        if counts["sym_bsr_spmv"] != res.iterations:
-            fail(f"small_reference: {counts['sym_bsr_spmv']} launches for {res.iterations} matvecs")
-        emit("small_reference", n=16 * BLOCK, eigenvalues=res.eigenvalues.tolist(),
-             dense_f64=want.tolist(), max_rel_err=rel, rel_tol=SMALL_EIG_REL_TOL,
-             matvecs=res.iterations, launches=counts, seconds=seconds)
-
-    # -- 5. eigsh_banded: the main path at full width --------------------------
+    # -- 4. eigsh_banded: the main path at full width --------------------------
     lam_max = None
     if wanted("eigsh_banded"):
         res, seconds, counts = drive(
@@ -502,12 +482,12 @@ def main() -> None:
                 lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
                               max_restarts=400)))
 
-    # -- 6. eigsh_accelerated --------------------------------------------------
+    # -- 5. eigsh_accelerated --------------------------------------------------
     if wanted("eigsh_accelerated"):
         import scipy.sparse as sp
 
         n_a = nbr * BLOCK
-        rng = np.random.default_rng(args.seed + 7)
+        rng = np.random.default_rng(SEED + 7)
         r_a = np.repeat(np.arange(n_a), 2)
         c_a = r_a + rng.integers(1, 24, size=len(r_a))
         keep = c_a < n_a
@@ -542,24 +522,33 @@ def main() -> None:
             fail(f"eigsh_accelerated: launches {counts} for {res.iterations} matvecs")
         del acc
 
-    # -- 7. eigsh_bsr: kernel A on a path ---------------------------------------
+    # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
     if wanted("eigsh_bsr"):
         res, seconds, counts = drive(
             "eigsh_bsr",
             lambda: eigsh(bsr32, k=2, which="LA", v0=v0_bsr, tol=1e-3, max_subspace=24,
                           max_restarts=3))
         lam = res.eigenvalues
+        # the residual is taken with the plain version, so a kernel that was
+        # wrong in a way the Lanczos recurrence absorbs (a scaled product) shows
+        rr = residuals(lambda v: cuda_spmv.bsr_spmv_plain(bsr32, v), lam, res.eigenvectors)
         emit("eigsh_bsr", n=bsr32.shape[0], storage="float32", k=2, which="LA",
              max_subspace=24, max_restarts=3, converged=res.converged,
-             termination=res.termination, ritz_values=lam.tolist(), matvecs=res.iterations,
-             launches=counts, seconds=seconds, lambda_max_from_eigsh_banded=lam_max)
+             termination=res.termination, ritz_values=lam.tolist(), rel_residuals=rr,
+             resid_limit=BSR_RESID_LIMIT, top_ritz_gap_limit=BSR_TOP_RITZ_GAP,
+             matvecs=res.iterations, launches=counts, seconds=seconds,
+             lambda_max_from_eigsh_banded=lam_max)
         if not (np.isfinite(lam).all() and bool(torch.isfinite(res.eigenvectors).all())):
             fail("eigsh_bsr: non-finite Ritz pairs")
         if counts["bsr_spmv"] != res.iterations or counts["sym_bsr_spmv"] != 0 or res.iterations < 24:
             fail(f"eigsh_bsr: launches {counts} for {res.iterations} matvecs")
-        # a Ritz value of a symmetric operator never exceeds its largest eigenvalue
-        if lam_max is not None and not lam[-1] <= lam_max * (1 + 1e-4):
-            fail(f"eigsh_bsr: Ritz value {lam[-1]} above lambda_max {lam_max}")
+        if not max(rr) <= BSR_RESID_LIMIT:
+            fail(f"eigsh_bsr: residual {max(rr):.3e} exceeds {BSR_RESID_LIMIT}")
+        # a Ritz value of a symmetric operator never exceeds its largest
+        # eigenvalue, and after 66 matvecs the top one has all but reached it
+        if lam_max is not None and not (
+                lam_max * (1 - BSR_TOP_RITZ_GAP) <= lam[-1] <= lam_max * (1 + 1e-4)):
+            fail(f"eigsh_bsr: top Ritz value {lam[-1]} against lambda_max {lam_max}")
 
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)

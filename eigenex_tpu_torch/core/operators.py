@@ -45,7 +45,8 @@ class LinearOperator:
         a tuple of operators, or None).
     shape : (m, n) -- output/input dimensions.
     dtype : torch dtype of the vectors the operator takes and returns.
-    device : where those vectors live.
+    device : where those vectors live; ``None`` means the CUDA device,
+        as for every constructor of the package.
     rmatvec_fn : optional ``(params, x) -> A^H @ x`` (adjoint).
     matmat_fn : optional fused ``(params, X) -> A @ X`` for (n, k) blocks.
     """
@@ -56,7 +57,7 @@ class LinearOperator:
         params: Any,
         shape: tuple[int, int],
         dtype,
-        device="cpu",
+        device=None,
         rmatvec_fn: Callable | None = None,
         matmat_fn: Callable | None = None,
     ):
@@ -64,7 +65,7 @@ class LinearOperator:
         self._params = params
         self.shape = (int(shape[0]), int(shape[1]))
         self.dtype = as_torch_dtype(dtype)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._rmatvec_fn = rmatvec_fn
         self._matmat_fn = matmat_fn
 

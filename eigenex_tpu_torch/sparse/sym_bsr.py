@@ -100,7 +100,10 @@ class SymBSRMatrix:
         kernel's transpose pass deterministic.  A slot is real when its
         column lies strictly above the diagonal (``cols[r, k] > r``);
         ELL padding slots (column 0, zero block) are left out, so they
-        are neither read nor added into block column 0.
+        are neither read nor added into block column 0.  The plain version
+        applies every slot as stored, so the two agree only on a canonical
+        container: a slot at or below the diagonal that holds a non-zero
+        block raises :class:`EigenexError` here instead of being skipped.
         Both tensors are int32 and live on the container's device.
         """
         cached = getattr(self, "_column_index", None)
@@ -109,6 +112,19 @@ class SymBSRMatrix:
         cols = self.upper_cols.cpu().numpy().astype(np.int64)
         nbr, ku = cols.shape
         rows = np.arange(nbr, dtype=np.int64)[:, None]
+        if cols.size and (cols.min() < 0 or cols.max() >= nbr):
+            raise EigenexError("SymBSRMatrix: upper_cols holds a block column outside the matrix")
+        pad_ids = torch.as_tensor(np.flatnonzero(cols <= rows)).to(self.device)
+        flat = self.upper_data.reshape(nbr * ku, -1)
+        stray = torch.zeros((), dtype=torch.bool, device=self.device)
+        for chunk in pad_ids.split(1024):  # bounded scratch; one sync after the loop
+            stray |= (flat[chunk] != 0).any()
+        if bool(stray):
+            raise EigenexError(
+                "SymBSRMatrix: a slot of upper_cols at or below the diagonal holds a "
+                "non-zero block; only strictly-upper blocks may be stored "
+                "(padding slots: column 0, zero block)"
+            )
         rr, kk = np.nonzero(cols > rows)  # row-major: ascending (r, k)
         cc = cols[rr, kk]
         order = np.argsort(cc, kind="stable")  # stable: keeps (r, k) order per column

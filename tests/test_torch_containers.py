@@ -273,3 +273,14 @@ class TestConvert:
     def test_to_numpy_rejects_other_objects(self):
         with pytest.raises(TypeError):
             to_numpy(np.ones(3))
+
+
+def test_linear_operator_lives_on_the_card_unless_told_otherwise():
+    """Every constructor resolves ``device=None`` to the CUDA device; only the
+    attribute is read here, so no card is needed."""
+    from eigenex_tpu_torch import LinearOperator
+
+    op = LinearOperator(lambda _, x: x, None, (4, 4), torch.float32)
+    assert op.device.type == "cuda"
+    assert op.shifted(1.0).device.type == "cuda" and (2.0 * op).device.type == "cuda"
+    assert LinearOperator(lambda _, x: x, None, (4, 4), torch.float32, "cpu").device.type == "cpu"

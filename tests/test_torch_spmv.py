@@ -37,6 +37,7 @@ from eigenex_tpu_torch.ops.cuda_spmv import (
     sym_bsr_spmv,
     sym_bsr_spmv_plain,
 )
+from eigenex_tpu_torch.utils.exceptions import EigenexError
 
 torch.set_num_threads(1)
 
@@ -310,3 +311,23 @@ def test_column_index_against_to_dense(kind):
     assert torch.allclose(two_pass(sym, x), want, rtol=0, atol=1e-12 * float(want.abs().max()))
     got = sym_bsr_spmv_plain(sym, x.float()).double()
     assert torch.allclose(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("where", ["below_diagonal", "on_diagonal", "column_0"])
+def test_column_index_rejects_block_not_above_diagonal(where):
+    """The kernel skips every slot whose column is not above the diagonal,
+    the plain version applies it: such a container must raise, not differ."""
+    nbr, ku, b = 8, 2, 8
+    rng = np.random.default_rng(5)
+    d = rng.standard_normal((nbr, b, b)).astype(np.float32)
+    upper = np.zeros((nbr, ku, b, b), np.float32)
+    cols = np.zeros((nbr, ku), np.int32)
+    for r in range(nbr - 1):
+        cols[r, 0] = r + 1
+        upper[r, 0] = rng.standard_normal((b, b))
+    sym_bsr_from_numpy(d, upper, cols, (nbr * b,) * 2, 1, device="cpu").column_index()  # canonical
+    cols[5, 1] = {"below_diagonal": 3, "on_diagonal": 5, "column_0": 0}[where]
+    upper[5, 1] = rng.standard_normal((b, b))
+    sym = sym_bsr_from_numpy(d, upper, cols, (nbr * b,) * 2, 1, device="cpu")
+    with pytest.raises(EigenexError, match="at or below the diagonal"):
+        sym.column_index()
