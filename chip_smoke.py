@@ -7,8 +7,9 @@ Run it from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels of ``eigenex_tpu_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card, and drives
-the port's main path -- symmetric ``eigsh`` end to end through those
-kernels -- at full size:
+the port's main paths -- symmetric ``eigsh`` end to end through the SpMV
+kernels, and the block solvers (LOBPCG, block Lanczos, the Chebyshev window
+filter) through the SpMM kernels -- at full size:
 
 1. ``device``            card, power limit, versions; TF32 must be off.
 2. ``build``             seconds to build the kernels.
@@ -19,6 +20,13 @@ kernels -- at full size:
 5. ``eigsh_accelerated`` n = 262,144 scalar-sparse operator -> ``accelerate``
                          (RCM + bf16 blocks) -> ``eigsh`` -> eigenvectors restored.
 6. ``eigsh_bsr``         ``eigsh`` on the same operator in full BSR storage (a few restarts).
+7. ``lobpcg_banded``     ``eigsh(k=4, which="LA", preconditioner=...)`` on the banded
+                         operator: the LOBPCG route, every block product an SpMM launch.
+8. ``block_lanczos_banded``  ``BlockLanczosEigenSolver`` on it, block width 8.
+9. ``window_accelerated``    ``eigsh_window`` on the bf16 accelerated operator of phase 5,
+                         the window set from the eigenvalues that phase returned.
+10. ``lobpcg_bsr``       a few LOBPCG iterations on the full-storage operator, so the
+                         general SpMM kernel lies on a path.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -28,8 +36,9 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, error, times and bound.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
-is then not printed), ``--profile`` repeats the ``eigsh_banded`` solve under ``torch.profiler`` and
-prints the device's busy share and the kernels by time (phase ``profile``).
+is then not printed), ``--profile`` repeats the ``eigsh_banded`` and ``lobpcg_banded`` solves under
+``torch.profiler`` and prints the device's busy share and the kernels by time (phases ``profile``,
+``profile_lobpcg``).
 """
 
 from __future__ import annotations
@@ -44,7 +53,16 @@ import time
 import numpy as np
 import torch
 
-from eigenex_tpu_torch import accelerate, eigsh, sym_bsr_from_bsr
+from eigenex_tpu_torch import (
+    BlockLanczosEigenSolver,
+    BlockLanczosOptions,
+    accelerate,
+    eigsh,
+    eigsh_window,
+    jacobi_preconditioner,
+    lobpcg,
+    sym_bsr_from_bsr,
+)
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix
@@ -61,6 +79,20 @@ ACCEL_RESID_LIMIT = 1e-4   # same residual, in f64 on the host against the origi
 BSR_RESID_LIMIT = 5e-2     # same residual of the unconverged pairs of phase eigsh_bsr (3 restarts)
 BSR_TOP_RITZ_GAP = 1e-3    # ... whose top Ritz value lies within this relative distance of lambda_max
 TIMED_LAUNCHES = 20        # timed samples per kernel and per plain version, after warm-up
+SPMM_WIDTHS = (1, 8, 12, 16)  # panel widths p of the SpMM checks; 12 = LOBPCG's 3b panel at k=4
+MAIN_WIDTH = 12            # ... and the width whose times go into the result line
+LOBPCG_CAP = 60            # block iterations of phase lobpcg_banded (it does not reach 1e-5 by then)
+LOBPCG_RESID_LIMIT = 5e-2  # ||A x - theta x|| / |theta| of its four pairs at the cap, plain version
+LOBPCG_RITZ_GAP = 1e-2     # each Ritz value within this relative distance below its eigenvalue
+BLOCK_SUBSPACE = 512       # phase block_lanczos_banded: block 8, at most 64 block steps
+BLOCK_RESID_LIMIT = 1e-2   # same residual of its four pairs (the solver stops on Ritz change 1e-5)
+BLOCK_RITZ_GAP = 1e-3      # each Ritz value within this relative distance below its eigenvalue
+WINDOW_DEGREE = 100        # filter degree of phase window_accelerated
+WINDOW_TOL = 1e-5          # its tol; eigenvalues against phase eigsh_accelerated within 1e-4 relative
+WINDOW_RESID_LIMIT = 1e-4  # f64 host residual of every pair it returns, original triplets
+LOBPCG_BSR_ITERS = 12      # block iterations of phase lobpcg_bsr
+LOBPCG_BSR_RESID_LIMIT = 0.15   # relative residual of its pairs after those, plain version
+LOBPCG_BSR_AGREE = 1e-3    # the solver's residual norms (kernel) against the plain version's
 
 BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
@@ -78,6 +110,8 @@ PEAKS = (
 REPLACES = {
     "bsr_spmv": "eigenex_tpu/ops/pallas_spmv.py:91",
     "sym_bsr_spmv": "eigenex_tpu/ops/pallas_spmv.py:210",
+    "bsr_spmm": "eigenex_tpu/ops/pallas_spmv.py:984",
+    "sym_bsr_spmm": "eigenex_tpu/ops/pallas_spmv.py:849",
 }
 ALSO_REPLACES = {
     "bsr_spmv": ["eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)"],
@@ -86,6 +120,20 @@ ALSO_REPLACES = {
         "eigenex_tpu/ops/pallas_spmv.py:355 (_sym_spmv_ring_kernel)",
         "eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)",
     ],
+    "bsr_spmm": ["eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)"],
+    "sym_bsr_spmm": [
+        "eigenex_tpu/ops/pallas_spmv.py:745 (_sym_spmm_stream_kernel)",
+        "eigenex_tpu/ops/pallas_spmv.py:500 (_sym_spmm_ring_kernel)",
+        "eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)",
+    ],
+}
+#: the case whose times stand for a kernel in the result line: the shape and
+#: storage its main path gives it
+MAIN_CASE = {
+    "bsr_spmv": ("banded", "f32"),
+    "sym_bsr_spmv": ("banded", "f32"),
+    "bsr_spmm": ("banded", "f32", f"p={MAIN_WIDTH} "),
+    "sym_bsr_spmm": ("banded", "f32", f"p={MAIN_WIDTH} "),
 }
 
 
@@ -218,6 +266,31 @@ def sym_work(sym) -> tuple[int, int]:
     return nbytes, 2 * (nbr + 2 * n_real) * b * b
 
 
+def bsr_spmm_work(bsr, p: int) -> tuple[int, int]:
+    """(bytes, flops) of one general SpMM at width p: every stored slot read
+    once for all p columns, X read and Y written once."""
+    nbytes = (bsr.data.numel() * bsr.data.element_size() + bsr.block_cols.numel() * 4
+              + (bsr.shape[1] + bsr.shape[0]) * p * 4)
+    return nbytes, 2 * bsr.data.numel() * p
+
+
+def sym_spmm_work(sym, p: int) -> tuple[int, int, int]:
+    """(bytes, flops, scratch bytes) of one symmetric SpMM on THIS operator at
+    width p: diagonal blocks and REAL upper slots read once for all p columns,
+    column ids and the column index, X read and Y written once; each upper
+    block applied twice.  The scratch bytes are the two-pass schedule's own
+    traffic -- the (n_real, b, p) f32 partials written by pass 1 and read by
+    pass 2 -- and are no input or output of the function: they are reported
+    beside the bound, not inside it."""
+    b = sym.block_shape[0]
+    nbr = sym.n_block_rows
+    n_real = int(sym.column_index()[1].numel())
+    item = sym.upper_data.element_size()
+    nbytes = ((nbr + n_real) * b * b * item + sym.upper_cols.numel() * 4
+              + (nbr + 1 + n_real) * 4 + (sym.shape[1] + sym.shape[0]) * p * 4)
+    return nbytes, 2 * (nbr + 2 * n_real) * b * b * p, 2 * n_real * b * p * 4
+
+
 def library_bsr_ms(bsr, x):
     """Time of ``torch.sparse_bsr_tensor(...) @ x`` on the same operator: the
     one PyTorch call that computes the general product.  Used nowhere in the
@@ -229,13 +302,17 @@ def library_bsr_ms(bsr, x):
         values = torch.gather(bsr.data, 1, order[:, :, None, None].expand(-1, -1, bm, bn))
         lib = torch.sparse_bsr_tensor(crow, cols.reshape(-1), values.reshape(-1, bm, bn),
                                       size=bsr.shape)
-        xcol = x.to(bsr.dtype)[:, None]
-        y = (lib @ xcol)[:, 0].float()
-        ref = cuda_spmv.bsr_spmv_plain(bsr.astype(torch.float32), x)
-        rel = float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref))
+        vector = x.ndim == 1
+        xcol = x.to(bsr.dtype)[:, None] if vector else x.to(bsr.dtype)
+        y = (lib @ xcol).float()
+        lifted = bsr.astype(torch.float32)
+        ref = (cuda_spmv.bsr_spmv_plain(lifted, x)[:, None] if vector
+               else cuda_spmv.bsr_spmm_plain(lifted, x))
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
         if not rel < (1e-2 if bsr.dtype == torch.bfloat16 else 1e-4):
             return None, f"library product disagrees (rel {rel:.2e})"
-        return time_ms(lambda: lib @ xcol), "torch.sparse_bsr_tensor @ x"
+        return (time_ms(lambda: lib @ xcol, count=5),
+                "torch.sparse_bsr_tensor @ " + ("x" if vector else "X"))
     except (RuntimeError, NotImplementedError) as e:  # the yardstick only, never the port
         return None, f"not supported here: {str(e).splitlines()[0][:120]}"
 
@@ -279,6 +356,61 @@ def check_kernel(name: str, case: str, op, x, peaks) -> dict:
     return out
 
 
+def check_spmm(name: str, case: str, op, X, peaks) -> dict:
+    """One SpMM kernel on one operator and one panel: through the container's
+    ``matmat`` (the route the solvers take) against its plain version, timed,
+    bounded.  ``case`` ends with the panel width as ``p=<width> ``."""
+    is_sym = name == "sym_bsr_spmm"
+    wrapper = cuda_spmv.sym_bsr_spmm if is_sym else cuda_spmv.bsr_spmm
+    plain = cuda_spmv.sym_bsr_spmm_plain if is_sym else cuda_spmv.bsr_spmm_plain
+    p = X.shape[1]
+    before = cuda_spmv.launch_counts()[name]
+    Y = op.matmat(X)
+    torch.cuda.synchronize()
+    if cuda_spmv.launch_counts()[name] != before + 1:
+        fail(f"{name}[{case}]: matmat on CUDA tensors did not launch (and count) the kernel")
+    lifted = op.astype(torch.float32)
+    ref = plain(lifted, X)
+    del lifted
+    abs_err = float((Y - ref).abs().max())
+    rel_err = float(torch.linalg.norm(Y - ref) / torch.linalg.norm(ref))
+    if tuple(Y.shape) != (op.shape[0], p) or not (np.isfinite(rel_err) and rel_err <= KERNEL_REL_TOL):
+        fail(f"{name}[{case}]: rel err {rel_err:.3e} against the plain version exceeds {KERNEL_REL_TOL}")
+    out = dict(kernel=name, case=case, storage=str(op.dtype).replace("torch.", ""), p=p,
+               max_rel_err=rel_err, max_abs_err=abs_err)
+    if is_sym:
+        Y2 = wrapper(op, X)
+        torch.cuda.synchronize()
+        if not torch.equal(Y, Y2):
+            fail(f"{name}[{case}]: two runs on the same input are not bit-equal")
+        out["bit_equal_rerun"] = True
+    if p == 1:
+        # one column is the matvec: held to the SpMV kernel as well
+        spmv = cuda_spmv.sym_bsr_spmv if is_sym else cuda_spmv.bsr_spmv
+        y = spmv(op, X[:, 0].contiguous())
+        rel1 = float(torch.linalg.vector_norm(Y[:, 0] - y) / torch.linalg.vector_norm(y))
+        if not rel1 <= KERNEL_REL_TOL:
+            fail(f"{name}[{case}]: p=1 differs from the SpMV kernel by {rel1:.3e}")
+        out["rel_err_vs_spmv_kernel"] = rel1
+    del ref, Y
+    out["kernel_ms"] = time_ms(lambda: wrapper(op, X))
+    out["plain_ms"] = time_ms(lambda: plain(op, X), count=5, batch=4)
+    if is_sym:
+        nbytes, flops, scratch = sym_spmm_work(op, p)
+        out["bound_ms_with_scratch"] = bound(nbytes + scratch, flops, peaks)[0]
+    else:
+        nbytes, flops = bsr_spmm_work(op, p)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks)
+    out["bytes"], out["flops"] = nbytes, flops
+    out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
+    if is_sym:
+        out["library_ms"], out["library"] = None, "no single PyTorch call takes half storage"
+    else:
+        out["library_ms"], out["library"] = library_bsr_ms(op, X)
+    out["launches"] = cuda_spmv.launch_counts()[name] - before  # this check's own launches
+    return out
+
+
 def profile_solve(fn) -> dict:
     """One solve under ``torch.profiler``: wall time, the time the device was
     busy (sum of the self device time of every event; one stream, so nothing
@@ -299,7 +431,7 @@ def profile_solve(fn) -> dict:
     events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    out = dict(solve="eigsh_banded", matvecs=res.iterations, wall_ms_under_profiler=wall_ms,
+    out = dict(iterations=res.iterations, wall_ms_under_profiler=wall_ms,
                device_busy_ms=busy_ms,
                top_device_events=[dict(name=e.key[:80], calls=e.count, ms=device_us(e) / 1e3)
                                   for e in events[:10] if device_us(e) > 0])
@@ -319,6 +451,25 @@ def residuals(matvec, lam, X) -> list[float]:
         r = matvec(x) - float(l) * x
         out.append(float(torch.linalg.vector_norm(r)) / abs(float(l)))
     return out
+
+
+def block_residuals(matmat, lam, X) -> list[float]:
+    """The same residuals with A applied to the whole block by ``matmat``."""
+    lam_t = torch.as_tensor(np.asarray(lam), dtype=X.dtype, device=X.device)
+    R = matmat(X.contiguous()) - X * lam_t[None, :]
+    return (torch.linalg.vector_norm(R, dim=0) / lam_t.abs()).tolist()
+
+
+def check_ritz_below(phase: str, ritz, eigenvalues, gap: float) -> None:
+    """Ritz values of a symmetric operator against its eigenvalues, both
+    ascending and matched from the top: the i-th largest Ritz value never
+    exceeds the i-th largest eigenvalue (Cauchy interlacing; 1e-4 relative
+    allowed for f32 rounding) and lies within ``gap`` relative below it."""
+    ritz, eigenvalues = np.asarray(ritz, np.float64), np.asarray(eigenvalues, np.float64)
+    ref = eigenvalues[len(eigenvalues) - len(ritz):]
+    if not (np.isfinite(ritz).all() and np.all(ritz <= ref * (1 + 1e-4))
+            and np.all(ritz >= ref * (1 - gap))):
+        fail(f"{phase}: Ritz values {ritz.tolist()} against eigenvalues {ref.tolist()} (gap {gap})")
 
 
 # ---------------------------------------------------------------------------
@@ -390,34 +541,54 @@ def main() -> None:
     kernel_cases: list[dict] = []
     # -- 3. kernels ----------------------------------------------------------
     if wanted("kernels"):
-        for dt in (torch.float32, torch.bfloat16):
-            tag = "f32" if dt == torch.float32 else "bf16"
+        storages = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+        # panels of the SpMM checks: columns of one seeded (n, 16) block
+        panel = torch.randn((nbr * BLOCK, max(SPMM_WIDTHS)), generator=gen, device=dev)
+        panels = {w: panel[:, :w].contiguous() for w in SPMM_WIDTHS}
+        del panel
+
+        def spmm_cases(name, case, op, widths=panels):
+            for w, X in widths.items():
+                kernel_cases.append(check_spmm(name, f"{case} p={w} ", op, X, peaks))
+
+        for dt, tag in storages:
             kernel_cases.append(check_kernel(
                 "bsr_spmv", f"banded {nbr}x3x{BLOCK}^2 {tag}", bsr32.astype(dt), x, peaks))
+            spmm_cases("bsr_spmm", f"banded {nbr}x3x{BLOCK}^2 {tag}", bsr32.astype(dt))
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"banded reach=1 ku=1 {tag} (stream regime)",
                 sym32.astype(dt), x, peaks))
+            spmm_cases("sym_bsr_spmm", f"banded reach=1 ku=1 {tag} (stream regime)",
+                       sym32.astype(dt))
         scattered = random_sym_blocks(nbr, BLOCK, scattered_cols(nbr, 3, SEED + 1), -1, gen)
-        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for dt, tag in storages:
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"scattered reach=-1 ku=3 {tag} (resident regime)",
                 scattered.astype(dt), x, peaks))
+            spmm_cases("sym_bsr_spmm", f"scattered reach=-1 ku=3 {tag} (resident regime)",
+                       scattered.astype(dt))
         del scattered
         far_d = (1, 2, 100, 485)
         far = random_sym_blocks(nbr, BLOCK, far_reach_cols(nbr, far_d), max(far_d), gen)
-        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for dt, tag in storages:
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"far reach={max(far_d)} ku=4 {tag} (ring regime)",
                 far.astype(dt), x, peaks))
+            spmm_cases("sym_bsr_spmm", f"far reach={max(far_d)} ku=4 {tag} (ring regime)",
+                       far.astype(dt))
         del far
         # other block shapes the kernels take, at a modest size: several 128-column
         # chunks per row, more than one pass of 128 rows, and short blocks
         wide = random_sym_blocks(256, 256, far_reach_cols(256, (1, 37)), 37, gen)
         xw = torch.randn(wide.shape[1], generator=gen, device=dev)
-        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        wide_panels = {w: torch.randn((wide.shape[1], w), generator=gen, device=dev)
+                       for w in SPMM_WIDTHS}
+        for dt, tag in storages:
             kernel_cases.append(check_kernel(
                 "sym_bsr_spmv", f"256x256 blocks reach=37 ku=2 {tag}", wide.astype(dt), xw, peaks))
-        del wide
+            spmm_cases("sym_bsr_spmm", f"256x256 blocks reach=37 ku=2 {tag}", wide.astype(dt),
+                       wide_panels)
+        del wide, wide_panels
         for bm, bn in ((8, 128), (320, 256)):
             nbr_g, nbc_g, kmax_g = 512, 96, 4
             gdata = torch.randn((nbr_g, kmax_g, bm, bn), generator=gen, device=dev)
@@ -425,11 +596,16 @@ def main() -> None:
                                   dtype=torch.int32)
             general = BSRMatrix(gdata, gcols, (nbr_g * bm, nbc_g * bn))
             xg = torch.randn(nbc_g * bn, generator=gen, device=dev)
-            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            general_panels = {w: torch.randn((nbc_g * bn, w), generator=gen, device=dev)
+                              for w in SPMM_WIDTHS}
+            for dt, tag in storages:
                 kernel_cases.append(check_kernel(
                     "bsr_spmv", f"rectangular {bm}x{bn} blocks kmax=4 {tag}",
                     general.astype(dt), xg, peaks))
-            del general, gdata
+                spmm_cases("bsr_spmm", f"rectangular {bm}x{bn} blocks kmax=4 {tag}",
+                           general.astype(dt), general_panels)
+            del general, gdata, general_panels
+        del panels
         torch.cuda.empty_cache()
         emit("kernels", rel_tol=KERNEL_REL_TOL, timed_samples=TIMED_LAUNCHES, calls_per_sample=8,
              cases=kernel_cases)
@@ -451,8 +627,13 @@ def main() -> None:
             main_launches[name] += c
         return out, seconds, counts
 
+    def only_kernel(name: str, count: int) -> dict:
+        """The launch counts of a phase that went through one kernel only."""
+        return {k: (count if k == name else 0) for k in cuda_spmv.KERNEL_SOURCES}
+
     # -- 4. eigsh_banded: the main path at full width --------------------------
     lam_max = None
+    banded_eigenvalues = None
     if wanted("eigsh_banded"):
         res, seconds, counts = drive(
             "eigsh_banded",
@@ -474,16 +655,17 @@ def main() -> None:
             fail("eigsh_banded: eigenvectors are not finite (n, 4)")
         if not max(rr) <= BANDED_RESID_LIMIT:
             fail(f"eigsh_banded: residual {max(rr):.3e} exceeds {BANDED_RESID_LIMIT}")
-        if counts["sym_bsr_spmv"] != res.iterations or counts["bsr_spmv"] != 0:
+        if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_banded: launches {counts} for {res.iterations} matvecs")
+        banded_eigenvalues = np.asarray(res.eigenvalues, np.float64)
         lam_max = float(res.eigenvalues[-1])
         if args.profile:
-            emit("profile", **profile_solve(
+            emit("profile", solve="eigsh_banded", **profile_solve(
                 lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
                               max_restarts=400)))
 
     # -- 5. eigsh_accelerated --------------------------------------------------
-    if wanted("eigsh_accelerated"):
+    if wanted("eigsh_accelerated") or wanted("window_accelerated"):
         import scipy.sparse as sp
 
         n_a = nbr * BLOCK
@@ -518,8 +700,43 @@ def main() -> None:
             fail("eigsh_accelerated: restored eigenvectors are not finite (n, 2)")
         if not max(rr) <= ACCEL_RESID_LIMIT:
             fail(f"eigsh_accelerated: residual {max(rr):.3e} exceeds {ACCEL_RESID_LIMIT}")
-        if counts["sym_bsr_spmv"] != res.iterations or counts["bsr_spmv"] != 0:
+        if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_accelerated: launches {counts} for {res.iterations} matvecs")
+
+        # -- 9. window_accelerated: the filter path held against the Lanczos path ----
+        if wanted("window_accelerated"):
+            l1, l2 = float(lam[0]), float(lam[1])
+            window = (l1 - 0.5 * (l2 - l1), l2 + 0.5 * (l2 - l1))
+            res, seconds, counts = drive(
+                "window_accelerated",
+                lambda: eigsh_window(acc, window, block_size=8, degree=WINDOW_DEGREE,
+                                     tol=WINDOW_TOL, max_iterations=40, seed=4))
+            lam_w = np.asarray(res.eigenvalues, np.float64)
+            report = dict(n=n_a, storage="bfloat16", window=window, block_size=8,
+                          degree=WINDOW_DEGREE, tol=WINDOW_TOL, converged=res.converged,
+                          termination=res.termination, outer_iterations=res.iterations,
+                          eigenvalues=lam_w.tolist(), eigenvalues_from_eigsh_accelerated=[l1, l2],
+                          launches=counts, seconds=seconds, resid_limit=WINDOW_RESID_LIMIT)
+            Xw = None
+            if res.eigenvectors is not None:
+                Xw = np.asarray(res.eigenvectors, np.float64)
+                report["rel_residuals_f64_host"] = (
+                    np.linalg.norm(A64 @ Xw - Xw * lam_w[None, :], axis=0) / np.abs(lam_w)).tolist()
+            emit("window_accelerated", **report)
+            if not res.converged:
+                fail(f"window_accelerated: not converged ({res.termination})")
+            if Xw is None or Xw.shape != (n_a, len(lam_w)) or not np.isfinite(Xw).all():
+                fail("window_accelerated: restored eigenvectors are not finite (n, found)")
+            # the two eigenvalues the Lanczos path returned lie in the window: both found
+            for l in (l1, l2):
+                if not np.any(np.abs(lam_w - l) <= 1e-4 * abs(l)):
+                    fail(f"window_accelerated: eigenvalue {l} of eigsh_accelerated not found in {lam_w}")
+            if not max(report["rel_residuals_f64_host"]) <= WINDOW_RESID_LIMIT:
+                fail(f"window_accelerated: residual {max(report['rel_residuals_f64_host']):.3e} "
+                     f"exceeds {WINDOW_RESID_LIMIT}")
+            # a round is `degree` filter products and one Rayleigh-Ritz product
+            if counts != only_kernel("sym_bsr_spmm", res.iterations * (WINDOW_DEGREE + 1)):
+                fail(f"window_accelerated: launches {counts} for {res.iterations} rounds")
         del acc
 
     # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
@@ -540,7 +757,7 @@ def main() -> None:
              lambda_max_from_eigsh_banded=lam_max)
         if not (np.isfinite(lam).all() and bool(torch.isfinite(res.eigenvectors).all())):
             fail("eigsh_bsr: non-finite Ritz pairs")
-        if counts["bsr_spmv"] != res.iterations or counts["sym_bsr_spmv"] != 0 or res.iterations < 24:
+        if counts != only_kernel("bsr_spmv", res.iterations) or res.iterations < 24:
             fail(f"eigsh_bsr: launches {counts} for {res.iterations} matvecs")
         if not max(rr) <= BSR_RESID_LIMIT:
             fail(f"eigsh_bsr: residual {max(rr):.3e} exceeds {BSR_RESID_LIMIT}")
@@ -550,6 +767,107 @@ def main() -> None:
                 lam_max * (1 - BSR_TOP_RITZ_GAP) <= lam[-1] <= lam_max * (1 + 1e-4)):
             fail(f"eigsh_bsr: top Ritz value {lam[-1]} against lambda_max {lam_max}")
 
+    def lobpcg_products(res) -> int:
+        """Block products of a LOBPCG run: one per iteration, one more per soft restart."""
+        return res.iterations + sum("dropping P" in e for e in res.trace.events)
+
+    # -- 7. lobpcg_banded: this slice's path at full width ---------------------------
+    if wanted("lobpcg_banded"):
+        # T = (diag(A) - sigma)^-1 with sigma the Gershgorin upper bound: the Jacobi
+        # preconditioner of A - sigma I, the definite operator whose low end is A's top end
+        upper_bound = float(sym32.estimate_eigenvalue_range()[1])
+
+        def solve_lobpcg():
+            return eigsh(sym32, k=4, which="LA", tol=BANDED_TOL, max_iterations=LOBPCG_CAP,
+                         seed=SEED + 2,
+                         preconditioner=jacobi_preconditioner(sym32, sigma=upper_bound))
+
+        res, seconds, counts = drive("lobpcg_banded", solve_lobpcg)
+        X = res.eigenvectors
+        rr = block_residuals(sym32._plain_matmat, res.eigenvalues, X)
+        emit("lobpcg_banded", n=sym32.shape[0], storage="float32", k=4, which="LA",
+             preconditioner=f"jacobi, sigma={upper_bound:.4f} (Gershgorin upper bound)",
+             tol=BANDED_TOL, max_iterations=LOBPCG_CAP, converged=res.converged,
+             termination=res.termination, iterations=res.iterations,
+             block_products=lobpcg_products(res), ritz_values=res.eigenvalues.tolist(),
+             eigenvalues_from_eigsh_banded=None if banded_eigenvalues is None
+             else banded_eigenvalues.tolist(),
+             rel_residuals=rr, resid_limit=LOBPCG_RESID_LIMIT, ritz_gap_limit=LOBPCG_RITZ_GAP,
+             launches=counts, seconds=seconds,
+             ms_per_iteration=seconds * 1e3 / max(res.iterations, 1))
+        if tuple(X.shape) != (sym32.shape[0], 4) or not bool(torch.isfinite(X).all()):
+            fail("lobpcg_banded: eigenvectors are not finite (n, 4)")
+        if not max(rr) <= LOBPCG_RESID_LIMIT:
+            fail(f"lobpcg_banded: residual {max(rr):.3e} exceeds {LOBPCG_RESID_LIMIT}")
+        if banded_eigenvalues is not None:
+            check_ritz_below("lobpcg_banded", res.eigenvalues, banded_eigenvalues, LOBPCG_RITZ_GAP)
+        if counts != only_kernel("sym_bsr_spmm", lobpcg_products(res)):
+            fail(f"lobpcg_banded: launches {counts} for {lobpcg_products(res)} block products")
+        if args.profile:
+            emit("profile_lobpcg", solve="lobpcg_banded", **profile_solve(solve_lobpcg))
+
+    # -- 8. block_lanczos_banded -------------------------------------------------------
+    if wanted("block_lanczos_banded"):
+        options = BlockLanczosOptions(
+            block_size=8, max_subspace=BLOCK_SUBSPACE, max_eigenvalues=4,
+            eigenvalue_indices=(-4, -3, -2, -1), tolerance=BANDED_TOL, seed=SEED + 3)
+        res, seconds, counts = drive(
+            "block_lanczos_banded", lambda: BlockLanczosEigenSolver(sym32, options).compute())
+        X = res.eigenvectors
+        rr = block_residuals(sym32._plain_matmat, res.eigenvalues, X)
+        steps = res.iterations // 8
+        emit("block_lanczos_banded", n=sym32.shape[0], storage="float32", block_size=8,
+             max_subspace=BLOCK_SUBSPACE, tol=BANDED_TOL, converged=res.converged,
+             termination=res.termination, krylov_dimension=res.iterations, block_steps=steps,
+             ritz_values=res.eigenvalues.tolist(),
+             eigenvalues_from_eigsh_banded=None if banded_eigenvalues is None
+             else banded_eigenvalues.tolist(),
+             rel_residuals=rr, resid_limit=BLOCK_RESID_LIMIT, ritz_gap_limit=BLOCK_RITZ_GAP,
+             launches=counts, seconds=seconds, ms_per_block_step=seconds * 1e3 / max(steps, 1))
+        if res.termination not in ("converged", "max_iterations"):
+            fail(f"block_lanczos_banded: terminated with {res.termination}")
+        if tuple(X.shape) != (sym32.shape[0], 4) or not bool(torch.isfinite(X).all()):
+            fail("block_lanczos_banded: eigenvectors are not finite (n, 4)")
+        if not max(rr) <= BLOCK_RESID_LIMIT:
+            fail(f"block_lanczos_banded: residual {max(rr):.3e} exceeds {BLOCK_RESID_LIMIT}")
+        if banded_eigenvalues is not None:
+            check_ritz_below("block_lanczos_banded", res.eigenvalues, banded_eigenvalues,
+                             BLOCK_RITZ_GAP)
+        if counts != only_kernel("sym_bsr_spmm", steps) or steps < 8:
+            fail(f"block_lanczos_banded: launches {counts} for {steps} block steps")
+
+    # -- 10. lobpcg_bsr: the general SpMM kernel on a path -----------------------------
+    if wanted("lobpcg_bsr"):
+        res, seconds, counts = drive(
+            "lobpcg_bsr",
+            lambda: lobpcg(bsr32, 4, largest=True, tol=BANDED_TOL,
+                           max_iterations=LOBPCG_BSR_ITERS, seed=SEED + 2))
+        lam = res.eigenvalues  # descending, as lobpcg(largest=True) returns them
+        # the residuals are taken with the plain version and held against the
+        # norms the solver computed through the kernel: a kernel that was wrong
+        # in a way the Rayleigh-Ritz absorbs would part the two
+        rr = block_residuals(lambda X: cuda_spmv.bsr_spmm_plain(bsr32, X), lam, res.eigenvectors)
+        emit("lobpcg_bsr", n=bsr32.shape[0], storage="float32", k=4, largest=True,
+             max_iterations=LOBPCG_BSR_ITERS, termination=res.termination,
+             iterations=res.iterations, block_products=lobpcg_products(res),
+             ritz_values=lam.tolist(), rel_residuals=rr, resid_limit=LOBPCG_BSR_RESID_LIMIT,
+             max_abs_residual_from_solver=res.trace.residuals[-1],
+             max_abs_residual_plain=max(r * abs(l) for r, l in zip(rr, lam)),
+             agree_limit=LOBPCG_BSR_AGREE, launches=counts, seconds=seconds,
+             lambda_max_from_eigsh_banded=lam_max)
+        if not (np.isfinite(lam).all() and bool(torch.isfinite(res.eigenvectors).all())):
+            fail("lobpcg_bsr: non-finite Ritz pairs")
+        if not max(rr) <= LOBPCG_BSR_RESID_LIMIT:
+            fail(f"lobpcg_bsr: residual {max(rr):.3e} exceeds {LOBPCG_BSR_RESID_LIMIT}")
+        plain_max = max(r * abs(l) for r, l in zip(rr, lam))
+        if not abs(plain_max - res.trace.residuals[-1]) <= LOBPCG_BSR_AGREE * plain_max:
+            fail(f"lobpcg_bsr: the solver's residual {res.trace.residuals[-1]} (kernel) against "
+                 f"{plain_max} (plain version)")
+        if lam_max is not None and not (0.9 * lam_max <= lam[0] <= lam_max * (1 + 1e-4)):
+            fail(f"lobpcg_bsr: top Ritz value {lam[0]} against lambda_max {lam_max}")
+        if counts != only_kernel("bsr_spmm", lobpcg_products(res)):
+            fail(f"lobpcg_bsr: launches {counts} for {lobpcg_products(res)} block products")
+
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)
         return
@@ -557,7 +875,7 @@ def main() -> None:
     # -- result ----------------------------------------------------------------
     def main_case(name: str) -> dict:
         """The case measured at the shape and storage the main path gives the kernel."""
-        key = ("banded", "f32")
+        key = MAIN_CASE[name]
         return next(c for c in kernel_cases if c["kernel"] == name and all(k in c["case"] for k in key))
 
     kernels = []
@@ -571,7 +889,7 @@ def main() -> None:
             launches=main_launches[name], launches_by_phase={p: v[name] for p, v in per_phase.items()},
             max_abs_err=c["max_abs_err"], ms=c["kernel_ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
-            measured_at=c["case"],
+            measured_at=c["case"].strip(),
             worst_rel_err_all_cases=max(k["max_rel_err"] for k in kernel_cases if k["kernel"] == name),
         ))
     emit("total", seconds=time.time() - t_start)

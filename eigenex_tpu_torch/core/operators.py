@@ -253,6 +253,10 @@ def _dense_rmatvec(m, x):
     return m.conj().T @ x
 
 
+def _dense_matmat(m, X):
+    return m @ X
+
+
 def aslinearoperator(a, shape=None, dtype=None, device=None) -> LinearOperator:
     """Coerce a dense matrix, a callable or a LinearOperator into a
     LinearOperator (cf. VectorMap::setFromMatrix vector_map.hpp:153-163
@@ -277,7 +281,7 @@ def aslinearoperator(a, shape=None, dtype=None, device=None) -> LinearOperator:
         raise OperatorError(f"expected a 2-D matrix, got shape {tuple(m.shape)}")
     return LinearOperator(
         _dense_matvec, m, tuple(m.shape), m.dtype, m.device,
-        rmatvec_fn=_dense_rmatvec, matmat_fn=_dense_matvec,
+        rmatvec_fn=_dense_rmatvec, matmat_fn=_dense_matmat,
     )
 
 

@@ -1,23 +1,29 @@
-"""Hand-written CUDA kernels for block-sparse SpMV, their plain PyTorch
-versions, the code that builds and loads them, and their launch counts.
+"""Hand-written CUDA kernels for block-sparse SpMV and SpMM, their plain
+PyTorch versions, the code that builds and loads them, and their launch
+counts.
 
-This module replaces ``eigenex_tpu/ops/pallas_spmv.py`` for the matvec
-kernels:
+This module replaces ``eigenex_tpu/ops/pallas_spmv.py``:
 
-==================  ==========================================  =====================
-wrapper             replaces (Pallas kernel / entry point)      source
-==================  ==========================================  =====================
-:func:`bsr_spmv`    ``_spmv_kernel`` / ``bsr_matvec_pallas``    ``csrc/bsr_spmv.cu``
-:func:`sym_bsr_spmv`  ``_sym_spmv_stream_kernel``,              ``csrc/sym_bsr_spmv.cu``
-                    ``_sym_spmv_kernel``,
-                    ``_sym_spmv_ring_kernel`` /
-                    ``sym_bsr_matvec_pallas``
-==================  ==========================================  =====================
+====================  ==========================================  =====================
+wrapper               replaces (Pallas kernel / entry point)      source
+====================  ==========================================  =====================
+:func:`bsr_spmv`      ``_spmv_kernel`` / ``bsr_matvec_pallas``    ``csrc/bsr_spmv.cu``
+:func:`sym_bsr_spmv`  ``_sym_spmv_stream_kernel``,                ``csrc/sym_bsr_spmv.cu``
+                      ``_sym_spmv_kernel``,
+                      ``_sym_spmv_ring_kernel`` /
+                      ``sym_bsr_matvec_pallas``
+:func:`bsr_spmm`      ``_spmm_kernel`` / ``bsr_matmat_pallas``    ``csrc/bsr_spmm.cu``
+:func:`sym_bsr_spmm`  ``_sym_spmm_kernel``,                       ``csrc/sym_bsr_spmm.cu``
+                      ``_sym_spmm_stream_kernel``,
+                      ``_sym_spmm_ring_kernel`` /
+                      ``sym_bsr_matmat_pallas``
+====================  ==========================================  =====================
 
 and the precision rule ``_dot_mode``/``_sdot`` that all of them share
 (see ``csrc/spmv_common.cuh``): f32 or bf16 block storage, f32 x, f32
-FMA accumulation on CUDA cores, f32 output.  The SpMM kernels of that
-module are not ported yet.
+FMA accumulation on CUDA cores, f32 output.  The SpMM kernels take the
+``(n, p)`` row-major panels the block solvers hold, for any p >= 1 (see
+``csrc/spmm_common.cuh``).
 
 How the kernels reach Python: each ``.cu`` file is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, at first
@@ -52,6 +58,10 @@ __all__ = [
     "bsr_spmv_plain",
     "sym_bsr_spmv",
     "sym_bsr_spmv_plain",
+    "bsr_spmm",
+    "bsr_spmm_plain",
+    "sym_bsr_spmm",
+    "sym_bsr_spmm_plain",
     "build_kernels",
     "kernel_storage",
     "launch_counts",
@@ -64,8 +74,13 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
 #: kernel name -> source file under ``csrc/``
-KERNEL_SOURCES = {"bsr_spmv": "bsr_spmv.cu", "sym_bsr_spmv": "sym_bsr_spmv.cu"}
-_HEADERS = ("spmv_common.cuh",)
+KERNEL_SOURCES = {
+    "bsr_spmv": "bsr_spmv.cu",
+    "sym_bsr_spmv": "sym_bsr_spmv.cu",
+    "bsr_spmm": "bsr_spmm.cu",
+    "sym_bsr_spmm": "sym_bsr_spmm.cu",
+}
+_HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +91,9 @@ NVCC_FLAGS = (
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 #: columns covered by one warp-wide load (``kChunk`` in spmv_common.cuh)
 _CHUNK = 128
+#: columns of X one SpMM launch covers (``kMaxCols`` in spmm_common.cuh);
+#: the scratch of :func:`sym_bsr_spmm` is sized for one such chunk
+_MAX_COLS = 32
 
 _launches = {name: 0 for name in KERNEL_SOURCES}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -158,6 +176,11 @@ _ARGTYPES = {
     # diag, upper, cols, col_ptr, slot_ids, x, y, tbuf, nbr, ku, b, storage, stream
     "sym_bsr_spmv": ("eigenex_sym_bsr_spmv",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # data, cols, X, Y, nbr, kmax, bm, bn, p, storage, stream
+    "bsr_spmm": ("eigenex_bsr_spmm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # diag, upper, cols, col_ptr, slot_ids, X, Y, tbuf, nbr, ku, b, p, storage, stream
+    "sym_bsr_spmm": ("eigenex_sym_bsr_spmm",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -194,9 +217,59 @@ def _kernel_vector(x: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
     return x
 
 
+def _kernel_panel(X: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
+    """X as the SpMM kernels take it: f32, on the blocks' device, shape
+    (n, p) with p >= 1, row-major.  A panel that is already row-major (the
+    ``(n, 3b)`` trial block of LOBPCG, a Chebyshev block) is passed as it
+    is; a transposed view of basis rows (block Lanczos hands over
+    ``Qj.T``) is copied once into row-major order -- n p 4 bytes, a few
+    percent of the blocks the product streams."""
+    if X.device != device:
+        raise EigenexError(f"{what}: X is on {X.device}, the operator on {device}")
+    if X.dtype != torch.float32:
+        raise EigenexError(f"{what}: X must be float32, got {X.dtype}")
+    if X.ndim != 2 or X.shape[0] != n or X.shape[1] < 1:
+        raise EigenexError(f"{what}: X must have shape ({n}, p >= 1), got {tuple(X.shape)}")
+    return X.contiguous()
+
+
 def _check_blocks(t: torch.Tensor, what: str) -> None:
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise EigenexError(f"{what}: block data must be contiguous and 16-byte aligned")
+
+
+def _check_bsr(bsr, what: str) -> tuple[int, int, int, int]:
+    """(nbr, kmax, bm, bn) of a container the general kernels take, or raise."""
+    nbr, kmax, bm, bn = bsr.data.shape
+    if bsr.dtype not in _STORAGE:
+        raise EigenexError(f"{what}: block storage {bsr.dtype} is not float32/bfloat16")
+    if bn % _CHUNK:
+        raise EigenexError(f"{what}: block width {bn} is not a multiple of {_CHUNK}")
+    cols = bsr.block_cols
+    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != bsr.device:
+        raise EigenexError(f"{what}: block_cols must be contiguous int32 on the blocks' device")
+    _check_blocks(bsr.data, what)
+    return nbr, kmax, bm, bn
+
+
+def _check_sym(sym, what: str) -> tuple[int, int, int]:
+    """(nbr, ku, b) of a container the symmetric kernels take, or raise."""
+    nbr, ku, bm, bn = sym.upper_data.shape
+    if sym.dtype not in _STORAGE or sym.diag_data.dtype != sym.dtype:
+        raise EigenexError(f"{what}: block storage {sym.dtype} is not float32/bfloat16")
+    if bm != bn or bn % _CHUNK:
+        raise EigenexError(
+            f"{what}: blocks must be square with a side that is a multiple of "
+            f"{_CHUNK}, got {bm}x{bn}"
+        )
+    if tuple(sym.diag_data.shape) != (nbr, bm, bn) or sym.diag_data.device != sym.device:
+        raise EigenexError(f"{what}: diag_data does not match upper_data")
+    cols = sym.upper_cols
+    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != sym.device:
+        raise EigenexError(f"{what}: upper_cols must be contiguous int32 on the blocks' device")
+    _check_blocks(sym.diag_data, what)
+    _check_blocks(sym.upper_data, what)
+    return nbr, ku, bn
 
 
 # ---------------------------------------------------------------------------
@@ -221,15 +294,8 @@ def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
     :func:`bsr_spmv_plain`."""
     if not bsr.data.is_cuda:
         return bsr_spmv_plain(bsr, x)
-    nbr, kmax, bm, bn = bsr.data.shape
-    if bsr.dtype not in _STORAGE:
-        raise EigenexError(f"bsr_spmv: block storage {bsr.dtype} is not float32/bfloat16")
-    if bn % _CHUNK:
-        raise EigenexError(f"bsr_spmv: block width {bn} is not a multiple of {_CHUNK}")
+    nbr, kmax, bm, bn = _check_bsr(bsr, "bsr_spmv")
     cols = bsr.block_cols
-    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != bsr.device:
-        raise EigenexError("bsr_spmv: block_cols must be contiguous int32 on the blocks' device")
-    _check_blocks(bsr.data, "bsr_spmv")
     x = _kernel_vector(x, bsr.shape[1], bsr.device, "bsr_spmv")
     y = torch.empty(bsr.shape[0], dtype=torch.float32, device=bsr.device)
     entry = _entry("bsr_spmv")
@@ -278,21 +344,8 @@ def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     calls on the same input give bit-equal results."""
     if not sym.upper_data.is_cuda:
         return sym_bsr_spmv_plain(sym, x)
-    nbr, ku, bm, bn = sym.upper_data.shape
-    if sym.dtype not in _STORAGE or sym.diag_data.dtype != sym.dtype:
-        raise EigenexError(f"sym_bsr_spmv: block storage {sym.dtype} is not float32/bfloat16")
-    if bm != bn or bn % _CHUNK:
-        raise EigenexError(
-            f"sym_bsr_spmv: blocks must be square with a side that is a multiple of "
-            f"{_CHUNK}, got {bm}x{bn}"
-        )
-    if tuple(sym.diag_data.shape) != (nbr, bm, bn) or sym.diag_data.device != sym.device:
-        raise EigenexError("sym_bsr_spmv: diag_data does not match upper_data")
+    nbr, ku, bn = _check_sym(sym, "sym_bsr_spmv")
     cols = sym.upper_cols
-    if cols.dtype != torch.int32 or not cols.is_contiguous() or cols.device != sym.device:
-        raise EigenexError("sym_bsr_spmv: upper_cols must be contiguous int32 on the blocks' device")
-    _check_blocks(sym.diag_data, "sym_bsr_spmv")
-    _check_blocks(sym.upper_data, "sym_bsr_spmv")
     x = _kernel_vector(x, sym.shape[1], sym.device, "sym_bsr_spmv")
     col_ptr, slot_ids = sym.column_index()
     y = torch.empty(sym.shape[0], dtype=torch.float32, device=sym.device)
@@ -308,3 +361,95 @@ def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     _check_launch("sym_bsr_spmv", code)
     _launches["sym_bsr_spmv"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# kernel C: general BSR-ELL SpMM
+# ---------------------------------------------------------------------------
+def bsr_spmm_plain(bsr, X: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bsr_spmm`: gather + batched block matmul
+    over the (n, p) panel, accumulating in f32 for bf16/f16 storage.  Any
+    dtype, any device."""
+    bm, bn = bsr.block_shape
+    acc = bsr._acc_dtype
+    p = X.shape[1]
+    xb = X.reshape(bsr.n_block_cols, bn, p).to(acc)
+    gathered = xb[bsr.block_cols.long()]  # (nbr, kmax, bn, p)
+    y = torch.einsum("rkij,rkjp->rip", bsr.data.to(acc), gathered)
+    return y.reshape(bsr.shape[0], p)
+
+
+def bsr_spmm(bsr, X: torch.Tensor) -> torch.Tensor:
+    """``Y = A @ X`` for a :class:`~eigenex_tpu_torch.sparse.bsr.BSRMatrix`
+    and an (n, p) panel, any p >= 1.
+
+    CUDA tensors launch the kernel of ``csrc/bsr_spmm.cu`` (f32 or bf16
+    blocks, bn a multiple of 128, f32 X) or raise; CPU tensors take
+    :func:`bsr_spmm_plain`."""
+    if not bsr.data.is_cuda:
+        return bsr_spmm_plain(bsr, X)
+    nbr, kmax, bm, bn = _check_bsr(bsr, "bsr_spmm")
+    X = _kernel_panel(X, bsr.shape[1], bsr.device, "bsr_spmm")
+    p = X.shape[1]
+    Y = torch.empty((bsr.shape[0], p), dtype=torch.float32, device=bsr.device)
+    entry = _entry("bsr_spmm")
+    with torch.cuda.device(bsr.device):
+        code = entry(
+            bsr.data.data_ptr(), bsr.block_cols.data_ptr(), X.data_ptr(), Y.data_ptr(),
+            nbr, kmax, bm, bn, p, _STORAGE[bsr.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch("bsr_spmm", code)
+    _launches["bsr_spmm"] += 1
+    return Y
+
+
+# ---------------------------------------------------------------------------
+# kernel D: symmetric BSR SpMM on half storage
+# ---------------------------------------------------------------------------
+def sym_bsr_spmm_plain(sym, X: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`sym_bsr_spmm`: gather + batched einsum +
+    ``index_add_`` over the (n, p) panel, accumulating in f32 for
+    bf16/f16 storage.  Any dtype (complex: Hermitian), any device."""
+    bm, bn = sym.block_shape
+    acc = sym._acc_dtype
+    p = X.shape[1]
+    xb = X.reshape(-1, bn, p).to(acc)
+    diag = sym.diag_data.to(acc)
+    upper = sym.upper_data.to(acc)
+    cols = sym.upper_cols.long()
+    y = torch.einsum("rij,rjp->rip", diag, xb)
+    y = y + torch.einsum("rkij,rkjp->rip", upper, xb[cols])
+    up = upper.conj() if upper.is_complex() else upper
+    contrib = torch.einsum("rkij,rip->rkjp", up, xb)  # (nbr, ku, bn, p)
+    y.index_add_(0, cols.reshape(-1), contrib.reshape(-1, bn, p))
+    return y.reshape(sym.shape[0], p)
+
+
+def sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
+    """``Y = A @ X`` for a :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`
+    and an (n, p) panel, any p >= 1.
+
+    CUDA tensors launch the two-pass kernel of ``csrc/sym_bsr_spmm.cu``
+    (f32 or bf16 square blocks, b a multiple of 128, f32 X, any band
+    reach) or raise; CPU tensors take :func:`sym_bsr_spmm_plain`.  Two
+    calls on the same input give bit-equal results."""
+    if not sym.upper_data.is_cuda:
+        return sym_bsr_spmm_plain(sym, X)
+    nbr, ku, b = _check_sym(sym, "sym_bsr_spmm")
+    X = _kernel_panel(X, sym.shape[1], sym.device, "sym_bsr_spmm")
+    p = X.shape[1]
+    col_ptr, slot_ids = sym.column_index()
+    Y = torch.empty((sym.shape[0], p), dtype=torch.float32, device=sym.device)
+    tbuf = torch.empty((nbr * ku, b, min(p, _MAX_COLS)), dtype=torch.float32, device=sym.device)
+    entry = _entry("sym_bsr_spmm")
+    with torch.cuda.device(sym.device):
+        code = entry(
+            sym.diag_data.data_ptr(), sym.upper_data.data_ptr(), sym.upper_cols.data_ptr(),
+            col_ptr.data_ptr(), slot_ids.data_ptr(), X.data_ptr(), Y.data_ptr(),
+            tbuf.data_ptr(), nbr, ku, b, p, _STORAGE[sym.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch("sym_bsr_spmm", code)
+    _launches["sym_bsr_spmm"] += 1
+    return Y

@@ -8,13 +8,14 @@ eigenpairs of a Hermitian operator, from a dense matrix, a
 :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`) or an
 :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`.
 Plain Lanczos runs when the subspace covers the problem, thick-restart
-Lanczos otherwise.
+Lanczos otherwise; ``M=``/``preconditioner=`` route to the block
+preconditioned LOBPCG solver.
 
 Arguments of the JAX front end whose route is not ported yet --
-``sigma`` and ``which="SM"`` (shift-invert), ``M``/``preconditioner``
-(LOBPCG), ``mesh`` (the distributed solvers), ``refine`` (host f64
-polish) -- raise ``EigenexError("not ported yet: ...")``; none is
-silently ignored.  ``eigs`` and ``svds`` are not ported yet either.
+``sigma`` and ``which="SM"`` (shift-invert), ``mesh`` (the distributed
+solvers), ``refine`` (host f64 polish) -- raise
+``EigenexError("not ported yet: ...")``; none is silently ignored.
+``eigs`` and ``svds`` are not ported yet either.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ def eigsh(
     tol: float | None = None,
     max_subspace: int | None = None,
     max_restarts: int = 200,
+    max_iterations: int = 200,
     seed: int = 0,
     mesh=None,
     refine: bool | int = False,
@@ -76,6 +78,13 @@ def eigsh(
     (both ends, k split half/half with the extra pair on the high end) or
     "LM" (largest magnitude -- both ends tracked, k selected by |lambda|).
     Results are always in ascending-lambda order (scipy convention).
+    M: Hermitian positive-definite right-hand operator of the
+    GENERALIZED problem ``A x = lambda M x`` -- routes to the block
+    preconditioned LOBPCG solver
+    (:func:`~eigenex_tpu_torch.solvers.lobpcg.lobpcg`), optionally with
+    ``preconditioner`` (``T ~ A^-1`` applied blockwise); that route
+    takes ``which`` "SA" or "LA" only, no ``v0`` and no ``accelerate``,
+    and stops after ``max_iterations`` block iterations.
     tol: convergence tolerance (None -> the dtype default).
     max_subspace: Krylov dimension kept in memory (None ->
     max(6*tracked + 32, 64), capped at n).
@@ -96,8 +105,6 @@ def eigsh(
 
     if sigma is not None or which == "SM":
         raise not_ported("eigsh(sigma=) / which='SM' (shift-invert)")
-    if M is not None or preconditioner is not None:
-        raise not_ported("eigsh(M=, preconditioner=) (the LOBPCG route)")
     if mesh is not None:
         raise not_ported("eigsh(mesh=) (the distributed solvers)")
     if refine:
@@ -107,6 +114,12 @@ def eigsh(
             f"which must be one of 'SA', 'LA', 'BE', 'LM', 'SM', got {which!r}"
         )
 
+    lobpcg_route = M is not None or preconditioner is not None
+    if lobpcg_route and (accelerate or isinstance(A, AcceleratedOperator)):
+        raise EigenexError(
+            "accelerate=True cannot combine with M=/preconditioner= "
+            "(the LOBPCG route consumes the operand directly)"
+        )
     if accelerate and not isinstance(A, AcceleratedOperator):
         from ..sparse.accelerate import accelerate as _accelerate_fn
 
@@ -121,6 +134,28 @@ def eigsh(
     n = op.shape[0]
     if op.shape[0] != op.shape[1]:
         raise EigenexError("eigsh requires a square operator")
+
+    if lobpcg_route:
+        if v0 is not None:
+            raise EigenexError("v0= is not supported on the LOBPCG (M=/preconditioner=) route")
+        if which not in ("SA", "LA"):
+            raise EigenexError(
+                "the LOBPCG route targets spectrum extremes only: use "
+                "which='SA' or 'LA' with M=/preconditioner="
+            )
+        from .lobpcg import lobpcg
+
+        # M goes where A lives, so the two meet on one device
+        opM = _resolve_operand(M, op.device) if M is not None else None
+        res = lobpcg(
+            op, k, B=opM, preconditioner=preconditioner, largest=(which == "LA"),
+            tol=tol, max_iterations=max_iterations, seed=seed,
+        )
+        order = np.argsort(np.asarray(res.eigenvalues))  # ascending, as the
+        res.eigenvalues = np.asarray(res.eigenvalues)[order]  # Lanczos routes
+        if res.eigenvectors is not None:
+            res.eigenvectors = res.eigenvectors[:, order.tolist()]
+        return res
 
     indices, n_track, lm_post = _which_indices(which, k)
     m = min(max_subspace or max(6 * n_track + 32, 64), n)

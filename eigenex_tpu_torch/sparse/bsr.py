@@ -9,10 +9,11 @@ packed operators move between the two packages as plain arrays:
   masking is needed in the inner loop)
 
 SpMV is gather + batched small matmul over static shapes.  On a CUDA
-tensor with f32 or bf16 storage :meth:`BSRMatrix.matvec` launches the
-hand-written kernel of :mod:`eigenex_tpu_torch.ops.cuda_spmv`; on the
-CPU, and for f64/complex storage, it takes the plain gather + einsum
-version, which is also the kernel's oracle.  The route is decided by
+tensor with f32 or bf16 storage :meth:`BSRMatrix.matvec` and
+:meth:`BSRMatrix.matmat` launch the hand-written kernels of
+:mod:`eigenex_tpu_torch.ops.cuda_spmv`; on the CPU, and for f64/complex
+storage, they take the plain gather + einsum versions, which are also
+the kernels' oracles.  The route is decided by
 ``tensor.is_cuda`` and the storage dtype, never by a failed launch.
 """
 
@@ -93,16 +94,23 @@ class BSRMatrix:
             return cuda_spmv.bsr_spmv(self, x)
         return self._plain_matvec(x)
 
+    def _plain_matmat(self, X: torch.Tensor) -> torch.Tensor:
+        from ..ops.cuda_spmv import bsr_spmm_plain
+
+        return bsr_spmm_plain(self, X)
+
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """A @ X for (n, p) dense X -- block-batched matmuls (plain torch;
-        the SpMM kernels are not ported yet)."""
-        bm, bn = self.block_shape
-        acc = self._acc_dtype
-        p = X.shape[1]
-        xb = X.reshape(self.n_block_cols, bn, p).to(acc)
-        gathered = xb[self.block_cols.long()]  # (nbr, kmax, bn, p)
-        y = torch.einsum("rkij,rkjp->rip", self.data.to(acc), gathered)
-        return y.reshape(self.shape[0], p)
+        """A @ X for an (n, p) panel.  CUDA + f32/bf16 storage: the
+        hand-written SpMM kernel (or an error, never the plain version);
+        otherwise gather + block-batched matmuls.  The JAX package keeps
+        this product on its plain einsum even on a TPU and reaches its
+        SpMM kernel only through ``bsr_matmat_pallas``; the results are
+        the same."""
+        from ..ops import cuda_spmv
+
+        if self.data.is_cuda and cuda_spmv.kernel_storage(self.dtype):
+            return cuda_spmv.bsr_spmm(self, X)
+        return self._plain_matmat(X)
 
     def as_linear_operator(self) -> LinearOperator:
         return LinearOperator(

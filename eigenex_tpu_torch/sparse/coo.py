@@ -166,6 +166,14 @@ class COOMatrix:
         """Dense-RHS SpMM (cf. triplets_matrix.hpp:359-371)."""
         return self._scatter(self.val[:, None] * X[self.col.long()], self.row, self.shape[0])
 
+    def diagonal(self) -> torch.Tensor:
+        """Main diagonal as a dense (n,) vector (duplicate triplets sum,
+        matching the SpMV semantics) -- feeds the Jacobi preconditioner
+        (:func:`eigenex_tpu_torch.solvers.precond.jacobi_preconditioner`)."""
+        n = min(self.shape)
+        on_diag = (self.row == self.col) & (self.row < n)
+        return self._scatter(self.val[on_diag], self.row[on_diag], n)
+
     # -- host views ------------------------------------------------------
     def _host(self):
         return (

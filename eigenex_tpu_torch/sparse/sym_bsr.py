@@ -8,11 +8,12 @@ block twice (y[r] += B x[c], y[c] += B^H x[r]) halves the bytes streamed
 per matvec.
 
 On a CUDA tensor with f32 or bf16 storage :meth:`SymBSRMatrix.matvec`
-launches the two-pass kernel of :mod:`eigenex_tpu_torch.ops.cuda_spmv`;
-its second pass needs a column-sorted index of the real upper slots,
-which :meth:`SymBSRMatrix.column_index` builds once and caches.  On the
-CPU, and for f64/complex storage, the plain gather + einsum +
-``index_add_`` version runs; it is also the kernel's oracle.
+and :meth:`SymBSRMatrix.matmat` launch the two-pass kernels of
+:mod:`eigenex_tpu_torch.ops.cuda_spmv`; their second pass needs a
+column-sorted index of the real upper slots, which
+:meth:`SymBSRMatrix.column_index` builds once and caches.  On the CPU,
+and for f64/complex storage, the plain gather + einsum + ``index_add_``
+versions run; they are also the kernels' oracles.
 """
 
 from __future__ import annotations
@@ -152,25 +153,20 @@ class SymBSRMatrix:
             return cuda_spmv.sym_bsr_spmv(self, x)
         return self._plain_matvec(x)
 
-    def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        """Multi-RHS product (plain torch; the SpMM kernels are not
-        ported yet)."""
-        return self._plain_matmat(X)
-
     def _plain_matmat(self, X: torch.Tensor) -> torch.Tensor:
-        bm, bn = self.block_shape
-        acc = self._acc_dtype
-        p = X.shape[1]
-        xb = X.reshape(-1, bn, p).to(acc)
-        diag = self.diag_data.to(acc)
-        upper = self.upper_data.to(acc)
-        cols = self.upper_cols.long()
-        y = torch.einsum("rij,rjp->rip", diag, xb)
-        y = y + torch.einsum("rkij,rkjp->rip", upper, xb[cols])
-        up = upper.conj() if upper.is_complex() else upper
-        contrib = torch.einsum("rkij,rip->rkjp", up, xb)  # (nbr, ku, bn, p)
-        y.index_add_(0, cols.reshape(-1), contrib.reshape(-1, bn, p))
-        return y.reshape(self.shape[0], p)
+        from ..ops.cuda_spmv import sym_bsr_spmm_plain
+
+        return sym_bsr_spmm_plain(self, X)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """A @ X for an (n, p) panel.  CUDA + f32/bf16 storage: the
+        two-pass SpMM kernel (or an error, never the plain version);
+        otherwise gather + batched einsum + ``index_add_``."""
+        from ..ops import cuda_spmv
+
+        if self.upper_data.is_cuda and cuda_spmv.kernel_storage(self.dtype):
+            return cuda_spmv.sym_bsr_spmm(self, X)
+        return self._plain_matmat(X)
 
     def as_linear_operator(self) -> LinearOperator:
         return LinearOperator(

@@ -18,7 +18,7 @@ import torch
 
 from .tolerance import as_torch_dtype, is_complex_dtype, real_dtype_of
 
-__all__ = ["make_generator", "random_normal", "random_vector"]
+__all__ = ["make_generator", "random_normal", "random_vector", "random_matrix"]
 
 
 def make_generator(seed: int) -> torch.Generator:
@@ -51,3 +51,9 @@ def random_vector(generator: torch.Generator, n: int, dtype=torch.float32,
     if normalize:
         v = v / torch.linalg.vector_norm(v)
     return v
+
+
+def random_matrix(generator: torch.Generator, rows: int, cols: int, dtype=torch.float32,
+                  device="cpu"):
+    """Random dense matrix (cf. MatrixDistribution random.hpp:29-71)."""
+    return random_normal(generator, (int(rows), int(cols)), dtype, device)

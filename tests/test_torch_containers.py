@@ -284,3 +284,25 @@ def test_linear_operator_lives_on_the_card_unless_told_otherwise():
     assert op.device.type == "cuda"
     assert op.shifted(1.0).device.type == "cuda" and (2.0 * op).device.type == "cuda"
     assert LinearOperator(lambda _, x: x, None, (4, 4), torch.float32, "cpu").device.type == "cpu"
+
+
+def test_dense_operator_matmat_is_one_fused_product():
+    """``aslinearoperator(dense).matmat`` is the fused ``A @ X`` of the
+    reference's ``_dense_matmat``, not a column-by-column stack of matvecs."""
+    from eigenex_tpu.core.operators import aslinearoperator as j_aslinearoperator
+    from eigenex_tpu_torch.core import operators as top
+
+    rng = np.random.default_rng(0)
+    A, X = rng.standard_normal((12, 9)), rng.standard_normal((9, 5))
+    op = top.aslinearoperator(torch.as_tensor(A))
+    assert op._matmat_fn is top._dense_matmat
+    calls = []
+    op._matvec_fn = lambda m, x: calls.append(1) or m @ x  # a stacked fallback would land here
+    Y = op.matmat(torch.as_tensor(X))
+    assert not calls and Y.shape == (12, 5)
+    np.testing.assert_allclose(Y.numpy(), A @ X, rtol=0, atol=1e-13)
+    ref = j_aslinearoperator(jnp.asarray(A)).matmat(jnp.asarray(X))
+    np.testing.assert_allclose(Y.numpy(), np.asarray(ref), rtol=0, atol=1e-13)
+    # an operator without a fused product still stacks matvecs
+    bare = top.LinearOperator(lambda m, x: m @ x, torch.as_tensor(A), A.shape, torch.float64, "cpu")
+    np.testing.assert_allclose(bare.matmat(torch.as_tensor(X)).numpy(), A @ X, atol=1e-13)

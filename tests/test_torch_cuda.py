@@ -61,6 +61,26 @@ def test_kernels_match_plain_versions(card, storage, b):
     assert torch.equal(cuda_spmv.sym_bsr_spmv(sym, x), cuda_spmv.sym_bsr_spmv(sym, x))
 
 
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 5, 12, 40])
+def test_spmm_kernels_match_plain_versions(card, storage, p):
+    bsr = banded(24, 128, 0, card).astype(storage)
+    sym = sym_bsr_from_bsr(bsr)
+    X = torch.randn((bsr.shape[1], p), device=card, generator=torch.Generator(card).manual_seed(1))
+    for wrapper, plain, op in (
+        (cuda_spmv.bsr_spmm, cuda_spmv.bsr_spmm_plain, bsr),
+        (cuda_spmv.sym_bsr_spmm, cuda_spmv.sym_bsr_spmm_plain, sym),
+    ):
+        before = cuda_spmv.launch_counts()
+        Y = op.matmat(X)  # the container routes a CUDA panel to the kernel
+        after = cuda_spmv.launch_counts()
+        assert sum(after.values()) == sum(before.values()) + 1
+        ref = plain(op.astype(torch.float32), X)
+        assert float(torch.linalg.norm(Y - ref) / torch.linalg.norm(ref)) <= 1e-5
+        assert torch.equal(wrapper(op, X.T.contiguous().T), Y)  # a transposed view is copied
+    assert torch.equal(cuda_spmv.sym_bsr_spmm(sym, X), cuda_spmv.sym_bsr_spmm(sym, X))
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
     bsr = banded(4, 128, 0, card)
     from eigenex_tpu_torch.utils.exceptions import EigenexError
@@ -78,4 +98,5 @@ def test_every_solver_matvec_is_a_kernel_launch(card):
     cuda_spmv.reset_launch_counts()
     res = eigsh(sym, k=2, which="LA", tol=1e-5, seed=0)
     assert res.converged
-    assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": res.iterations}
+    assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": res.iterations,
+                                         "bsr_spmm": 0, "sym_bsr_spmm": 0}

@@ -152,13 +152,15 @@ def test_f32_and_bf16_storage_solve_in_f32_on_the_plain_route():
         res = ext.eigsh(sym.astype(storage), k=2, tol=1e-6, max_subspace=48, seed=1)
         assert res.eigenvectors.dtype == torch.float32
         np.testing.assert_allclose(res.eigenvalues, ev, rtol=0, atol=2e-4)
-    assert launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0}  # CPU: no kernel
+    assert launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0, "sym_bsr_spmm": 0}  # CPU: no kernel
 
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(sigma=0.5), dict(which="SM"), dict(M=np.eye(4)), dict(preconditioner=lambda x: x),
-     dict(mesh=object()), dict(refine=True)],
+    # M= / preconditioner= are ported (the LOBPCG route); their host
+    # refinement tail is not
+    [dict(sigma=0.5), dict(which="SM"), dict(M=np.eye(4), refine=True),
+     dict(preconditioner=lambda x: x, refine=True), dict(mesh=object()), dict(refine=True)],
     ids=["sigma", "SM", "M", "preconditioner", "mesh", "refine"],
 )
 def test_unported_arguments_raise(kwargs):

@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "eigenex_tpu", "flax", "optax")
 EXPECTED_MODULES = [
     "__init__.py", "convert.py", "core/operators.py", "ops/cuda_spmv.py",
     "ops/orthogonalize.py", "solvers/api.py", "solvers/arnoldi.py", "solvers/lanczos.py",
-    "solvers/restart.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
+    "solvers/restart.py", "solvers/block_lanczos.py", "solvers/chebyshev.py", "solvers/kpm.py",
+    "solvers/lobpcg.py", "solvers/precond.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
     "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py", "utils/tolerance.py",
     "utils/trace.py",
 ]
@@ -39,7 +40,8 @@ def test_the_slice_has_its_modules():
     have = {str(p.relative_to(PACKAGE)) for p in SOURCES if p.is_relative_to(PACKAGE)}
     assert set(EXPECTED_MODULES) <= have
     assert {p.name for p in (PACKAGE / "csrc").iterdir()} >= {
-        "bsr_spmv.cu", "sym_bsr_spmv.cu", "spmv_common.cuh"}
+        "bsr_spmv.cu", "sym_bsr_spmv.cu", "spmv_common.cuh",
+        "bsr_spmm.cu", "sym_bsr_spmm.cu", "spmm_common.cuh"}
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -82,12 +84,15 @@ def test_importing_the_port_is_light():
         "import eigenex_tpu_torch as ext\n"
         "import eigenex_tpu_torch.ops.cuda_spmv as k\n"
         "import eigenex_tpu_torch.convert\n"
+        "from eigenex_tpu_torch.solvers import block_lanczos, chebyshev, kpm, lobpcg, precond\n"
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
-        "assert not k._libs and k.launch_counts() == {'bsr_spmv': 0, 'sym_bsr_spmv': 0}\n"
+        "assert not k._libs and not any(k.launch_counts().values())\n"
         "assert callable(ext.eigsh) and callable(ext.accelerate)\n"
+        "assert callable(ext.lobpcg) and callable(ext.eigsh_window) and callable(ext.eigsh_range)\n"
+        "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm'}\n"
         "print('light')\n"
     )
     build = PACKAGE / "build"
