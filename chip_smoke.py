@@ -14,7 +14,11 @@ filter) through the SpMM kernels -- at full size:
 1. ``device``            card, power limit, versions; TF32 must be off.
 2. ``build``             seconds to build the kernels.
 3. ``kernels``           each kernel against its plain version, every regime,
-                         f32 and bf16 storage, with times and bounds.
+                         f32 and bf16 storage, with times and bounds; the SpMM
+                         kernels over the panel and per column, also on panels
+                         whose column norms spread over twelve decades, and
+                         beside that against the product on f64 blocks and
+                         against the plain-PyTorch model of their split products.
 4. ``eigsh_banded``      n = 262,144 banded symmetric operator (f32 half
                          storage), ``eigsh(k=4, which="LA")``.
 5. ``eigsh_accelerated`` n = 262,144 scalar-sparse operator -> ``accelerate``
@@ -33,12 +37,15 @@ exit code: no phase's exception is caught and passed over, nothing carries on
 on the CPU, and no kernel gives way to its plain version.  Without a CUDA
 device the script exits non-zero and prints no result.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches on the main path, error, times and bound.
+lists every kernel with its launches on the main path, error, times and bound
+(``sym_bsr_spmm`` twice: its f32 and its bf16 main case, each with the launches
+of the phases on that storage).
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
-is then not printed), ``--profile`` repeats the ``eigsh_banded`` and ``lobpcg_banded`` solves under
-``torch.profiler`` and prints the device's busy share and the kernels by time (phases ``profile``,
-``profile_lobpcg``).
+is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated`` and
+``lobpcg_banded`` solves under ``torch.profiler`` and prints the device's busy and idle share and
+the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``), and the device
+time of each kernel of one SpMM product at the main-path shapes (phase ``profile_kernels``).
 """
 
 from __future__ import annotations
@@ -71,7 +78,10 @@ from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
 # ---------------------------------------------------------------------------
 # stated tolerances and sizes
 # ---------------------------------------------------------------------------
-KERNEL_REL_TOL = 1e-5      # ||kernel - plain|| / ||plain||, plain on the same blocks lifted to f32
+KERNEL_REL_TOL = 1e-5      # ||kernel - plain|| / ||plain||, plain on the same blocks lifted to f32;
+                           # the SpMM kernels also per column of the panel
+MODEL_REL_TOL = 1e-6       # SpMM kernel against cuda_spmv.spmm_split_model (its split products, exact, summed
+                           # in f64), worst column: the kernel's f32 sums only; a dropped third part shows (8e-6)
 BANDED_TOL = 1e-5          # eigsh tol, phase eigsh_banded
 BANDED_RESID_LIMIT = 1e-4  # ||A x - lambda x|| / |lambda| of every returned pair
 ACCEL_TOL = 1e-5           # eigsh tol, phase eigsh_accelerated
@@ -81,6 +91,8 @@ BSR_TOP_RITZ_GAP = 1e-3    # ... whose top Ritz value lies within this relative 
 TIMED_LAUNCHES = 20        # timed samples per kernel and per plain version, after warm-up
 SPMM_WIDTHS = (1, 8, 12, 16)  # panel widths p of the SpMM checks; 12 = LOBPCG's 3b panel at k=4
 MAIN_WIDTH = 12            # ... and the width whose times go into the result line
+WINDOW_WIDTH = 8           # block_size of phase window_accelerated: the bf16 main case of sym_bsr_spmm
+SCALED_WIDTH = 12          # columns of the badly scaled panels, norms spread over 1e-6 .. 1e6
 LOBPCG_CAP = 60            # block iterations of phase lobpcg_banded (it does not reach 1e-5 by then)
 LOBPCG_RESID_LIMIT = 5e-2  # ||A x - theta x|| / |theta| of its four pairs at the cap, plain version
 LOBPCG_RITZ_GAP = 1e-2     # each Ritz value within this relative distance below its eigenvalue
@@ -98,14 +110,26 @@ BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
 SEED = 0
 
-#: peak rates by card, NVIDIA's data sheets: device memory bytes/s, f32 FMA flop/s
-#: outside the tensor cores.  The first key found in the card's name is used.
+#: peak rates by card, NVIDIA's data sheets: device memory bytes/s, then flop/s by
+#: the unit a kernel multiplies on: f32 FMA outside the tensor cores, and the dense
+#: (no sparsity) tensor-core rates for bf16 and TF32 inputs.  The first key found in
+#: the card's name is used.
 PEAKS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
+    ("H200", 4.8e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12}),
+    ("H100 PCIe", 2.0e12, {"f32_cuda_cores": 51e12, "bf16_tensor_cores": 756e12, "tf32_tensor_cores": 378e12}),
+    ("H100 NVL", 3.9e12, {"f32_cuda_cores": 60e12, "bf16_tensor_cores": 835e12, "tf32_tensor_cores": 417e12}),
+    ("H100", 3.35e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12}),
 )
+#: the unit each kernel multiplies on, by block storage: the SpMV kernels use f32 FMAs on
+#: widened blocks, the SpMM kernels mma.sync on bf16 inputs (bf16 blocks, X in three bf16
+#: parts) or TF32 inputs (f32 blocks, 3xTF32).  The bound divides the FUNCTION's flops
+#: (2 per stored entry and column, not the split's three passes) by that unit's rate.
+OPS_UNIT = {
+    ("bsr_spmv", "float32"): "f32_cuda_cores", ("bsr_spmv", "bfloat16"): "f32_cuda_cores",
+    ("sym_bsr_spmv", "float32"): "f32_cuda_cores", ("sym_bsr_spmv", "bfloat16"): "f32_cuda_cores",
+    ("bsr_spmm", "float32"): "tf32_tensor_cores", ("bsr_spmm", "bfloat16"): "bf16_tensor_cores",
+    ("sym_bsr_spmm", "float32"): "tf32_tensor_cores", ("sym_bsr_spmm", "bfloat16"): "bf16_tensor_cores",
+}
 
 REPLACES = {
     "bsr_spmv": "eigenex_tpu/ops/pallas_spmv.py:91",
@@ -127,13 +151,15 @@ ALSO_REPLACES = {
         "eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)",
     ],
 }
-#: the case whose times stand for a kernel in the result line: the shape and
-#: storage its main path gives it
-MAIN_CASE = {
-    "bsr_spmv": ("banded", "f32"),
-    "sym_bsr_spmv": ("banded", "f32"),
-    "bsr_spmm": ("banded", "f32", f"p={MAIN_WIDTH} "),
-    "sym_bsr_spmm": ("banded", "f32", f"p={MAIN_WIDTH} "),
+#: the cases whose times stand for a kernel in the result line: the shapes and
+#: storages its main paths give it, one entry of the line each.  sym_bsr_spmm has
+#: two: the f32 12-column panel of LOBPCG, and the bf16 8-column block of the
+#: window filter, which carries most of its launches.
+MAIN_CASES = {
+    "bsr_spmv": [("banded", " f32")],
+    "sym_bsr_spmv": [("banded", " f32")],
+    "bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} ")],
+    "sym_bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} "), ("banded", " bf16", f"p={WINDOW_WIDTH} ")],
 }
 
 
@@ -147,10 +173,10 @@ def fail(message: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, bw, flops in PEAKS:
+    for key, bw, rates in PEAKS:
         if key in name:
-            return key, bw, flops
-    return "H100 (assumed: card not in table)", 3.35e12, 67e12
+            return key, bw, rates
+    return "H100 (assumed: card not in table)", PEAKS[-1][1], PEAKS[-1][2]
 
 
 # ---------------------------------------------------------------------------
@@ -237,9 +263,11 @@ def time_ms(fn, count: int = TIMED_LAUNCHES, batch: int = 8, warm: int = 3) -> f
     return statistics.median(samples)
 
 
-def bound(nbytes: int, flops: int, peaks) -> tuple[float, str]:
-    _, bw, rate = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / rate * 1e3
+def bound(nbytes: int, flops: int, peaks, unit: str) -> tuple[float, str]:
+    """Least time for the work, in ms, and what sets it; ``unit`` names the
+    rate of ``PEAKS`` the operations are held against."""
+    _, bw, rates = peaks
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / rates[unit] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -345,7 +373,8 @@ def check_kernel(name: str, case: str, op, x, peaks) -> dict:
     out["kernel_ms"] = time_ms(lambda: wrapper(op, x))
     out["plain_ms"] = time_ms(lambda: plain(op, x))
     nbytes, flops = sym_work(op) if is_sym else bsr_work(op)
-    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks)
+    out["ops_unit"] = OPS_UNIT[name, out["storage"]]
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
     out["bytes"] = nbytes
     out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
     if is_sym:
@@ -376,8 +405,26 @@ def check_spmm(name: str, case: str, op, X, peaks) -> dict:
     rel_err = float(torch.linalg.norm(Y - ref) / torch.linalg.norm(ref))
     if tuple(Y.shape) != (op.shape[0], p) or not (np.isfinite(rel_err) and rel_err <= KERNEL_REL_TOL):
         fail(f"{name}[{case}]: rel err {rel_err:.3e} against the plain version exceeds {KERNEL_REL_TOL}")
+    # every column to the same limit: a norm over the panel hides a column of small norm
+    col_err = float((torch.linalg.vector_norm(Y - ref, dim=0)
+                     / torch.linalg.vector_norm(ref, dim=0)).max())
+    if not (np.isfinite(col_err) and col_err <= KERNEL_REL_TOL):
+        fail(f"{name}[{case}]: rel err {col_err:.3e} of the worst column exceeds {KERNEL_REL_TOL}")
     out = dict(kernel=name, case=case, storage=str(op.dtype).replace("torch.", ""), p=p,
-               max_rel_err=rel_err, max_abs_err=abs_err)
+               max_rel_err=rel_err, max_col_rel_err=col_err, max_abs_err=abs_err)
+
+    def worst_column(other):
+        diff = torch.linalg.vector_norm(Y.double() - other.double(), dim=0)
+        return float((diff / torch.linalg.vector_norm(other.double(), dim=0)).max())
+
+    # reported beside the limit: the same stored blocks and X multiplied in f64
+    out["max_col_rel_err_f64"] = worst_column(plain(op.astype(torch.float64), X.double()))
+    # the model the CPU tests hold to the f64 product is what the card computes
+    model_err = worst_column(cuda_spmv.spmm_split_model(op, X))
+    if not (np.isfinite(model_err) and model_err <= MODEL_REL_TOL):
+        fail(f"{name}[{case}]: rel err {model_err:.3e} of the worst column against the model "
+             f"of the split products exceeds {MODEL_REL_TOL}")
+    out["max_col_rel_err_model"] = model_err
     if is_sym:
         Y2 = wrapper(op, X)
         torch.cuda.synchronize()
@@ -395,12 +442,13 @@ def check_spmm(name: str, case: str, op, X, peaks) -> dict:
     del ref, Y
     out["kernel_ms"] = time_ms(lambda: wrapper(op, X))
     out["plain_ms"] = time_ms(lambda: plain(op, X), count=5, batch=4)
+    out["ops_unit"] = OPS_UNIT[name, out["storage"]]
     if is_sym:
         nbytes, flops, scratch = sym_spmm_work(op, p)
-        out["bound_ms_with_scratch"] = bound(nbytes + scratch, flops, peaks)[0]
+        out["bound_ms_with_scratch"] = bound(nbytes + scratch, flops, peaks, out["ops_unit"])[0]
     else:
         nbytes, flops = bsr_spmm_work(op, p)
-    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
     out["bytes"], out["flops"] = nbytes, flops
     out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
     if is_sym:
@@ -443,6 +491,27 @@ def profile_solve(fn) -> dict:
     return out
 
 
+def profile_product(op, X, calls: int = 40) -> dict:
+    """One SpMM product under ``torch.profiler``: the device time of each of
+    its kernels apart (pass 1, pass 2), which CUDA events around a launch
+    cannot tell from the gaps between them; beside it the events' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(lambda: op.matmat(X))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            op.matmat(X)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            kernels[e.key[:80]] = us / max(e.count, 1)
+    return dict(storage=str(op.dtype).replace("torch.", ""), p=X.shape[1], ms_by_events=ms,
+                us_a_launch_by_kernel=kernels, us_a_product=sum(kernels.values()))
+
+
 def residuals(matvec, lam, X) -> list[float]:
     """||A x - lambda x|| / |lambda| per column, A applied by ``matvec``."""
     out = []
@@ -479,7 +548,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of phases to run")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat the eigsh_banded solve under torch.profiler")
+                    help="repeat three of the solves under torch.profiler")
     args = ap.parse_args()
     only = {p for p in args.phases.split(",") if p}
     nbr = NBR
@@ -505,7 +574,7 @@ def main() -> None:
     emit("device", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          allow_tf32=False, peak_table_row=peaks[0], peak_bytes_per_s=peaks[1],
-         peak_f32_flops=peaks[2])
+         peak_flops_by_unit=peaks[2])
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
@@ -605,17 +674,44 @@ def main() -> None:
                 spmm_cases("bsr_spmm", f"rectangular {bm}x{bn} blocks kmax=4 {tag}",
                            general.astype(dt), general_panels)
             del general, gdata, general_panels
-        del panels
+        # badly scaled panels on bf16-exact (dyadic) blocks: column norms spread over
+        # 1e-6 .. 1e6, so the per-column limit is the one that binds; one case per SpMM
+        # kernel and storage, on the banded operators with their blocks rounded to eighths
+        dyadic = lambda t: torch.round(t * 8) / 8
+        bsr_dy = BSRMatrix(dyadic(bsr32.data), bsr32.block_cols, bsr32.shape)
+        sym_dy = SymBSRMatrix(dyadic(sym32.diag_data), dyadic(sym32.upper_data), sym32.upper_cols,
+                              sym32.shape, sym32.band_reach)
+        scale = 10.0 ** torch.linspace(-6, 6, SCALED_WIDTH, device=dev)
+        scaled = {SCALED_WIDTH: (torch.randn((nbr * BLOCK, SCALED_WIDTH), generator=gen, device=dev)
+                                 * scale[None, :]).contiguous()}
+        for dt, tag in storages:
+            spmm_cases("bsr_spmm", f"scaled columns 1e-6..1e6, dyadic blocks {nbr}x3x{BLOCK}^2 {tag}",
+                       bsr_dy.astype(dt), scaled)
+            spmm_cases("sym_bsr_spmm", f"scaled columns 1e-6..1e6, dyadic blocks reach=1 ku=1 {tag}",
+                       sym_dy.astype(dt), scaled)
+        del bsr_dy, sym_dy, scaled
         torch.cuda.empty_cache()
-        emit("kernels", rel_tol=KERNEL_REL_TOL, timed_samples=TIMED_LAUNCHES, calls_per_sample=8,
-             cases=kernel_cases)
+        emit("kernels", rel_tol=KERNEL_REL_TOL, model_rel_tol=MODEL_REL_TOL,
+             timed_samples=TIMED_LAUNCHES, calls_per_sample=8, cases=kernel_cases)
+        if args.profile:
+            emit("profile_kernels", products={
+                "sym_bsr_spmm banded f32": profile_product(sym32, panels[MAIN_WIDTH]),
+                "sym_bsr_spmm banded bf16": profile_product(sym32.astype(torch.bfloat16),
+                                                            panels[WINDOW_WIDTH]),
+                "bsr_spmm banded f32": profile_product(bsr32, panels[MAIN_WIDTH]),
+                "bsr_spmm banded bf16": profile_product(bsr32.astype(torch.bfloat16),
+                                                        panels[MAIN_WIDTH])})
+        del panels
 
     main_launches = {name: 0 for name in cuda_spmv.KERNEL_SOURCES}
     per_phase: dict[str, dict] = {}
+    phase_storage: dict[str, str] = {}
 
-    def drive(phase: str, fn):
-        """Run one main-path phase with the launch counts set to 0 just
-        before it and read just after."""
+    def drive(phase: str, op, fn):
+        """Run one main-path phase, a solve on ``op``, with the launch counts
+        set to 0 just before it and read just after; the block storage of
+        ``op`` is kept for the split of a kernel's launches by storage."""
+        phase_storage[phase] = str(op.dtype).replace("torch.", "")
         cuda_spmv.reset_launch_counts()
         t0 = time.time()
         out = fn()
@@ -636,7 +732,7 @@ def main() -> None:
     banded_eigenvalues = None
     if wanted("eigsh_banded"):
         res, seconds, counts = drive(
-            "eigsh_banded",
+            "eigsh_banded", sym32,
             lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
                           max_restarts=400))
         X = res.eigenvectors
@@ -682,7 +778,7 @@ def main() -> None:
         if acc.matrix.dtype != torch.bfloat16:
             fail(f"eigsh_accelerated: dyadic values packed as {acc.matrix.dtype}, expected bfloat16")
         res, seconds, counts = drive(
-            "eigsh_accelerated",
+            "eigsh_accelerated", acc.matrix,
             lambda: eigsh(acc, k=2, which="LA", tol=ACCEL_TOL, seed=3, max_restarts=400))
         A64 = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3]).tocsr()
         X = np.asarray(res.eigenvectors, np.float64)
@@ -707,10 +803,12 @@ def main() -> None:
         if wanted("window_accelerated"):
             l1, l2 = float(lam[0]), float(lam[1])
             window = (l1 - 0.5 * (l2 - l1), l2 + 0.5 * (l2 - l1))
-            res, seconds, counts = drive(
-                "window_accelerated",
-                lambda: eigsh_window(acc, window, block_size=8, degree=WINDOW_DEGREE,
-                                     tol=WINDOW_TOL, max_iterations=40, seed=4))
+
+            def solve_window():
+                return eigsh_window(acc, window, block_size=8, degree=WINDOW_DEGREE,
+                                    tol=WINDOW_TOL, max_iterations=40, seed=4)
+
+            res, seconds, counts = drive("window_accelerated", acc.matrix, solve_window)
             lam_w = np.asarray(res.eigenvalues, np.float64)
             report = dict(n=n_a, storage="bfloat16", window=window, block_size=8,
                           degree=WINDOW_DEGREE, tol=WINDOW_TOL, converged=res.converged,
@@ -737,12 +835,14 @@ def main() -> None:
             # a round is `degree` filter products and one Rayleigh-Ritz product
             if counts != only_kernel("sym_bsr_spmm", res.iterations * (WINDOW_DEGREE + 1)):
                 fail(f"window_accelerated: launches {counts} for {res.iterations} rounds")
+            if args.profile:
+                emit("profile_window", solve="window_accelerated", **profile_solve(solve_window))
         del acc
 
     # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
     if wanted("eigsh_bsr"):
         res, seconds, counts = drive(
-            "eigsh_bsr",
+            "eigsh_bsr", bsr32,
             lambda: eigsh(bsr32, k=2, which="LA", v0=v0_bsr, tol=1e-3, max_subspace=24,
                           max_restarts=3))
         lam = res.eigenvalues
@@ -782,7 +882,7 @@ def main() -> None:
                          seed=SEED + 2,
                          preconditioner=jacobi_preconditioner(sym32, sigma=upper_bound))
 
-        res, seconds, counts = drive("lobpcg_banded", solve_lobpcg)
+        res, seconds, counts = drive("lobpcg_banded", sym32, solve_lobpcg)
         X = res.eigenvectors
         rr = block_residuals(sym32._plain_matmat, res.eigenvalues, X)
         emit("lobpcg_banded", n=sym32.shape[0], storage="float32", k=4, which="LA",
@@ -812,7 +912,8 @@ def main() -> None:
             block_size=8, max_subspace=BLOCK_SUBSPACE, max_eigenvalues=4,
             eigenvalue_indices=(-4, -3, -2, -1), tolerance=BANDED_TOL, seed=SEED + 3)
         res, seconds, counts = drive(
-            "block_lanczos_banded", lambda: BlockLanczosEigenSolver(sym32, options).compute())
+            "block_lanczos_banded", sym32,
+            lambda: BlockLanczosEigenSolver(sym32, options).compute())
         X = res.eigenvectors
         rr = block_residuals(sym32._plain_matmat, res.eigenvalues, X)
         steps = res.iterations // 8
@@ -839,7 +940,7 @@ def main() -> None:
     # -- 10. lobpcg_bsr: the general SpMM kernel on a path -----------------------------
     if wanted("lobpcg_bsr"):
         res, seconds, counts = drive(
-            "lobpcg_bsr",
+            "lobpcg_bsr", bsr32,
             lambda: lobpcg(bsr32, 4, largest=True, tol=BANDED_TOL,
                            max_iterations=LOBPCG_BSR_ITERS, seed=SEED + 2))
         lam = res.eigenvalues  # descending, as lobpcg(largest=True) returns them
@@ -873,25 +974,35 @@ def main() -> None:
         return
 
     # -- result ----------------------------------------------------------------
-    def main_case(name: str) -> dict:
-        """The case measured at the shape and storage the main path gives the kernel."""
-        key = MAIN_CASE[name]
-        return next(c for c in kernel_cases if c["kernel"] == name and all(k in c["case"] for k in key))
-
     kernels = []
     for name, src in cuda_spmv.KERNEL_SOURCES.items():
-        c = main_case(name)
         if main_launches[name] <= 0:
             fail(f"{name}: not launched on the main path")
-        kernels.append(dict(
-            name=name, route="cuda", source=f"eigenex_tpu_torch/csrc/{src}",
-            replaces=REPLACES[name], also_replaces=ALSO_REPLACES[name],
-            launches=main_launches[name], launches_by_phase={p: v[name] for p, v in per_phase.items()},
-            max_abs_err=c["max_abs_err"], ms=c["kernel_ms"], plain_ms=c["plain_ms"],
-            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
-            measured_at=c["case"].strip(),
-            worst_rel_err_all_cases=max(k["max_rel_err"] for k in kernel_cases if k["kernel"] == name),
-        ))
+        keys = MAIN_CASES[name]
+        for key in keys:
+            # the case measured at a shape and storage the main path gives the kernel
+            c = next(c for c in kernel_cases
+                     if c["kernel"] == name and all(k in c["case"] for k in key))
+            # a kernel with one entry carries all its launches; with an entry per
+            # storage, each carries the launches of the phases on that storage
+            by_phase = {p: v[name] for p, v in per_phase.items()
+                        if len(keys) == 1 or phase_storage[p] == c["storage"]}
+            launches = sum(by_phase.values())
+            if launches <= 0:
+                fail(f"{name} [{c['storage']}]: not launched on the main path")
+            worst = [k for k in kernel_cases if k["kernel"] == name]
+            entry = dict(
+                name=name, route="cuda", source=f"eigenex_tpu_torch/csrc/{src}",
+                replaces=REPLACES[name], also_replaces=ALSO_REPLACES[name],
+                launches=launches, launches_by_phase=by_phase, storage=c["storage"],
+                max_abs_err=c["max_abs_err"], ms=c["kernel_ms"], plain_ms=c["plain_ms"],
+                bound_ms=c["bound_ms"], bound_by=c["bound_by"], ops_unit=c["ops_unit"],
+                library_ms=c["library_ms"], measured_at=c["case"].strip(),
+                worst_rel_err_all_cases=max(k["max_rel_err"] for k in worst),
+            )
+            if "max_col_rel_err" in c:
+                entry["worst_col_rel_err_all_cases"] = max(k["max_col_rel_err"] for k in worst)
+            kernels.append(entry)
     emit("total", seconds=time.time() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,10 @@
 // the products are plain f32 FMAs on CUDA cores.  A bf16 block widened to
 // f32 in registers is exact, so bf16 storage costs nothing in accuracy;
 // the hi/mid/lo split of x in the TPU kernels exists only because its
-// matrix unit multiplies in bf16.  No tensor-core path is used: TF32 would
-// bring back the ~1e-3 floor that stalls Lanczos.
+// matrix unit multiplies in bf16.  The SpMV kernels use no tensor-core path.
+// The rule for every kernel: no product of x in one TF32 or bf16 pass -- that
+// brings back the ~1e-3 floor that stalls Lanczos; the SpMM kernels do use
+// the tensor cores, compensated to f32 grade (spmm_common.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,11 +19,17 @@ wrapper               replaces (Pallas kernel / entry point)      source
                       ``sym_bsr_matmat_pallas``
 ====================  ==========================================  =====================
 
-and the precision rule ``_dot_mode``/``_sdot`` that all of them share
-(see ``csrc/spmv_common.cuh``): f32 or bf16 block storage, f32 x, f32
-FMA accumulation on CUDA cores, f32 output.  The SpMM kernels take the
-``(n, p)`` row-major panels the block solvers hold, for any p >= 1 (see
-``csrc/spmm_common.cuh``).
+and the precision rule ``_dot_mode``/``_sdot`` that all of them share:
+f32 or bf16 block storage, f32 x, f32 accumulation, f32 output.  The SpMV
+kernels multiply with f32 FMAs on CUDA cores (``csrc/spmv_common.cuh``).
+The SpMM kernels take the ``(n, p)`` row-major panels the block solvers
+hold, for any p >= 1, and multiply on the tensor cores with ``mma.sync``,
+compensated to f32 grade (``csrc/spmm_common.cuh``): with bf16 blocks X is
+split into three bf16 parts (what ``_sdot`` does), with f32 blocks both
+sides are split into a TF32 big and small part (3xTF32).  No product of X is
+ever taken in one TF32 or bf16 pass.  ``spmm_split_model`` repeats that
+arithmetic in plain PyTorch for the tests and the card-only checks; no entry
+point calls it.
 
 How the kernels reach Python: each ``.cu`` file is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, at first
@@ -270,6 +276,80 @@ def _check_sym(sym, what: str) -> tuple[int, int, int]:
     _check_blocks(sym.diag_data, what)
     _check_blocks(sym.upper_data, what)
     return nbr, ku, bn
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the SpMM kernels, in plain PyTorch.  Not part of the
+# port's surface (left out of __all__) and called by no entry point: the CPU
+# tests hold this model to the f64 product and to the reference's split, and
+# the card-only checks hold the kernels to the model.
+# ---------------------------------------------------------------------------
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as hi + mid + lo, each exactly representable in bf16
+    (returned as f32), as the bf16 route of the SpMM kernels splits a panel
+    of X and as ``_sdot`` of the reference does: 3 x 8 mantissa bits, so
+    the parts sum back to ``x`` bit-exactly."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).to(torch.float32)
+    lo = (rest - mid).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, lo
+
+
+#: the largest f32 that does not round up to infinity at 10 mantissa bits
+_TF32_TOP = float(torch.tensor(0x7F7FEFFF, dtype=torch.int32).view(torch.float32))
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as the two TF32 operands of the f32 route (3xTF32), made as
+    ``tf32_big`` and ``tf32_small`` of ``csrc/spmm_common.cuh`` make them:
+    big = ``x`` rounded to 10 mantissa bits (nearest, ties away from zero:
+    add half a unit, mask 13 bits; ``|x|`` held below the value that would
+    round to infinity), small = the exact remainder ``x - big`` with its 13
+    low mantissa bits masked."""
+    mask = -0x2000  # 0xffffe000
+    held = x.clamp(-_TF32_TOP, _TF32_TOP).contiguous()
+    big = ((held.view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    small = ((x - big).view(torch.int32) & mask).view(torch.float32)
+    return big, small
+
+
+def spmm_split_terms(op, X: torch.Tensor) -> list:
+    """The (blocks, part of X) pairs whose products the SpMM kernels add, in
+    the kernels' order, for a ``BSRMatrix`` or ``SymBSRMatrix`` with f32 or
+    bf16 blocks.  bf16 blocks: A lo, A mid, A hi over the three parts of X.
+    f32 blocks: small x big, big x small, big x big.  The last pair alone is
+    the one-pass product the kernels must never take."""
+    def with_blocks(fn):
+        if hasattr(op, "upper_data"):
+            return type(op)(fn(op.diag_data), fn(op.upper_data), op.upper_cols, op.shape,
+                            op.band_reach)
+        return type(op)(fn(op.data), op.block_cols, op.shape)
+
+    if op.dtype == torch.bfloat16:
+        lifted = op.astype(torch.float32)  # exact
+        hi, mid, lo = split_bf16x3(X)
+        return [(lifted, lo), (lifted, mid), (lifted, hi)]
+    if op.dtype == torch.float32:
+        big = with_blocks(lambda t: split_tf32(t)[0])
+        small = with_blocks(lambda t: split_tf32(t)[1])
+        x_big, x_small = split_tf32(X)
+        return [(small, x_big), (big, x_small), (big, x_big)]
+    raise EigenexError(f"spmm_split_terms: block storage {op.dtype} is not float32/bfloat16")
+
+
+def spmm_split_model(op, X: torch.Tensor) -> torch.Tensor:
+    """What the SpMM kernels compute, but for the rounding of their f32 sums:
+    the products of :func:`spmm_split_terms`, each exact (the plain version on
+    f64 copies), added in f64.  Returns f64.  Against the f64 product of the
+    unsplit operands it shows what the split leaves out; a kernel differs from
+    it by its own f32 accumulation only."""
+    plain = sym_bsr_spmm_plain if hasattr(op, "upper_data") else bsr_spmm_plain
+    Y = None
+    for blocks, part in spmm_split_terms(op, X):
+        term = plain(blocks.astype(torch.float64), part.double())
+        Y = term if Y is None else Y + term
+    return Y
 
 
 # ---------------------------------------------------------------------------

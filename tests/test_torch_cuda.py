@@ -4,7 +4,8 @@ full check on the card; this file holds the same comparisons at small sizes
 for a machine that has both a card and the test dependencies.
 
 Tolerance: relative error <= 1e-5 against the plain version on the same
-stored operator lifted to f32.
+stored operator lifted to f32; the SpMM kernels also <= 1e-6 per column
+against the plain-PyTorch model of their split products.
 """
 
 import numpy as np
@@ -79,6 +80,25 @@ def test_spmm_kernels_match_plain_versions(card, storage, p):
         assert float(torch.linalg.norm(Y - ref) / torch.linalg.norm(ref)) <= 1e-5
         assert torch.equal(wrapper(op, X.T.contiguous().T), Y)  # a transposed view is copied
     assert torch.equal(cuda_spmv.sym_bsr_spmm(sym, X), cuda_spmv.sym_bsr_spmm(sym, X))
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 8, 12])
+def test_spmm_kernels_compute_the_model_of_their_split_products(card, storage, p):
+    """The kernels against ``spmm_split_model``, the plain-PyTorch model the
+    CPU tests hold to the f64 product: the same split products, exact and
+    summed in f64, so every column agrees to 1e-6 of its norm (a dropped
+    third bf16 part would be 8e-6 off, a one-pass product 2e-4 or more), also
+    with column norms spread over twelve decades."""
+    bsr = banded(24, 128, 3, card).astype(storage)
+    sym = sym_bsr_from_bsr(bsr)
+    X = torch.randn((bsr.shape[1], p), device=card, generator=torch.Generator(card).manual_seed(2))
+    X = X * 10.0 ** torch.linspace(-6, 6, p, device=card)[None, :]
+    for wrapper, op in ((cuda_spmv.bsr_spmm, bsr), (cuda_spmv.sym_bsr_spmm, sym)):
+        Y = wrapper(op, X).double()
+        model = cuda_spmv.spmm_split_model(op, X).double()
+        err = torch.linalg.vector_norm(Y - model, dim=0) / torch.linalg.vector_norm(model, dim=0)
+        assert float(err.max()) <= 1e-6
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(card):

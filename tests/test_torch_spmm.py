@@ -17,6 +17,7 @@ take X as ``(nbc, p, bn)`` slabs with p a multiple of 8, so narrower panels
 are zero-padded to 8 columns for them, as the reference's dispatcher does.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ import torch
 
 from eigenex_tpu.ops.pallas_spmv import (
     _pick_ring_params_mm,
+    _sdot,
     _sym_ring_matmat_call,
     _sym_stream_matmat_call,
     bsr_matmat_pallas,
@@ -39,6 +41,10 @@ from eigenex_tpu_torch.ops.cuda_spmv import (
     bsr_spmv_plain,
     launch_counts,
     reset_launch_counts,
+    split_bf16x3,
+    split_tf32,
+    spmm_split_model,
+    spmm_split_terms,
     sym_bsr_spmm,
     sym_bsr_spmm_plain,
     sym_bsr_spmv_plain,
@@ -228,3 +234,136 @@ def test_sym_spmm_plain_against_to_dense_any_reach():
     want = sym.to_dense().double() @ X.double()
     got = sym_bsr_spmm_plain(sym, X).double()
     assert torch.allclose(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# -- the arithmetic of the CUDA SpMM kernels, modelled in plain torch -------------
+# The kernels multiply on the tensor cores and compensate to f32 grade: X in
+# three bf16 parts under bf16 blocks, both sides in a TF32 big and small part
+# under f32 blocks.  The helpers beside the kernels repeat the splits and the
+# products; here they are held to the f64 product, per column, at the limit
+# the kernels are held to on the card (1e-5).
+SPLIT_TOL = 1e-5
+KINDS = ["sym", "bsr"]
+
+
+def small_operator(kind, storage, dyadic=False, seed=12):
+    """8 block rows of 128x128, banded; dyadic blocks are bf16-exact."""
+    _, tdt = DTYPES[storage]
+    jbsr = sym_banded_bsr(8, 128, seed=seed)
+    if dyadic:
+        jbsr = JBSR(jnp.round(jbsr.data * 8) / 8, jbsr.block_cols, jbsr.shape)
+    if kind == "sym":
+        return port_sym(j_sym_bsr_from_bsr(jbsr), tdt)
+    return port_bsr(jbsr, tdt)
+
+
+def plain_of(op):
+    return sym_bsr_spmm_plain if hasattr(op, "upper_data") else bsr_spmm_plain
+
+
+def worst_column_error(Y, op, X):
+    """Largest relative error of a column of Y against the f64 product."""
+    want = plain_of(op)(op.astype(torch.float64), X.double())
+    err = torch.linalg.vector_norm(Y.double() - want, dim=0)
+    return float((err / torch.linalg.vector_norm(want, dim=0)).max())
+
+
+def test_split_bf16x3_parts_sum_back_bit_exactly():
+    rng = np.random.default_rng(40)
+    x = rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 6, 4096)
+    x = torch.as_tensor(x.astype(np.float32))
+    hi, mid, lo = split_bf16x3(x)
+    for part in (hi, mid, lo):
+        assert part.dtype == torch.float32
+        assert torch.equal(part.to(torch.bfloat16).to(torch.float32), part)
+    assert torch.equal(hi + mid + lo, x)
+    # hi alone is x to 8 bits: the single pass that must never be taken
+    assert float(((x - hi).abs() / x.abs()).max()) > 1e-3
+
+
+@pytest.mark.parametrize("decades", [0, 6, 30])
+def test_split_bf16x3_is_the_split_of_the_reference_sdot(decades, monkeypatch):
+    """The same numpy-seeded x through ``_sdot`` of the JAX package (mode
+    "split") and through the port's split: the operands ``_sdot`` hands to its
+    three bf16 passes are the port's hi, mid and lo, bit for bit.  ``_sdot``
+    leaves its third operand in f32 and lets the bf16 pass round it; it is
+    bf16-exact already, so nothing is lost there and the parts agree as f32."""
+    rng = np.random.default_rng(42 + decades)
+    x = (rng.standard_normal((8, 128)) * 10.0 ** rng.uniform(-decades, decades, (8, 128)))
+    x = x.astype(np.float32)
+    handed = []
+    dot_general = jax.lax.dot_general
+
+    def recording(lhs, rhs, *args, **kwargs):
+        handed.append(np.array(lhs))
+        return dot_general(lhs, rhs, *args, **kwargs)
+
+    monkeypatch.setattr(jax.lax, "dot_general", recording)
+    _sdot(jnp.asarray(x), jnp.eye(128, dtype=jnp.float32), ((1,), (0,)), "split")
+    monkeypatch.undo()
+    assert len(handed) == 3
+    for ours, theirs in zip(split_bf16x3(torch.as_tensor(x)), handed):
+        assert theirs.dtype == np.float32
+        assert np.array_equal(ours.numpy().view(np.int32), theirs.view(np.int32))
+    lo = torch.as_tensor(handed[2])
+    assert torch.equal(lo.to(torch.bfloat16).to(torch.float32), lo)
+
+
+def test_split_tf32_stays_finite_up_to_the_largest_f32():
+    """Rounding to 10 mantissa bits must not carry the largest finite values
+    to infinity (inf - inf in the small part would poison the product)."""
+    top = float(np.finfo(np.float32).max)
+    x = torch.tensor([top, -top, top * (1 - 2.0 ** -12), 1.0], dtype=torch.float32)
+    big, small = split_tf32(x)
+    assert bool(torch.isfinite(big).all()) and bool(torch.isfinite(small).all())
+    assert float(((x - big - small).abs() / x.abs()).max()) <= 2.0 ** -20
+
+
+def test_split_tf32_big_and_small_parts():
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal(4096) * 10.0 ** rng.uniform(-6, 6, 4096)
+    x = torch.as_tensor(x.astype(np.float32))
+    big, small = split_tf32(x)
+    for part in (big, small):  # 13 mantissa bits masked: TF32 operands
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rel = lambda d: float((d.abs() / x.abs()).max())
+    assert 1e-5 < rel(x - big) <= 2.0 ** -11        # round to nearest at 10 bits
+    assert rel(x - big - small) <= 2.0 ** -20       # the remainder, cut at 10 more bits
+    # a tie rounds away from zero, for either sign
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert torch.equal(split_tf32(tie)[0], torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]))
+
+
+@pytest.mark.parametrize("p", [1, 8, 12])
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_model_matches_f64_product_per_column(kind, storage, p):
+    op = small_operator(kind, storage)
+    X = torch.as_tensor(panel(op.shape[1], p, 50 + p))
+    Y = spmm_split_model(op, X)
+    assert Y.dtype == torch.float64 and Y.shape == (op.shape[0], p)
+    assert worst_column_error(Y, op, X) <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_model_badly_scaled_columns_dyadic_blocks(kind, storage):
+    """Columns of X spanning 1e-6..1e6 on bf16-exact blocks: every column is
+    right to 1e-5 of ITS norm, which a norm over the panel would not show."""
+    op = small_operator(kind, storage, dyadic=True)
+    scale = np.float32(10.0) ** np.linspace(-6, 6, 12, dtype=np.float32)
+    X = torch.as_tensor(panel(op.shape[1], 12, 60) * scale[None, :])
+    assert worst_column_error(spmm_split_model(op, X), op, X) <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_single_pass_model_misses_the_limit(kind, storage):
+    """The one-pass product (hi only, big x big only) is what the kernels must
+    not take; the per-column check sees it: over ten times the limit (TF32
+    keeps 11 bits of X, bf16 8)."""
+    op = small_operator(kind, storage, dyadic=True)
+    X = torch.as_tensor(panel(op.shape[1], 8, 61))
+    blocks, part = spmm_split_terms(op, X)[-1]  # the leading product alone
+    one_pass = plain_of(op)(blocks.astype(torch.float64), part.double())
+    assert worst_column_error(one_pass, op, X) > 10 * SPLIT_TOL
