@@ -38,14 +38,16 @@ on the CPU, and no kernel gives way to its plain version.  Without a CUDA
 device the script exits non-zero and prints no result.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, error, times and bound
-(``sym_bsr_spmm`` twice: its f32 and its bf16 main case, each with the launches
-of the phases on that storage).
+(``sym_bsr_spmv`` and ``sym_bsr_spmm`` twice each: their f32 and their bf16 main
+case, each with the launches of the phases on that storage).  The ``kernels``
+line also gives each SpMV wrapper's host time per call.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
 is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated`` and
 ``lobpcg_banded`` solves under ``torch.profiler`` and prints the device's busy and idle share and
 the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``), and the device
-time of each kernel of one SpMM product at the main-path shapes (phase ``profile_kernels``).
+time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
+``profile_kernels``).
 """
 
 from __future__ import annotations
@@ -152,12 +154,13 @@ ALSO_REPLACES = {
     ],
 }
 #: the cases whose times stand for a kernel in the result line: the shapes and
-#: storages its main paths give it, one entry of the line each.  sym_bsr_spmm has
+#: storages its main paths give it, one entry of the line each.  sym_bsr_spmv has
+#: two: f32 blocks (eigsh_banded) and bf16 blocks (eigsh_accelerated); sym_bsr_spmm
 #: two: the f32 12-column panel of LOBPCG, and the bf16 8-column block of the
 #: window filter, which carries most of its launches.
 MAIN_CASES = {
     "bsr_spmv": [("banded", " f32")],
-    "sym_bsr_spmv": [("banded", " f32")],
+    "sym_bsr_spmv": [("banded", " f32"), ("banded", " bf16")],
     "bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} ")],
     "sym_bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} "), ("banded", " bf16", f"p={WINDOW_WIDTH} ")],
 }
@@ -241,6 +244,21 @@ def far_reach_cols(nbr: int, distances) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # measuring
 # ---------------------------------------------------------------------------
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host time to queue one call: ``calls`` calls queued without a
+    synchronisation, on the host clock, divided by ``calls``.  The device
+    is idle at the start and 100 launches do not fill the launch queue, so
+    no call waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
 def time_ms(fn, count: int = TIMED_LAUNCHES, batch: int = 8, warm: int = 3) -> float:
     """Time of one call: median over ``count`` samples, each the CUDA-event
     time of ``batch`` back-to-back calls divided by ``batch``, warm.  Queuing a
@@ -319,30 +337,61 @@ def sym_spmm_work(sym, p: int) -> tuple[int, int, int]:
     return nbytes, 2 * (nbr + 2 * n_real) * b * b * p, 2 * n_real * b * p * 4
 
 
-def library_bsr_ms(bsr, x):
-    """Time of ``torch.sparse_bsr_tensor(...) @ x`` on the same operator: the
-    one PyTorch call that computes the general product.  Used nowhere in the
+def library_ms(lib, dtype, x, ref):
+    """Time of ``lib @ x`` for a ``torch.sparse_bsr_tensor`` ``lib`` with
+    blocks of ``dtype``, once it agrees with ``ref``, the plain version on the
+    same blocks lifted to f32 (1e-2 relative in bf16, where x is rounded to
+    bf16 for the call; 1e-4 in f32).  The yardstick only: used nowhere in the
     port.  Returns (ms or None, note)."""
-    nbr, kmax, bm, bn = bsr.data.shape
     try:
-        crow = torch.arange(0, (nbr + 1) * kmax, kmax, dtype=torch.int64, device=bsr.device)
-        cols, order = torch.sort(bsr.block_cols.long(), dim=1, stable=True)
-        values = torch.gather(bsr.data, 1, order[:, :, None, None].expand(-1, -1, bm, bn))
-        lib = torch.sparse_bsr_tensor(crow, cols.reshape(-1), values.reshape(-1, bm, bn),
-                                      size=bsr.shape)
         vector = x.ndim == 1
-        xcol = x.to(bsr.dtype)[:, None] if vector else x.to(bsr.dtype)
+        xcol = x.to(dtype)[:, None] if vector else x.to(dtype)
         y = (lib @ xcol).float()
-        lifted = bsr.astype(torch.float32)
-        ref = (cuda_spmv.bsr_spmv_plain(lifted, x)[:, None] if vector
-               else cuda_spmv.bsr_spmm_plain(lifted, x))
+        ref = ref[:, None] if vector else ref
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
-        if not rel < (1e-2 if bsr.dtype == torch.bfloat16 else 1e-4):
+        if not rel < (1e-2 if dtype == torch.bfloat16 else 1e-4):
             return None, f"library product disagrees (rel {rel:.2e})"
-        return (time_ms(lambda: lib @ xcol, count=5),
-                "torch.sparse_bsr_tensor @ " + ("x" if vector else "X"))
+        return time_ms(lambda: lib @ xcol, count=5), "torch.sparse_bsr_tensor @ " + ("x" if vector else "X")
     except (RuntimeError, NotImplementedError) as e:  # the yardstick only, never the port
         return None, f"not supported here: {str(e).splitlines()[0][:120]}"
+
+
+def library_bsr_ms(bsr, x):
+    """``library_ms`` of the general product: the ELL slots of ``bsr`` as a
+    ``torch.sparse_bsr_tensor``, columns sorted in each block row."""
+    nbr, kmax, bm, bn = bsr.data.shape
+    crow = torch.arange(0, (nbr + 1) * kmax, kmax, dtype=torch.int64, device=bsr.device)
+    cols, order = torch.sort(bsr.block_cols.long(), dim=1, stable=True)
+    values = torch.gather(bsr.data, 1, order[:, :, None, None].expand(-1, -1, bm, bn))
+    lib = torch.sparse_bsr_tensor(crow, cols.reshape(-1), values.reshape(-1, bm, bn), size=bsr.shape)
+    lifted = bsr.astype(torch.float32)
+    ref = (cuda_spmv.bsr_spmv_plain(lifted, x) if x.ndim == 1
+           else cuda_spmv.bsr_spmm_plain(lifted, x))
+    return library_ms(lib, bsr.dtype, x, ref)
+
+
+def library_sym_ms(sym, x):
+    """``library_ms`` of the symmetric product: PyTorch has no half storage,
+    so the operator is expanded to full storage -- the diagonal blocks, the
+    real upper blocks and their transposes, columns sorted in each block row
+    -- and that call reads about twice the blocks the kernel reads."""
+    nbr, ku, b, _ = sym.upper_data.shape
+    dev = sym.device
+    r = torch.arange(nbr, device=dev)
+    cols = sym.upper_cols.long()
+    real = cols > r[:, None]
+    rr, cc = r[:, None].expand(-1, ku)[real], cols[real]
+    upper = sym.upper_data[real]
+    rows, colsf = torch.cat([r, rr, cc]), torch.cat([r, cc, rr])
+    order = torch.argsort(rows * nbr + colsf)
+    blocks = torch.cat([sym.diag_data, upper, upper.transpose(1, 2)])[order].contiguous()
+    del upper
+    crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nbr), 0)
+    lib = torch.sparse_bsr_tensor(crow, colsf[order], blocks, size=sym.shape)
+    out = library_ms(lib, sym.dtype, x, cuda_spmv.sym_bsr_spmv_plain(sym.astype(torch.float32), x))
+    del lib, blocks
+    return out
 
 
 def check_kernel(name: str, case: str, op, x, peaks) -> dict:
@@ -371,6 +420,7 @@ def check_kernel(name: str, case: str, op, x, peaks) -> dict:
             fail(f"{name}[{case}]: two runs on the same input are not bit-equal")
         out["bit_equal_rerun"] = True
     out["kernel_ms"] = time_ms(lambda: wrapper(op, x))
+    out["host_us_per_call"] = host_us_per_call(lambda: wrapper(op, x))
     out["plain_ms"] = time_ms(lambda: plain(op, x))
     nbytes, flops = sym_work(op) if is_sym else bsr_work(op)
     out["ops_unit"] = OPS_UNIT[name, out["storage"]]
@@ -378,7 +428,9 @@ def check_kernel(name: str, case: str, op, x, peaks) -> dict:
     out["bytes"] = nbytes
     out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
     if is_sym:
-        out["library_ms"], out["library"] = None, "no single PyTorch call takes half storage"
+        out["library_ms"], out["library"] = library_sym_ms(op, x)
+        if out["library_ms"] is not None:
+            out["library"] += " on the operator expanded to full storage (about twice the blocks)"
     else:
         out["library_ms"], out["library"] = library_bsr_ms(op, x)
     out["launches"] = cuda_spmv.launch_counts()[name] - before  # this check's own launches
@@ -492,23 +544,26 @@ def profile_solve(fn) -> dict:
 
 
 def profile_product(op, X, calls: int = 40) -> dict:
-    """One SpMM product under ``torch.profiler``: the device time of each of
-    its kernels apart (pass 1, pass 2), which CUDA events around a launch
-    cannot tell from the gaps between them; beside it the events' time."""
+    """One product under ``torch.profiler``, ``matvec`` for a vector X and
+    ``matmat`` for a panel: the device time of each of its kernels apart
+    (pass 1 and pass 2 of an SpMM), which CUDA events around a launch cannot
+    tell from the gaps between them; beside it the events' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ms = time_ms(lambda: op.matmat(X))
+    product = op.matvec if X.ndim == 1 else op.matmat
+    ms = time_ms(lambda: product(X))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            op.matmat(X)
+            product(X)
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
             kernels[e.key[:80]] = us / max(e.count, 1)
-    return dict(storage=str(op.dtype).replace("torch.", ""), p=X.shape[1], ms_by_events=ms,
+    return dict(storage=str(op.dtype).replace("torch.", ""), p=1 if X.ndim == 1 else X.shape[1],
+                ms_by_events=ms,
                 us_a_launch_by_kernel=kernels, us_a_product=sum(kernels.values()))
 
 
@@ -695,6 +750,8 @@ def main() -> None:
              timed_samples=TIMED_LAUNCHES, calls_per_sample=8, cases=kernel_cases)
         if args.profile:
             emit("profile_kernels", products={
+                "sym_bsr_spmv banded f32": profile_product(sym32, x),
+                "sym_bsr_spmv banded bf16": profile_product(sym32.astype(torch.bfloat16), x),
                 "sym_bsr_spmm banded f32": profile_product(sym32, panels[MAIN_WIDTH]),
                 "sym_bsr_spmm banded bf16": profile_product(sym32.astype(torch.bfloat16),
                                                             panels[WINDOW_WIDTH]),

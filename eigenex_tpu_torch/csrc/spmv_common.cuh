@@ -1,6 +1,8 @@
-// Shared pieces of the block-sparse SpMV kernels (sm_90a, plain C ABI).
+// Shared pieces of the block-sparse SpMV kernels (sm_90a, plain C ABI): the
+// precision rule below for both, and the body of bsr_spmv.cu.
+// (sym_bsr_spmv.cu has a design of its own, described in its head.)
 //
-// Work decomposition used by both kernels: one CTA of 8 warps owns one
+// Work decomposition of bsr_spmv: one CTA of 8 warps owns one
 // block row.  A warp owns whole rows of a block (row i belongs to warp
 // i % 8); its 32 lanes stride the row with one 4-element load each, so a
 // warp-wide load covers 128 consecutive columns -- 512 contiguous bytes of

@@ -97,6 +97,9 @@ NVCC_FLAGS = (
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 #: columns covered by one warp-wide load (``kChunk`` in spmv_common.cuh)
 _CHUNK = 128
+#: rows of one unit of work of the symmetric SpMV kernel (``kRows`` in
+#: sym_bsr_spmv.cu); its scratch and arrival counts are sized by it
+SPMV_TILE_ROWS = 128
 #: columns of X one SpMM launch covers (``kMaxCols`` in spmm_common.cuh);
 #: the scratch of :func:`sym_bsr_spmm` is sized for one such chunk
 _MAX_COLS = 32
@@ -179,9 +182,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     # data, cols, x, y, nbr, kmax, bm, bn, storage, stream
     "bsr_spmv": ("eigenex_bsr_spmv", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # diag, upper, cols, col_ptr, slot_ids, x, y, tbuf, nbr, ku, b, storage, stream
+    # diag, upper, cols, col_ptr, slot_ids, ticket, x, y, tbuf, nbr, ku, b, storage, stream
     "sym_bsr_spmv": ("eigenex_sym_bsr_spmv",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # data, cols, X, Y, nbr, kmax, bm, bn, p, storage, stream
     "bsr_spmm": ("eigenex_bsr_spmm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # diag, upper, cols, col_ptr, slot_ids, X, Y, tbuf, nbr, ku, b, p, storage, stream
@@ -415,29 +418,56 @@ def sym_bsr_spmv_plain(sym, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(sym.shape[0])
 
 
+def sym_spmv_scratch_shape(nbr: int, ku: int, b: int) -> tuple[int, int, int, int]:
+    """Shape of the f32 scratch of :func:`sym_bsr_spmv`: one transposed
+    partial ``U[r,k]^T x_r`` per slot and row tile of ``SPMV_TILE_ROWS``
+    rows, ``(nbr, ku, b / SPMV_TILE_ROWS, b)``."""
+    return (nbr, ku, b // SPMV_TILE_ROWS, b)
+
+
+def _sym_spmv_workspace(sym) -> tuple:
+    """What :func:`sym_bsr_spmv` keeps on a container between calls: the
+    checks it passed, the scratch, the ticket counter of the kernel's units
+    (zero between launches), and the launch arguments that do not change
+    from call to call."""
+    nbr, ku, b = _check_sym(sym, "sym_bsr_spmv")
+    col_ptr, slot_ids = sym.column_index()
+    tbuf = torch.empty(sym_spmv_scratch_shape(nbr, ku, b), dtype=torch.float32, device=sym.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=sym.device)
+    head = (sym.diag_data.data_ptr(), sym.upper_data.data_ptr(), sym.upper_cols.data_ptr(),
+            col_ptr.data_ptr(), slot_ids.data_ptr(), ticket.data_ptr())
+    tail = (tbuf.data_ptr(), nbr, ku, b, _STORAGE[sym.dtype])
+    return head, tail, (tbuf, ticket)
+
+
 def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` for a :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`.
 
-    CUDA tensors launch the two-pass kernel of ``csrc/sym_bsr_spmv.cu``
-    (f32 or bf16 square blocks, b a multiple of 128, f32 x, any band
-    reach) or raise; CPU tensors take :func:`sym_bsr_spmv_plain`.  Two
-    calls on the same input give bit-equal results."""
+    CUDA tensors launch the kernel of ``csrc/sym_bsr_spmv.cu`` (f32 or bf16
+    square blocks, b a multiple of 128, f32 x, any band reach) or raise; CPU
+    tensors take :func:`sym_bsr_spmv_plain`.  Two calls on the same input
+    give bit-equal results.
+
+    The container is checked, and its scratch and ticket counter are
+    allocated, on the first call from each CUDA stream and kept on it
+    (:meth:`SymBSRMatrix.kernel_workspace`); calls on one stream are ordered,
+    so they share them, and calls on two streams use two sets."""
     if not sym.upper_data.is_cuda:
         return sym_bsr_spmv_plain(sym, x)
-    nbr, ku, bn = _check_sym(sym, "sym_bsr_spmv")
-    cols = sym.upper_cols
-    x = _kernel_vector(x, sym.shape[1], sym.device, "sym_bsr_spmv")
-    col_ptr, slot_ids = sym.column_index()
-    y = torch.empty(sym.shape[0], dtype=torch.float32, device=sym.device)
-    tbuf = torch.empty((nbr, ku, bn), dtype=torch.float32, device=sym.device)
+    device = sym.device
+    # the handle torch.cuda.current_stream(device).cuda_stream gives, without
+    # making a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    head, tail, _ = sym.kernel_workspace(("sym_bsr_spmv", stream),
+                                         lambda: _sym_spmv_workspace(sym))
+    x = _kernel_vector(x, sym.shape[1], device, "sym_bsr_spmv")
+    y = torch.empty(sym.shape[0], dtype=torch.float32, device=device)
     entry = _entry("sym_bsr_spmv")
-    with torch.cuda.device(sym.device):
-        code = entry(
-            sym.diag_data.data_ptr(), sym.upper_data.data_ptr(), cols.data_ptr(),
-            col_ptr.data_ptr(), slot_ids.data_ptr(), x.data_ptr(), y.data_ptr(),
-            tbuf.data_ptr(), nbr, ku, bn, _STORAGE[sym.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
+    if device.index == torch.cuda.current_device():
+        code = entry(*head, x.data_ptr(), y.data_ptr(), *tail, stream)
+    else:
+        with torch.cuda.device(device):
+            code = entry(*head, x.data_ptr(), y.data_ptr(), *tail, stream)
     _check_launch("sym_bsr_spmv", code)
     _launches["sym_bsr_spmv"] += 1
     return y

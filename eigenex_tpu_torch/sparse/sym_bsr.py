@@ -8,10 +8,12 @@ block twice (y[r] += B x[c], y[c] += B^H x[r]) halves the bytes streamed
 per matvec.
 
 On a CUDA tensor with f32 or bf16 storage :meth:`SymBSRMatrix.matvec`
-and :meth:`SymBSRMatrix.matmat` launch the two-pass kernels of
-:mod:`eigenex_tpu_torch.ops.cuda_spmv`; their second pass needs a
-column-sorted index of the real upper slots, which
-:meth:`SymBSRMatrix.column_index` builds once and caches.  On the CPU,
+and :meth:`SymBSRMatrix.matmat` launch the kernels of
+:mod:`eigenex_tpu_torch.ops.cuda_spmv`; they add the transposed partials
+per block column in the order of a column-sorted index of the real upper
+slots, which :meth:`SymBSRMatrix.column_index` builds once and caches, and
+the SpMV kernel keeps its scratch and a counter on the container
+(:meth:`SymBSRMatrix.kernel_workspace`).  On the CPU,
 and for f64/complex storage, the plain gather + einsum + ``index_add_``
 versions run; they are also the kernels' oracles.
 """
@@ -90,7 +92,7 @@ class SymBSRMatrix:
             self.upper_cols.to(device), self.shape, self.band_reach,
         )
 
-    # -- the column index of pass 2 --------------------------------------
+    # -- the column index of the transposed partials ----------------------
     def column_index(self) -> tuple[torch.Tensor, torch.Tensor]:
         """``(col_ptr, slot_ids)`` -- a column-sorted index of the REAL
         upper slots, built once on first use and cached.
@@ -138,6 +140,19 @@ class SymBSRMatrix:
         )
         object.__setattr__(self, "_column_index", index)
         return index
+
+    def kernel_workspace(self, key, make):
+        """Buffers a kernel keeps on this container between calls (scratch,
+        counters, launch arguments): made once per ``key`` by ``make()``
+        and cached, as :meth:`column_index` is."""
+        cache = self.__dict__.get("_kernel_workspaces")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_kernel_workspaces", cache)
+        found = cache.get(key)
+        if found is None:
+            found = cache[key] = make()
+        return found
 
     # -- compute ---------------------------------------------------------
     def _plain_matvec(self, x: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,66 @@ def test_kernels_match_plain_versions(card, storage, b):
     assert torch.equal(cuda_spmv.sym_bsr_spmv(sym, x), cuda_spmv.sym_bsr_spmv(sym, x))
 
 
+def sym_case(nbr, b, ku, kind, seed, device):
+    """SymBSR on the card: "banded" puts slot k at distance k + 1 (the last rows
+    end in padding slots: column 0, zero block); "hub" puts slot 0 of every row
+    in the last block column, which then receives partials from every row, and
+    the other slots at random columns above the diagonal."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    cols = np.zeros((nbr, ku), np.int64)
+    for r in range(nbr - 1):
+        if kind == "banded":
+            pick = [r + d for d in range(1, ku + 1) if r + d < nbr]
+        else:
+            rest = np.arange(r + 1, nbr - 1)
+            take = min(ku - 1, len(rest))
+            pick = [nbr - 1] + sorted(rng.choice(rest, size=take, replace=False).tolist())
+        cols[r, :len(pick)] = pick
+    real = torch.as_tensor(cols > np.arange(nbr)[:, None], device=device)
+    diag = torch.randn((nbr, b, b), generator=gen, device=device)
+    upper = torch.randn((nbr, ku, b, b), generator=gen, device=device) * real[:, :, None, None]
+    cols_t = torch.as_tensor(np.where(cols > np.arange(nbr)[:, None], cols, 0).astype(np.int32))
+    from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
+
+    return SymBSRMatrix((diag + diag.transpose(1, 2)) / 2, upper.contiguous(), cols_t.to(device),
+                        (nbr * b, nbr * b), -1)
+
+
+SYM_SPMV_CASES = {
+    # nbr, b, ku, kind: one block row; fewer rows than the grid has warps; rows
+    # that are no multiple of the grid's warps; 256- and 384-wide blocks; padding
+    # in the last rows; one block column that hears from every row
+    "nbr1": (1, 128, 1, "banded"),
+    "nbr3_b256": (3, 256, 2, "banded"),
+    "nbr1061": (1061, 128, 1, "banded"),
+    "nbr7_b384": (7, 384, 2, "hub"),
+    "padding_last_rows": (40, 128, 3, "banded"),
+    "hub_column": (300, 128, 3, "hub"),
+}
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SYM_SPMV_CASES))
+def test_sym_spmv_schedule(card, storage, case):
+    """Three back-to-back calls on different x, each against the plain version
+    and bit-equal on repeat: the scratch and the ticket counter that the
+    container keeps between launches start every launch afresh."""
+    sym = sym_case(*SYM_SPMV_CASES[case], seed=5, device=card).astype(storage)
+    gen = torch.Generator(card).manual_seed(6)
+    xs = [torch.randn(sym.shape[1], generator=gen, device=card) for _ in range(3)]
+    ys = [cuda_spmv.sym_bsr_spmv(sym, x) for x in xs]
+    lifted = sym.astype(torch.float32)
+    for x, y in zip(xs, ys):
+        ref = cuda_spmv.sym_bsr_spmv_plain(lifted, x)
+        assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    for x, y in zip(xs, ys):
+        assert torch.equal(cuda_spmv.sym_bsr_spmv(sym, x), y)
+    _, _, (_, ticket) = sym.kernel_workspace(
+        ("sym_bsr_spmv", torch.cuda.current_stream(card).cuda_stream), None)
+    assert int(ticket) == 0  # reset by the last unit of every launch
+
+
 @pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [1, 5, 12, 40])
 def test_spmm_kernels_match_plain_versions(card, storage, p):

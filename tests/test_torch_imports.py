@@ -69,10 +69,18 @@ def test_triton_is_never_imported_at_module_level(path):
 
 
 def test_kernel_sources_keep_torch_headers_out():
+    """No PyTorch headers, and no floating-point atomics (deterministic sums):
+    the only atomic is the integer ticket of the symmetric SpMV kernel's
+    units, declared ``int*``."""
+    import re
+
     for src in (PACKAGE / "csrc").iterdir():
         text = src.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text
-        assert "atomicAdd" not in text  # deterministic sums: no float atomics
+        assert not re.search(r"\b(red|atom)\.\S*f(16|32|64)", text)  # no float atomics in PTX
+        for target in re.findall(r"\batomic\w*\(\s*([A-Za-z_]\w*)", text):
+            assert target == "ticket", (src.name, target)
+            assert re.search(rf"\bint\*\s*{target}\b", text), (src.name, target)
 
 
 def test_importing_the_port_is_light():

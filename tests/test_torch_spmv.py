@@ -30,12 +30,14 @@ from eigenex_tpu.sparse.sym_bsr import SymBSRMatrix as JSym
 from eigenex_tpu.sparse.sym_bsr import sym_bsr_from_bsr as j_sym_bsr_from_bsr
 from eigenex_tpu_torch.convert import bsr_from_numpy, sym_bsr_from_numpy
 from eigenex_tpu_torch.ops.cuda_spmv import (
+    SPMV_TILE_ROWS,
     bsr_spmv,
     bsr_spmv_plain,
     launch_counts,
     reset_launch_counts,
     sym_bsr_spmv,
     sym_bsr_spmv_plain,
+    sym_spmv_scratch_shape,
 )
 from eigenex_tpu_torch.utils.exceptions import EigenexError
 
@@ -331,3 +333,76 @@ def test_column_index_rejects_block_not_above_diagonal(where):
     sym = sym_bsr_from_numpy(d, upper, cols, (nbr * b,) * 2, 1, device="cpu")
     with pytest.raises(EigenexError, match="at or below the diagonal"):
         sym.column_index()
+
+
+# -- the host side of the SpMV kernel's schedule: units and scratch ---------------
+def scattered_sym(nbr, ku, b, seed):
+    """Random columns above the diagonal, fewer in some rows (padding: column
+    0, zero block), and one column that every row above it reaches."""
+    rng = np.random.default_rng(seed)
+    cols = np.zeros((nbr, ku), np.int32)
+    upper = rng.standard_normal((nbr, ku, b, b)).astype(np.float32)
+    for r in range(nbr - 1):
+        avail = nbr - 2 - r  # columns r + 1 .. nbr - 2, beside the hub column nbr - 1
+        take = min(ku - 1, avail, int(rng.integers(0, ku)))
+        pick = sorted((r + 1 + rng.choice(avail, size=take, replace=False)).tolist()) if take else []
+        pick.append(nbr - 1)
+        cols[r, :len(pick)] = pick
+        upper[r, len(pick):] = 0
+    upper[nbr - 1] = 0  # the last block row has no block above the diagonal
+    d = rng.standard_normal((nbr, b, b)).astype(np.float32)
+    return sym_bsr_from_numpy((d + d.transpose(0, 2, 1)) / 2, upper, cols, (nbr * b,) * 2, -1,
+                              device="cpu")
+
+
+def scheduled(sym, x, order):
+    """The SpMV kernel's schedule in plain torch (f64): units of
+    SPMV_TILE_ROWS rows of a block row, taken in ``order``, each writing its
+    direct rows of y and one transposed partial per real slot into the
+    scratch of ``sym_spmv_scratch_shape``; then pass 2 adds each column's
+    partials in the order of the column index, row tiles in order."""
+    nbr, ku, b, _ = sym.upper_data.shape
+    tiles = b // SPMV_TILE_ROWS
+    tbuf = torch.full(sym_spmv_scratch_shape(nbr, ku, b), float("nan"), dtype=torch.float64)
+    y = torch.full((nbr, b), float("nan"), dtype=torch.float64)
+    xb = x.reshape(nbr, b).double()
+    diag, upper = sym.diag_data.double(), sym.upper_data.double()
+    for u in order:
+        r, t = divmod(int(u), tiles)
+        rows = slice(t * SPMV_TILE_ROWS, (t + 1) * SPMV_TILE_ROWS)
+        acc = diag[r, rows] @ xb[r]
+        for k in range(ku):
+            c = int(sym.upper_cols[r, k])
+            if c > r:  # padding slots are never read
+                acc += upper[r, k, rows] @ xb[c]
+                tbuf[r, k, t] = upper[r, k, rows].T @ xb[r, rows]
+        y[r, rows] = acc
+    col_ptr, slot_ids = sym.column_index()
+    flat = tbuf.reshape(nbr * ku, tiles, b)
+    for c in range(nbr):
+        for s in slot_ids[col_ptr[c]:col_ptr[c + 1]].tolist():
+            for t in range(tiles):
+                y[c] += flat[s, t]  # NaN if pass 1 left a listed partial unwritten
+    return y.reshape(-1)
+
+
+@pytest.mark.parametrize("b", [128, 256])
+@pytest.mark.parametrize("kind", ["far_reach", "scattered"])
+def test_spmv_units_and_scratch_against_to_dense(kind, b):
+    """Every partial that pass 2 reads was written by pass 1 (the scratch is
+    NaN-filled), the result is the dense product, and it does not depend on
+    the order in which the units ran."""
+    if kind == "far_reach":
+        sym = port_sym(far_reach_sym(10, b, 7, seed=2), torch.float32)
+    else:
+        sym = scattered_sym(10, 3, b, seed=4)
+        col_ptr, _ = sym.column_index()
+        assert int(col_ptr[-1] - col_ptr[-2]) == 9  # the hub column hears from every row
+    nbr, ku = sym.upper_cols.shape
+    assert sym_spmv_scratch_shape(nbr, ku, b) == (nbr, ku, b // SPMV_TILE_ROWS, b)
+    x = torch.as_tensor(vec(nbr * b, 9))
+    want = sym.to_dense().double() @ x.double()
+    units = nbr * (b // SPMV_TILE_ROWS)
+    results = [scheduled(sym, x, np.random.default_rng(seed).permutation(units)) for seed in range(3)]
+    assert torch.allclose(results[0], want, rtol=0, atol=1e-12 * float(want.abs().max()))
+    assert torch.equal(results[0], results[1]) and torch.equal(results[0], results[2])
