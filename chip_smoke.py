@@ -31,6 +31,14 @@ filter) through the SpMM kernels -- at full size:
                          the window set from the eigenvalues that phase returned.
 10. ``lobpcg_bsr``       a few LOBPCG iterations on the full-storage operator, so the
                          general SpMM kernel lies on a path.
+11. ``eigs_accelerated`` the general path at full width, BASELINE config 2: the upwind
+                         convection-diffusion stencil at nx = 316 (n = 99,856) ->
+                         ``eigs(k=4, which="LM", accelerate=True)``: a (3124, 5, 32, 128)
+                         f32 general pack on the general SpMV kernel.
+12. ``eigs_sigma``       GMRES shift-invert ``eigs(sigma=...)`` on the same stencil at a
+                         reduced nx = 128 (every outer matvec is a whole inner solve).
+13. ``eigsh_complex_accelerated``  a complex Hermitian hopping chain at n = 2^18 through
+                         the real embedding (n = 2^19, f32) on the symmetric SpMV kernel.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -43,9 +51,10 @@ case, each with the launches of the phases on that storage).  The ``kernels``
 line also gives each SpMV wrapper's host time per call.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
-is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated`` and
-``lobpcg_banded`` solves under ``torch.profiler`` and prints the device's busy and idle share and
-the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``), and the device
+is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated``,
+``lobpcg_banded`` and ``eigs_accelerated`` solves under ``torch.profiler`` and prints the
+device's busy and idle share and the kernels by time (phases ``profile``, ``profile_window``,
+``profile_lobpcg``, ``profile_eigs``), and the device
 time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
 ``profile_kernels``).
 """
@@ -54,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -65,7 +75,9 @@ import torch
 from eigenex_tpu_torch import (
     BlockLanczosEigenSolver,
     BlockLanczosOptions,
+    COOMatrix,
     accelerate,
+    eigs,
     eigsh,
     eigsh_window,
     jacobi_preconditioner,
@@ -107,6 +119,33 @@ WINDOW_RESID_LIMIT = 1e-4  # f64 host residual of every pair it returns, origina
 LOBPCG_BSR_ITERS = 12      # block iterations of phase lobpcg_bsr
 LOBPCG_BSR_RESID_LIMIT = 0.15   # relative residual of its pairs after those, plain version
 LOBPCG_BSR_AGREE = 1e-3    # the solver's residual norms (kernel) against the plain version's
+CD_NX = 316                # phase eigs_accelerated: BASELINE config 2, n = 316^2 = 99,856
+CD_CONV = 0.4              # its upwind convection coefficient
+CD_PACK = (3124, 5, 32, 128)  # ... and the general pack accelerate() must give it (f32)
+EIGS_K = 4                 # eigs(k, which="LM", tol, max_restarts) of phase eigs_accelerated
+EIGS_TOL = 1e-6
+EIGS_MAX_RESTARTS = 400    # not the default 100: in f32 the Krylov-Schur restarts of this operator
+                           # wander along its pseudospectrum before the four residual bounds meet
+                           # 1e-6 together, 28-276 restarts by start vector at nx = 100 on the CPU
+                           # (PERF.md); 100 were not enough on the card at nx = 316
+EIGS_RESID_LIMIT = 1e-4    # ||A x - lambda x|| / |lambda| of every pair, host f64, original triplets
+EIGS_BELOW_TOP = 5e-2      # each Re(lambda) at least the closed-form top minus this, and inside the
+                           # numerical range of A (which holds every Ritz value).  Not "within 5e-2 of
+                           # the closed-form top": the forward problem is ill-posed at nx = 316 (its
+                           # symmetrizer's condition is ~1e58), and f64 ARPACK already misses the
+                           # closed form by 0.04-0.08 at nx = 80-100 (PERF.md)
+SIGMA_NX = 128             # phase eigs_sigma: the same stencil at n = 16,384 (reduced: one outer
+                           # matvec is a whole GMRES solve)
+SIGMA = 8.5                # its shift: just above the spectrum (real parts <= 7.67), where GMRES(48)
+                           # converges in one cycle; at an interior 7.5 it stagnates and every
+                           # solve falls back to CGLS, which misses an f32 target (PERF.md)
+SIGMA_K = 2
+SIGMA_TOL = 1e-5
+SIGMA_INNER_TOL = 1e-5     # the GMRES target; the default (1e-2 of tol = 1e-7) is below f32's reach
+SIGMA_RESID_LIMIT = 1e-4
+CHAIN_N = 2 ** 18          # phase eigsh_complex_accelerated: complex Hermitian chain, embedded 2^19
+CHAIN_TOL = 1e-6
+CHAIN_RESID_LIMIT = 1e-4   # host complex128 ||H z - lambda z|| / |lambda| of the restored vector
 
 BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
@@ -154,12 +193,13 @@ ALSO_REPLACES = {
     ],
 }
 #: the cases whose times stand for a kernel in the result line: the shapes and
-#: storages its main paths give it, one entry of the line each.  sym_bsr_spmv has
+#: storages its main paths give it, one entry of the line each.  bsr_spmv: the
+#: (3124, 5, 32, 128) f32 pack of phase eigs_accelerated.  sym_bsr_spmv has
 #: two: f32 blocks (eigsh_banded) and bf16 blocks (eigsh_accelerated); sym_bsr_spmm
 #: two: the f32 12-column panel of LOBPCG, and the bf16 8-column block of the
 #: window filter, which carries most of its launches.
 MAIN_CASES = {
-    "bsr_spmv": [("banded", " f32")],
+    "bsr_spmv": [("config-2 pack", " f32")],
     "sym_bsr_spmv": [("banded", " f32"), ("banded", " bf16")],
     "bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} ")],
     "sym_bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} "), ("banded", " bf16", f"p={WINDOW_WIDTH} ")],
@@ -239,6 +279,72 @@ def far_reach_cols(nbr: int, distances) -> np.ndarray:
     rows = np.arange(nbr)[:, None]
     cols = rows + np.asarray(distances)[None, :]
     return np.where(cols < nbr, cols, 0)
+
+
+def convection_diffusion_coo(nx: int, conv: float = CD_CONV):
+    """5-point Laplacian + upwind convection on an nx x nx grid, BASELINE
+    config 2 (the operator of ``benchmarks/bench_arnoldi.py``): host triplets
+    (rows, cols, vals, n), row-major sorted."""
+    n = nx * nx
+    i = np.arange(nx)
+    jj, ii = np.meshgrid(i, i)  # ii: row block (y), jj: col (x)
+    u = (ii * nx + jj).ravel()
+    rows, cols, vals = [u], [u], [np.full(n, 4.0)]
+
+    def add(mask, dst_offset, val):
+        uu = u[mask.ravel()]
+        rows.append(uu)
+        cols.append(uu + dst_offset)
+        vals.append(np.full(len(uu), val))
+
+    add(ii > 0, -nx, -1.0 - conv)
+    add(ii < nx - 1, +nx, -1.0 + conv)
+    add(jj > 0, -1, -1.0 - conv)
+    add(jj < nx - 1, +1, -1.0 + conv)
+    r = np.concatenate(rows).astype(np.int64)
+    c = np.concatenate(cols).astype(np.int64)
+    v = np.concatenate(vals)
+    order = np.lexsort((c, r))
+    return r[order], c[order], v[order], n
+
+
+def convection_diffusion_top(nx: int, count: int, conv: float = CD_CONV) -> np.ndarray:
+    """The ``count`` largest eigenvalues of that operator in closed form: the
+    real Kronecker sum 4 + 2 sqrt(1 - c^2) (cos(i pi/(nx+1)) + cos(j pi/(nx+1)))."""
+    cg = np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    lam = 4 + 2 * np.sqrt(1 - conv**2) * (cg[:, None] + cg[None, :])
+    return np.sort(lam.ravel())[::-1][:count]
+
+
+def convection_diffusion_range(nx: int, conv: float = CD_CONV) -> tuple[float, float]:
+    """Bounds of the numerical range {x^H A x : |x| = 1} of that operator, which
+    holds every Ritz value of an orthogonal projection: (largest real part,
+    largest |imaginary part|), the extreme eigenvalues of its symmetric part
+    4 - (discrete 2-D Laplacian stencil) and of its skew part (2c in each of
+    the two directions)."""
+    cos1 = np.cos(np.pi / (nx + 1))
+    return 4 + 4 * cos1, 4 * conv * cos1
+
+
+def build_complex_hopping(n: int, seed: int = 0):
+    """Complex Hermitian hopping chain of ``benchmarks/bench_complex.py``:
+    H[i,i] real; H[i,i+1], H[i,i+2] random-phase hops (conjugate mirrors
+    stored).  Returns the full (both-triangle) triplets."""
+    rng = np.random.default_rng(seed)
+    diag = rng.standard_normal(n)
+    t1 = np.exp(1j * rng.uniform(0, 2 * np.pi, n - 1))
+    t2 = 0.5 * np.exp(1j * rng.uniform(0, 2 * np.pi, n - 2))
+    rows = [np.arange(n), np.arange(n - 1), np.arange(1, n), np.arange(n - 2), np.arange(2, n)]
+    cols = [np.arange(n), np.arange(1, n), np.arange(n - 1), np.arange(2, n), np.arange(n - 2)]
+    vals = [diag.astype(complex), t1, np.conj(t1), t2, np.conj(t2)]
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+def coo_on(r, c, v, n: int, dev) -> COOMatrix:
+    """The port's COO container of host triplets, on the card."""
+    return COOMatrix(torch.as_tensor(r.astype(np.int32)).to(dev),
+                     torch.as_tensor(c.astype(np.int32)).to(dev),
+                     torch.as_tensor(v).to(dev), (n, n))
 
 
 # ---------------------------------------------------------------------------
@@ -356,18 +462,39 @@ def library_ms(lib, dtype, x, ref):
         return None, f"not supported here: {str(e).splitlines()[0][:120]}"
 
 
+def retiled_bsr_tensor(bsr):
+    """The ELL slots of ``bsr`` as a ``torch.sparse_bsr_tensor``, columns
+    sorted in each block row.  PyTorch's CUDA BSR product takes square blocks
+    only, so (bm, bn) blocks are cut into g x g tiles, g = gcd(bm, bn): the
+    same stored entries, zeros included."""
+    nbr, kmax, bm, bn = bsr.data.shape
+    g = math.gcd(bm, bn)
+    rs, cs = bm // g, bn // g
+    # tile (s, t) of slot k of block row r -> block row r*rs + s, column cols[r,k]*cs + t
+    tiles = bsr.data.reshape(nbr, kmax, rs, g, cs, g).permute(0, 2, 1, 4, 3, 5)
+    tiles = tiles.reshape(nbr * rs, kmax * cs, g, g)
+    cols = (bsr.block_cols.long()[:, :, None] * cs + torch.arange(cs, device=bsr.device))
+    cols = cols.reshape(nbr, 1, kmax * cs).expand(-1, rs, -1).reshape(nbr * rs, kmax * cs)
+    cols, order = torch.sort(cols, dim=1, stable=True)
+    tiles = torch.gather(tiles, 1, order[:, :, None, None].expand(-1, -1, g, g))
+    width = kmax * cs
+    crow = torch.arange(0, (nbr * rs + 1) * width, width, dtype=torch.int64, device=bsr.device)
+    return torch.sparse_bsr_tensor(crow, cols.reshape(-1), tiles.reshape(-1, g, g), size=bsr.shape)
+
+
 def library_bsr_ms(bsr, x):
     """``library_ms`` of the general product: the ELL slots of ``bsr`` as a
-    ``torch.sparse_bsr_tensor``, columns sorted in each block row."""
-    nbr, kmax, bm, bn = bsr.data.shape
-    crow = torch.arange(0, (nbr + 1) * kmax, kmax, dtype=torch.int64, device=bsr.device)
-    cols, order = torch.sort(bsr.block_cols.long(), dim=1, stable=True)
-    values = torch.gather(bsr.data, 1, order[:, :, None, None].expand(-1, -1, bm, bn))
-    lib = torch.sparse_bsr_tensor(crow, cols.reshape(-1), values.reshape(-1, bm, bn), size=bsr.shape)
+    ``torch.sparse_bsr_tensor`` (:func:`retiled_bsr_tensor`)."""
+    lib = retiled_bsr_tensor(bsr)
     lifted = bsr.astype(torch.float32)
     ref = (cuda_spmv.bsr_spmv_plain(lifted, x) if x.ndim == 1
            else cuda_spmv.bsr_spmm_plain(lifted, x))
-    return library_ms(lib, bsr.dtype, x, ref)
+    ms, note = library_ms(lib, bsr.dtype, x, ref)
+    bm, bn = bsr.block_shape
+    if ms is not None and bm != bn:
+        g = math.gcd(bm, bn)
+        note += f" (blocks cut into {g}x{g} tiles: CUDA BSR takes square blocks)"
+    return ms, note
 
 
 def library_sym_ms(sym, x):
@@ -389,7 +516,11 @@ def library_sym_ms(sym, x):
     crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
     crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nbr), 0)
     lib = torch.sparse_bsr_tensor(crow, colsf[order], blocks, size=sym.shape)
-    out = library_ms(lib, sym.dtype, x, cuda_spmv.sym_bsr_spmv_plain(sym.astype(torch.float32), x))
+    lifted = sym.astype(torch.float32)
+    ref = (cuda_spmv.sym_bsr_spmv_plain(lifted, x) if x.ndim == 1
+           else cuda_spmv.sym_bsr_spmm_plain(lifted, x))
+    del lifted
+    out = library_ms(lib, sym.dtype, x, ref)
     del lib, blocks
     return out
 
@@ -503,8 +634,13 @@ def check_spmm(name: str, case: str, op, X, peaks) -> dict:
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
     out["bytes"], out["flops"] = nbytes, flops
     out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
-    if is_sym:
-        out["library_ms"], out["library"] = None, "no single PyTorch call takes half storage"
+    if is_sym and (p, out["storage"]) in ((MAIN_WIDTH, "float32"), (WINDOW_WIDTH, "bfloat16")):
+        out["library_ms"], out["library"] = library_sym_ms(op, X)
+        if out["library_ms"] is not None:
+            out["library"] += " on the operator expanded to full storage (about twice the blocks)"
+    elif is_sym:
+        out["library_ms"] = None
+        out["library"] = "timed at the main-path widths only (f32 p=12, bf16 p=8)"
     else:
         out["library_ms"], out["library"] = library_bsr_ms(op, X)
     out["launches"] = cuda_spmv.launch_counts()[name] - before  # this check's own launches
@@ -662,6 +798,18 @@ def main() -> None:
         fail(f"banded operator: band_reach {sym32.band_reach}, expected 1")
     setup_s = time.time() - t0
 
+    # BASELINE config 2, packed once: the main-path shape of the general SpMV
+    # kernel (phase kernels) and the operand of phase eigs_accelerated
+    if wanted("kernels") or wanted("eigs_accelerated"):
+        r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
+        coo_cd = coo_on(r_cd, c_cd, v_cd, n_cd, dev)
+        t0 = time.time()
+        acc_cd = accelerate(coo_cd)  # what eigs(coo_cd, accelerate=True) does first
+        cd_pack_s = time.time() - t0
+        if tuple(acc_cd.matrix.data.shape) != CD_PACK or acc_cd.matrix.dtype != torch.float32:
+            fail(f"config-2 pack: {tuple(acc_cd.matrix.data.shape)} {acc_cd.matrix.dtype}, "
+                 f"expected {CD_PACK} float32")
+
     kernel_cases: list[dict] = []
     # -- 3. kernels ----------------------------------------------------------
     if wanted("kernels"):
@@ -745,6 +893,13 @@ def main() -> None:
             spmm_cases("sym_bsr_spmm", f"scaled columns 1e-6..1e6, dyadic blocks reach=1 ku=1 {tag}",
                        sym_dy.astype(dt), scaled)
         del bsr_dy, sym_dy, scaled
+        # the general SpMV at the shape the general path gives it: the f32 pack
+        # accelerate() makes of BASELINE config 2 (phase eigs_accelerated)
+        cd_pack = acc_cd.matrix
+        x_cd = torch.randn(cd_pack.shape[1], generator=gen, device=dev)
+        kernel_cases.append(check_kernel(
+            "bsr_spmv", "config-2 pack " + "x".join(map(str, CD_PACK)) + " f32 (main path)",
+            cd_pack, x_cd, peaks))
         torch.cuda.empty_cache()
         emit("kernels", rel_tol=KERNEL_REL_TOL, model_rel_tol=MODEL_REL_TOL,
              timed_samples=TIMED_LAUNCHES, calls_per_sample=8, cases=kernel_cases)
@@ -757,8 +912,9 @@ def main() -> None:
                                                             panels[WINDOW_WIDTH]),
                 "bsr_spmm banded f32": profile_product(bsr32, panels[MAIN_WIDTH]),
                 "bsr_spmm banded bf16": profile_product(bsr32.astype(torch.bfloat16),
-                                                        panels[MAIN_WIDTH])})
-        del panels
+                                                        panels[MAIN_WIDTH]),
+                "bsr_spmv config-2 pack f32": profile_product(cd_pack, x_cd)})
+        del panels, cd_pack, x_cd
 
     main_launches = {name: 0 for name in cuda_spmv.KERNEL_SOURCES}
     per_phase: dict[str, dict] = {}
@@ -1025,6 +1181,133 @@ def main() -> None:
             fail(f"lobpcg_bsr: top Ritz value {lam[0]} against lambda_max {lam_max}")
         if counts != only_kernel("bsr_spmm", lobpcg_products(res)):
             fail(f"lobpcg_bsr: launches {counts} for {lobpcg_products(res)} block products")
+
+    # -- 11. eigs_accelerated: the general path at full width, BASELINE config 2 -------
+    if wanted("eigs_accelerated"):
+        import scipy.sparse as sp
+
+        n = n_cd
+        A64 = sp.csr_matrix((v_cd, (r_cd, c_cd)), shape=(n, n))
+        top = convection_diffusion_top(CD_NX, 10)
+        re_max, im_max = convection_diffusion_range(CD_NX)
+
+        def solve_eigs():
+            # eigs(coo_cd, accelerate=True) is accelerate(coo_cd), then this call
+            return eigs(acc_cd, k=EIGS_K, which="LM", tol=EIGS_TOL, max_restarts=EIGS_MAX_RESTARTS)
+
+        res, seconds, counts = drive("eigs_accelerated", acc_cd.matrix, solve_eigs)
+        X = np.asarray(res.eigenvectors, np.complex128)
+        lam = np.asarray(res.eigenvalues, np.complex128)
+        rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+        top_dist = [float(np.min(np.abs(top - l.real))) for l in lam]
+        # the largest residual bound of the tracked Schur vectors at every 10th restart,
+        # relative to the dominant |lambda|
+        bound_history = (np.asarray(res.trace.residuals[::10]) / np.abs(lam).max()).tolist()
+        in_strip = bool(np.all(lam.real >= top[0] - EIGS_BELOW_TOP) and np.all(lam.real <= re_max)
+                        and np.all(np.abs(lam.imag) <= im_max))
+        emit("eigs_accelerated", n=n, nnz=int(A64.nnz), nx=CD_NX, conv=CD_CONV, k=EIGS_K,
+             which="LM", tol=EIGS_TOL, converged=res.converged, termination=res.termination,
+             eigenvalues_re=lam.real.tolist(), eigenvalues_im=lam.imag.tolist(),
+             rel_residuals_f64_host=rr, resid_limit=EIGS_RESID_LIMIT,
+             closed_form_top=top[:EIGS_K].tolist(), distance_to_closed_form_top=top_dist,
+             numerical_range_re_max=re_max, numerical_range_abs_im_max=im_max,
+             below_top_limit=EIGS_BELOW_TOP, in_dominant_strip=in_strip,
+             matvecs=res.iterations, restarts=len(res.trace.residuals) - 1,
+             max_restarts=EIGS_MAX_RESTARTS, residual_bound_every_10th_restart=bound_history,
+             launches=counts, seconds=seconds, ms_per_matvec=seconds * 1e3 / max(res.iterations, 1),
+             pack=dict(acc_cd.stats), pack_seconds_wall=cd_pack_s)
+        if not res.converged:
+            fail(f"eigs_accelerated: not converged ({res.termination}) after {res.iterations} matvecs")
+        if X.shape != (n, EIGS_K) or not np.isfinite(X).all():
+            fail("eigs_accelerated: restored eigenvectors are not finite (n, k)")
+        if not max(rr) <= EIGS_RESID_LIMIT:
+            fail(f"eigs_accelerated: residual {max(rr):.3e} exceeds {EIGS_RESID_LIMIT}")
+        if not in_strip:
+            fail(f"eigs_accelerated: eigenvalues {lam.tolist()} outside the dominant strip: Re at "
+                 f"least {top[0] - EIGS_BELOW_TOP}, inside the numerical range (Re <= {re_max}, "
+                 f"|Im| <= {im_max})")
+        if counts != only_kernel("bsr_spmv", res.iterations):
+            fail(f"eigs_accelerated: launches {counts} for {res.iterations} matvecs")
+        if args.profile:
+            emit("profile_eigs", solve="eigs_accelerated", **profile_solve(solve_eigs))
+    if wanted("kernels") or wanted("eigs_accelerated"):
+        del acc_cd, coo_cd
+
+    # -- 12. eigs_sigma: GMRES shift-invert on the general kernel ---------------------
+    if wanted("eigs_sigma"):
+        import scipy.sparse as sp
+
+        r, c, v, n = convection_diffusion_coo(SIGMA_NX)
+        acc_s = accelerate(coo_on(r, c, v, n, dev))
+        A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
+        res, seconds, counts = drive(
+            "eigs_sigma", acc_s.matrix,
+            lambda: eigs(acc_s, k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL))
+        X = np.asarray(res.eigenvectors, np.complex128)
+        lam = np.asarray(res.eigenvalues, np.complex128)
+        rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+        st = res.inner_stats
+        emit("eigs_sigma", n=n, nx=SIGMA_NX, reduced=f"nx {SIGMA_NX} of {CD_NX}: each outer matvec "
+             "is a whole inner GMRES solve", sigma=SIGMA, sigma_moved_from=7.5, k=SIGMA_K,
+             tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL, converged=res.converged,
+             termination=res.termination, eigenvalues_re=lam.real.tolist(),
+             eigenvalues_im=lam.imag.tolist(), rel_residuals_f64_host=rr,
+             resid_limit=SIGMA_RESID_LIMIT, outer_matvecs=res.iterations,
+             inner_solves=st["applications"], inner_matvecs=st["matvecs"],
+             cgls_fallbacks=st["fallbacks"], cgls_iterations=st["iterations"],
+             launches=counts, seconds=seconds,
+             ms_per_matvec=seconds * 1e3 / max(st["matvecs"], 1),
+             closed_form_top=convection_diffusion_top(SIGMA_NX, 2).tolist(), pack=dict(acc_s.stats))
+        if res.termination == "inner_solve_failure":
+            fail("eigs_sigma: the inner solve failed (true residual check)")
+        if X.shape != (n, SIGMA_K) or not np.isfinite(X).all():
+            fail("eigs_sigma: restored eigenvectors are not finite (n, k)")
+        if not max(rr) <= SIGMA_RESID_LIMIT:
+            fail(f"eigs_sigma: residual {max(rr):.3e} exceeds {SIGMA_RESID_LIMIT}")
+        # every application of A inside the inner solves (and their residual checks)
+        # is one general SpMV; the true-residual check applies A to the real and the
+        # imaginary part of the eigenvector block: two general SpMM launches
+        want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+        want.update(bsr_spmv=st["matvecs"], bsr_spmm=2)
+        if counts != want:
+            fail(f"eigs_sigma: launches {counts}, expected {want}")
+        del acc_s
+
+    # -- 13. eigsh_complex_accelerated: the real embedding on the symmetric kernel -----
+    if wanted("eigsh_complex_accelerated"):
+        import scipy.sparse as sp
+
+        rc, cc, vc = build_complex_hopping(CHAIN_N, seed=SEED)
+        trip_c = (rc, cc, vc, (CHAIN_N, CHAIN_N))
+        t0 = time.time()
+        acc_c = accelerate(trip_c, symmetric=True)
+        pack_s = time.time() - t0
+        if not (acc_c.complexified and acc_c.symmetric and acc_c.matrix.dtype == torch.float32
+                and acc_c.n_work == 2 * CHAIN_N):
+            fail(f"eigsh_complex_accelerated: pack {acc_c.stats}")
+        res, seconds, counts = drive(
+            "eigsh_complex_accelerated", acc_c.matrix,
+            lambda: eigsh(acc_c, k=1, which="SA", tol=CHAIN_TOL, seed=SEED + 5))
+        H = sp.csr_matrix((vc, (rc, cc)), shape=(CHAIN_N, CHAIN_N))
+        lam = np.asarray(res.eigenvalues, np.float64)
+        Z = np.asarray(res.eigenvectors, np.complex128)
+        rr = (np.linalg.norm(H @ Z - Z * lam[None, :], axis=0) / np.abs(lam)).tolist()
+        emit("eigsh_complex_accelerated", n=CHAIN_N, n_embedded=acc_c.n_work, k=1, which="SA",
+             tol=CHAIN_TOL, pack={k: v for k, v in acc_c.stats.items()},
+             pack_seconds_host=pack_s, converged=res.converged, termination=res.termination,
+             eigenvalues=lam.tolist(), pairs_after_dedup=len(lam),
+             rel_residuals_c128_host=rr, resid_limit=CHAIN_RESID_LIMIT, matvecs=res.iterations,
+             launches=counts, seconds=seconds,
+             ms_per_matvec=seconds * 1e3 / max(res.iterations, 1))
+        if not res.converged:
+            fail(f"eigsh_complex_accelerated: not converged ({res.termination})")
+        if len(lam) != 1 or Z.shape != (CHAIN_N, 1) or not np.isfinite(Z).all():
+            fail(f"eigsh_complex_accelerated: {len(lam)} pairs after the dedup, expected one")
+        if not max(rr) <= CHAIN_RESID_LIMIT:
+            fail(f"eigsh_complex_accelerated: residual {max(rr):.3e} exceeds {CHAIN_RESID_LIMIT}")
+        if counts != only_kernel("sym_bsr_spmv", res.iterations):
+            fail(f"eigsh_complex_accelerated: launches {counts} for {res.iterations} matvecs")
+        del acc_c
 
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)

@@ -1,9 +1,11 @@
 """eigenex_tpu_torch -- the PyTorch/CUDA port of eigenex_tpu.
 
-Krylov and block eigensolvers over block-sparse operators on torch
-tensors, with hand-written CUDA kernels for the block-sparse matvec and
-multi-vector product on an NVIDIA Hopper card.  The JAX package ``eigenex_tpu`` is the reference; a module
-here sits at the same subpath as its counterpart there.
+Krylov, Krylov-Schur and block eigensolvers, CG/MINRES/CGLS/GMRES
+shift-invert inner solvers, and host f64 refinement over block-sparse
+operators on torch tensors, with hand-written CUDA kernels for the
+block-sparse matvec and multi-vector product on an NVIDIA Hopper card.
+The JAX package ``eigenex_tpu`` is the reference; a module here sits at
+the same subpath as its counterpart there.
 
 Importing this package imports ``torch`` and nothing else heavy: it
 builds no kernel, imports no ``triton`` and touches no CUDA device.  The
@@ -13,7 +15,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .core.operators import LinearOperator, aslinearoperator, identity_operator
-from .solvers.api import eigsh
+from .solvers.api import eigs, eigsh, svds
+from .solvers.arnoldi import ArnoldiEigenSolver, ArnoldiOptions, ArnoldiResult
 from .solvers.block_lanczos import BlockLanczosEigenSolver, BlockLanczosOptions
 from .solvers.chebyshev import (
     ChebyshevFilterOptions,
@@ -22,19 +25,39 @@ from .solvers.chebyshev import (
     chebyshev_filter_apply,
     eigsh_window,
 )
+from .solvers.cg import cg_solve, cgls_solve, minres_solve, shift_invert_operator
+from .solvers.gmres import gmres_solve, gmres_solve_jit, shift_invert_operator_general
 from .solvers.kpm import chebyshev_moments, eigenvalue_count, eigsh_range, spectral_density
+from .solvers.krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions
 from .solvers.lanczos import LanczosEigenSolver, LanczosOptions, LanczosResult
 from .solvers.lobpcg import LOBPCGOptions, LOBPCGSolver, lobpcg
 from .solvers.precond import jacobi_preconditioner
+from .solvers.refine import (
+    general_inverse_iteration_refine,
+    general_rayleigh_refine,
+    inverse_iteration_refine,
+    rayleigh_refine,
+)
 from .solvers.restart import ThickRestartLanczosEigenSolver, ThickRestartOptions
 from .sparse.accelerate import AcceleratedOperator, accelerate
 from .sparse.bsr import BSRMatrix, bsr_from_coo_arrays, bsr_from_dense
 from .sparse.coo import COOBuilder, COOMatrix, coo_from_dense
+from .sparse.realify import (
+    complex_from_real,
+    dedup_doubled_eigenvalues,
+    eigs_realified,
+    real_from_complex,
+    realify_coo,
+)
 from .sparse.sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
-from .utils.exceptions import EigenexError, LanczosError, OperatorError
+from .utils.exceptions import ArnoldiError, EigenexError, LanczosError, OperatorError
 
 __all__ = [
     "AcceleratedOperator",
+    "ArnoldiEigenSolver",
+    "ArnoldiError",
+    "ArnoldiOptions",
+    "ArnoldiResult",
     "BSRMatrix",
     "BlockLanczosEigenSolver",
     "BlockLanczosOptions",
@@ -43,6 +66,8 @@ __all__ = [
     "ChebyshevFilterOptions",
     "ChebyshevFilterSolver",
     "EigenexError",
+    "KrylovSchurArnoldiSolver",
+    "KrylovSchurOptions",
     "LOBPCGOptions",
     "LOBPCGSolver",
     "LanczosEigenSolver",
@@ -58,17 +83,35 @@ __all__ = [
     "aslinearoperator",
     "bsr_from_coo_arrays",
     "bsr_from_dense",
+    "cg_solve",
+    "cgls_solve",
     "chebyshev_bandpass_apply",
     "chebyshev_filter_apply",
     "chebyshev_moments",
+    "complex_from_real",
     "coo_from_dense",
+    "dedup_doubled_eigenvalues",
     "eigenvalue_count",
+    "eigs",
+    "eigs_realified",
     "eigsh",
     "eigsh_range",
     "eigsh_window",
+    "general_inverse_iteration_refine",
+    "general_rayleigh_refine",
+    "gmres_solve",
+    "gmres_solve_jit",
     "identity_operator",
+    "inverse_iteration_refine",
     "jacobi_preconditioner",
     "lobpcg",
+    "minres_solve",
+    "rayleigh_refine",
+    "real_from_complex",
+    "realify_coo",
+    "shift_invert_operator",
+    "shift_invert_operator_general",
     "spectral_density",
+    "svds",
     "sym_bsr_from_bsr",
 ]

@@ -1,21 +1,28 @@
-"""One-call eigensolver front end (scipy.sparse.linalg-style).
+"""One-call eigensolver front ends (scipy.sparse.linalg-style).
 
-Counterpart of ``eigsh`` in ``eigenex_tpu/solvers/api.py``: k extremal
-eigenpairs of a Hermitian operator, from a dense matrix, a
-``LinearOperator``, a sparse container
+Counterpart of ``eigsh`` and ``eigs`` in ``eigenex_tpu/solvers/api.py``:
+
+- :func:`eigsh` -- Hermitian: ``which`` in {"SA", "LA", "BE", "LM",
+  "SM"}, optional ``sigma`` (shift-invert through a MINRES inner solve).
+  Plain Lanczos when the subspace covers the problem, thick-restart
+  Lanczos otherwise; ``M=``/``preconditioner=`` route to the block
+  preconditioned LOBPCG solver.
+- :func:`eigs` -- general: ``which`` in {"LM", "SM", "LR", "SR", "LI",
+  "SI"} eigenpairs via Krylov-Schur; optional ``sigma`` (GMRES
+  shift-invert, ``which`` then applying to theta = 1/(lambda - sigma) as
+  in scipy).
+
+Both accept a dense matrix, a ``LinearOperator``, a sparse container
 (:class:`~eigenex_tpu_torch.sparse.coo.COOMatrix`,
 :class:`~eigenex_tpu_torch.sparse.bsr.BSRMatrix`,
 :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`) or an
-:class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`.
-Plain Lanczos runs when the subspace covers the problem, thick-restart
-Lanczos otherwise; ``M=``/``preconditioner=`` route to the block
-preconditioned LOBPCG solver.
+:class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`, real or
+complex (complex operands of ``accelerate=`` ride the real embedding).
+With a COOMatrix operand, ``refine=True`` polishes the returned pairs on
+the host in float64.
 
-Arguments of the JAX front end whose route is not ported yet --
-``sigma`` and ``which="SM"`` (shift-invert), ``mesh`` (the distributed
-solvers), ``refine`` (host f64 polish) -- raise
-``EigenexError("not ported yet: ...")``; none is silently ignored.
-``eigs`` and ``svds`` are not ported yet either.
+``mesh=`` (the distributed solvers) is not ported yet and raises
+``EigenexError("not ported yet: ...")``; so does ``svds``.
 """
 
 from __future__ import annotations
@@ -25,10 +32,12 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import EigenexError, not_ported
+from .gmres import shift_invert_operator_general
+from .krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions, _which_key
 from .lanczos import LanczosEigenSolver, LanczosOptions, LanczosResult
 from .restart import ThickRestartLanczosEigenSolver, ThickRestartOptions
 
-__all__ = ["eigsh"]
+__all__ = ["eigsh", "eigs", "svds"]
 
 
 def _resolve_operand(A, device) -> LinearOperator:
@@ -47,10 +56,31 @@ def _resolve_operand(A, device) -> LinearOperator:
     if isinstance(A, LinearOperator):
         if device is not None and A.device.type != torch.device(device).type:
             raise EigenexError(
-                f"the operator lives on {A.device}; eigsh was asked for {device}"
+                f"the operator lives on {A.device}; the solve was asked for {device}"
             )
         return A
     return aslinearoperator(A, device=device)
+
+
+def _coo_operand(A):
+    """The operand itself when it is a COOMatrix (the ``refine=`` input)."""
+    from ..sparse.coo import COOMatrix
+
+    return A if isinstance(A, COOMatrix) else None
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _default_inner_tol(inner_tol, tol, dtype) -> float:
+    """The shift-invert inner target: 1e-2 of the outer tolerance."""
+    if inner_tol is not None:
+        return inner_tol
+    from ..utils.tolerance import default_tolerance
+
+    outer = tol if tol is not None else default_tolerance(dtype)
+    return max(outer * 1e-2, 1e-14)
 
 
 def eigsh(
@@ -66,50 +96,58 @@ def eigsh(
     max_restarts: int = 200,
     max_iterations: int = 200,
     seed: int = 0,
+    inner_tol: float | None = None,
     mesh=None,
     refine: bool | int = False,
     v0=None,
     accelerate: bool = False,
     device=None,
 ) -> LanczosResult:
-    """k extremal eigenpairs of a Hermitian operator.
+    """k extremal (or sigma-targeted) eigenpairs of a Hermitian operator.
 
     which: "SA" (smallest algebraic), "LA" (largest algebraic), "BE"
-    (both ends, k split half/half with the extra pair on the high end) or
-    "LM" (largest magnitude -- both ends tracked, k selected by |lambda|).
-    Results are always in ascending-lambda order (scipy convention).
+    (both ends, k split half/half with the extra pair on the high end),
+    "LM" (largest magnitude -- both ends tracked, k selected by |lambda|)
+    or "SM" (smallest magnitude = shift-invert at sigma=0, scipy's own
+    recipe); ignored when ``sigma`` is given (returns the pairs nearest
+    sigma).  Results are always in ascending-lambda order (scipy
+    convention).
+    sigma: shift-invert target; every outer Lanczos matvec is a MINRES
+    solve of (A - sigma I) y = x (:func:`~eigenex_tpu_torch.solvers.cg.shift_invert_operator`).
     M: Hermitian positive-definite right-hand operator of the
     GENERALIZED problem ``A x = lambda M x`` -- routes to the block
     preconditioned LOBPCG solver
     (:func:`~eigenex_tpu_torch.solvers.lobpcg.lobpcg`), optionally with
     ``preconditioner`` (``T ~ A^-1`` applied blockwise); that route
-    takes ``which`` "SA" or "LA" only, no ``v0`` and no ``accelerate``,
-    and stops after ``max_iterations`` block iterations.
+    takes ``which`` "SA" or "LA" only, no ``v0``, no ``sigma`` and no
+    ``accelerate``, and stops after ``max_iterations`` block iterations.
     tol: convergence tolerance (None -> the dtype default).
     max_subspace: Krylov dimension kept in memory (None ->
     max(6*tracked + 32, 64), capped at n).
     max_restarts: thick-restart cycles before giving up.
     seed: seed of the random start vector when ``v0`` is None.
+    inner_tol: relative-residual target of the MINRES inner solve of
+    ``sigma`` (default 1e-2 of the outer tolerance).
+    refine: with a COOMatrix operand, polish the pairs on the host in f64
+    (:func:`~eigenex_tpu_torch.solvers.refine.inverse_iteration_refine`;
+    an int sets the iteration count).
     v0: initial Krylov vector (scipy parity); original-space for
     accelerated operands.
     accelerate: repack a scalar-sparse operand through
     :func:`eigenex_tpu_torch.sparse.accelerate.accelerate` (RCM reorder +
-    dense blocks in half storage) and solve in permuted space, restoring
-    eigenvectors to original coordinates.  An ``AcceleratedOperator``
-    operand takes this route implicitly.
+    dense blocks in half storage; complex Hermitian operands through the
+    real embedding) and solve in permuted space, restoring eigenvectors to
+    original coordinates.  An ``AcceleratedOperator`` operand takes this
+    route implicitly.
     device: where the solve runs.  None means: where the operand's
     tensors already live, and the card for host operands (numpy, scipy,
     triplets).  Pass ``device="cpu"`` to run on the CPU.
     """
     from ..sparse.accelerate import AcceleratedOperator
 
-    if sigma is not None or which == "SM":
-        raise not_ported("eigsh(sigma=) / which='SM' (shift-invert)")
     if mesh is not None:
         raise not_ported("eigsh(mesh=) (the distributed solvers)")
-    if refine:
-        raise not_ported("eigsh(refine=) (host float64 refinement)")
-    if which not in ("SA", "LA", "BE", "LM"):
+    if which not in ("SA", "LA", "BE", "LM", "SM"):
         raise EigenexError(
             f"which must be one of 'SA', 'LA', 'BE', 'LM', 'SM', got {which!r}"
         )
@@ -120,24 +158,35 @@ def eigsh(
             "accelerate=True cannot combine with M=/preconditioner= "
             "(the LOBPCG route consumes the operand directly)"
         )
+    coo = _coo_operand(A)
     if accelerate and not isinstance(A, AcceleratedOperator):
         from ..sparse.accelerate import accelerate as _accelerate_fn
 
         A = _accelerate_fn(A, symmetric=True, device=device)
     if isinstance(A, AcceleratedOperator):
         return _eigsh_accelerated(
-            A, k, which=which, tol=tol, max_subspace=max_subspace,
-            max_restarts=max_restarts, seed=seed, v0=v0,
+            A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
+            max_restarts=max_restarts, max_iterations=max_iterations, seed=seed,
+            inner_tol=inner_tol, refine=refine, v0=v0, coo=coo,
         )
 
     op = _resolve_operand(A, device)
     n = op.shape[0]
     if op.shape[0] != op.shape[1]:
         raise EigenexError("eigsh requires a square operator")
+    if which == "SM" and sigma is None:
+        # smallest magnitude = pairs nearest 0: the shift-invert machinery
+        # with sigma = 0 (scipy/ARPACK's own recommendation)
+        sigma = 0.0
 
     if lobpcg_route:
         if v0 is not None:
             raise EigenexError("v0= is not supported on the LOBPCG (M=/preconditioner=) route")
+        if sigma is not None:
+            raise EigenexError(
+                "M=/preconditioner= (the LOBPCG route) cannot be combined "
+                "with sigma= or mesh="
+            )
         if which not in ("SA", "LA"):
             raise EigenexError(
                 "the LOBPCG route targets spectrum extremes only: use "
@@ -155,7 +204,41 @@ def eigsh(
         res.eigenvalues = np.asarray(res.eigenvalues)[order]  # Lanczos routes
         if res.eigenvectors is not None:
             res.eigenvectors = res.eigenvectors[:, order.tolist()]
-        return res
+        return _maybe_refine_hermitian(res, coo, refine)
+
+    if sigma is not None:
+        # Shift-invert: pairs nearest sigma have the LARGEST |theta| of
+        # (A - sigma I)^-1 -- theta can be large positive (lambda just above
+        # sigma) or large negative (just below), so track BOTH spectral ends
+        # and pick by |theta|.  The inner solve is MINRES: short recurrence,
+        # no restart stagnation, and right for the indefinite (A - sigma I)
+        # that any interior sigma produces.
+        from .cg import shift_invert_operator
+
+        si = shift_invert_operator(
+            op, sigma, tol=_default_inner_tol(inner_tol, tol, op.dtype), solver="minres",
+            max_iters=min(4 * n, 10000),
+        )
+        m = min(max_subspace or max(4 * k + 16, 32), n)
+        kk = min(k, m // 2 - 1) if m // 2 - 1 > 0 else k
+        both_ends = tuple(range(kk)) + tuple(range(-kk, 0))
+        si_solver = LanczosEigenSolver(
+            si,
+            LanczosOptions(
+                max_eigenvalues=2 * kk, eigenvalue_indices=both_ends, tolerance=tol,
+                max_subspace=m, seed=seed,
+            ),
+        )
+        if v0 is not None:
+            si_solver.set_initial_vector(v0)
+        res = si_solver.compute()
+        theta = np.asarray(res.eigenvalues)
+        nonzero = np.abs(theta) > 0
+        lam_all = np.where(nonzero, float(np.real(sigma)) + 1.0 / np.where(nonzero, theta, 1.0),
+                           np.inf)
+        res = _select_nearest_sigma(res, lam_all, sigma, k)
+        res = _check_true_residuals(res, op, "eigsh sigma (MINRES shift-invert)", tol)
+        return _maybe_refine_hermitian(res, coo, refine)
 
     indices, n_track, lm_post = _which_indices(which, k)
     m = min(max_subspace or max(6 * n_track + 32, 64), n)
@@ -181,7 +264,7 @@ def eigsh(
     res = solver.compute()
     if lm_post:
         res = _postselect_lm(res, k)
-    return res
+    return _maybe_refine_hermitian(res, coo, refine)
 
 
 def _which_indices(which: str, k: int):
@@ -199,16 +282,49 @@ def _which_indices(which: str, k: int):
     return tuple(range(k)) + tuple(range(-k, 0)), 2 * k, True  # LM
 
 
+def _reordered(res: LanczosResult, lam, order) -> LanczosResult:
+    """``res`` with the pairs ``order`` picks, eigenvalues taken from ``lam``."""
+    vecs = res.eigenvectors[:, np.asarray(order).tolist()] if res.eigenvectors is not None else None
+    return LanczosResult(
+        eigenvalues=np.asarray(lam)[order],
+        eigenvectors=vecs,
+        iterations=res.iterations,
+        converged=res.converged,
+        termination=res.termination,
+        trace=res.trace,
+    )
+
+
 def _postselect_lm(res: LanczosResult, k: int) -> LanczosResult:
     """Keep the k largest-|lambda| pairs of the both-ends tracked set,
     returned in ascending order (scipy eigsh convention)."""
     lam = np.asarray(res.eigenvalues)
     pick = np.argsort(-np.abs(lam), kind="stable")[:k]
-    order = pick[np.argsort(lam[pick])]
-    vecs = res.eigenvectors[:, order.tolist()] if res.eigenvectors is not None else None
+    return _reordered(res, lam, pick[np.argsort(lam[pick])])
+
+
+def _select_nearest_sigma(res: LanczosResult, lam_all, sigma, k: int) -> LanczosResult:
+    """Keep the k pairs nearest sigma (ascending lambda order), dropping the
+    rest of the tracked both-ends Ritz set."""
+    pick = np.argsort(np.abs(lam_all - float(np.real(sigma))))[:k]
+    return _reordered(res, lam_all, pick[np.argsort(lam_all[pick])])
+
+
+def _maybe_refine_hermitian(res: LanczosResult, coo, refine) -> LanczosResult:
+    if not refine:
+        return res
+    if coo is None:
+        raise EigenexError("refine=True requires a COOMatrix operand")
+    if res.eigenvectors is None:
+        raise EigenexError("refine=True requires computed eigenvectors")
+    from .refine import inverse_iteration_refine
+
+    iters = int(refine) if not isinstance(refine, bool) else 2
+    lam, X, _ = inverse_iteration_refine(coo, res.eigenvectors, res.eigenvalues, iters=iters)
+    order = np.argsort(lam)
     return LanczosResult(
         eigenvalues=lam[order],
-        eigenvectors=vecs,
+        eigenvectors=X[:, order],
         iterations=res.iterations,
         converged=res.converged,
         termination=res.termination,
@@ -216,38 +332,317 @@ def _postselect_lm(res: LanczosResult, k: int) -> LanczosResult:
     )
 
 
-def _eigsh_accelerated(acc, k, *, which, tol, max_subspace, max_restarts, seed, v0) -> LanczosResult:
-    """eigsh route for an :class:`AcceleratedOperator`: solve over the
-    permuted+padded block container, then restore eigenvectors to
-    original coordinates.
-
-    The start vector is always padding-safe (zero in the structurally-
-    zero pad rows), so the Krylov space never leaves the embedded
-    subspace and no spurious pad eigenvalues enter the tracked set."""
+def _accelerated_v0(acc, v0, seed):
+    """The start vector of a solve on ``acc.matrix``: the embedded ``v0``,
+    or a random one that is zero on the padding rows.  Either way the
+    Krylov space never leaves the embedded subspace, so no spurious pad
+    eigenvalues enter the tracked set."""
     from ..sparse.accelerate import _padding_safe_v0
 
     if v0 is not None:
-        v0e = acc.embed(v0)
-    else:
-        v0e = _padding_safe_v0(
-            acc.n_work, acc.shape[0], acc.as_linear_operator().dtype, seed, acc.device
-        )
-    res = eigsh(
-        acc.matrix, k, which=which, tol=tol, max_subspace=max_subspace,
-        max_restarts=max_restarts, seed=seed, v0=v0e,
+        return acc.embed(v0)
+    return _padding_safe_v0(
+        acc.n_work, acc.shape[0], acc.as_linear_operator().dtype, seed, acc.device
     )
-    return _restore_accelerated(res, acc)
 
 
-def _restore_accelerated(res: LanczosResult, acc) -> LanczosResult:
-    """Shared tail of the accelerated routes: eigenvectors back through
-    the permutation, as a host array in original coordinates."""
+def _eigsh_accelerated(
+    acc, k, *, which, sigma, tol, max_subspace, max_restarts, max_iterations,
+    seed, inner_tol, refine, v0, coo,
+) -> LanczosResult:
+    """eigsh route for an :class:`AcceleratedOperator`: solve over the
+    permuted+padded block container, restore eigenvectors to original
+    coordinates, and (for complexified operands) collapse the doubled
+    spectrum of the real embedding."""
+    # complexified: every eigenvalue of H appears (up to) twice in the
+    # real embedding -- track 2k and dedup after restoring
+    mult = 2 if acc.complexified else 1
+    res = eigsh(
+        acc.matrix, mult * k, which=which, sigma=sigma, tol=tol,
+        max_subspace=max_subspace, max_restarts=max_restarts,
+        max_iterations=max_iterations, seed=seed, inner_tol=inner_tol,
+        v0=_accelerated_v0(acc, v0, seed),
+    )
+    return _restore_accelerated(res, acc, k, refine, coo)
+
+
+def _restore_accelerated(res: LanczosResult, acc, k, refine, coo) -> LanczosResult:
+    """Shared tail of the accelerated eigsh routes: eigenvectors back
+    through the permutation, as a host array in original coordinates; the
+    doubled spectrum of a complexified operand collapsed; optional
+    refinement on the original COO.
+
+    Pairs need not both converge (a clean Krylov space holds ONE vector
+    per 2-D embedded eigenspace; duplicates enter only via restarts and
+    rounding), so dedup goes by value-closeness AND vector overlap
+    (:func:`~eigenex_tpu_torch.sparse.accelerate.dedup_embedded_pairs`).
+    Any unit real vector alpha [Re v, Im v] + beta [-Im v, Re v] restores
+    to the unit complex eigenvector (alpha + i beta) v, so one
+    representative per group suffices."""
+    lam = np.asarray(res.eigenvalues)
     vecs = acc.restore(res.eigenvectors) if res.eigenvectors is not None else None
-    return LanczosResult(
-        eigenvalues=np.asarray(res.eigenvalues),
+    if acc.complexified:
+        from ..sparse.accelerate import dedup_embedded_pairs
+
+        keep = dedup_embedded_pairs(lam, vecs, keep_max=k)
+        lam = lam[keep]
+        if vecs is not None:
+            vecs = vecs[:, keep]
+            vecs = vecs / np.maximum(np.linalg.norm(vecs, axis=0), 1e-300)
+    res2 = LanczosResult(
+        eigenvalues=lam,
         eigenvectors=vecs,
         iterations=res.iterations,
         converged=res.converged,
         termination=res.termination,
         trace=res.trace,
     )
+    return _maybe_refine_hermitian(res2, coo, refine)
+
+
+def eigs(
+    A,
+    k: int = 6,
+    *,
+    which: str = "LM",
+    sigma=None,
+    tol: float | None = None,
+    max_subspace: int | None = None,
+    max_restarts: int = 100,
+    seed: int = 0,
+    inner_tol: float | None = None,
+    mesh=None,
+    refine: bool | int = False,
+    v0=None,
+    accelerate: bool = False,
+    device=None,
+):
+    """k eigenpairs of a general operator, selected by ``which``.
+
+    which: scipy ``eigs`` convention -- "LM" (largest magnitude, the
+    default), "SM", "LR"/"SR" (real part), "LI"/"SI" (imaginary part).
+    With ``sigma`` the selection applies to the shift-inverted spectrum
+    theta = 1/(lambda - sigma), matching scipy: the default "LM" means
+    nearest-sigma pairs; every outer matvec is then a GMRES solve
+    (:func:`~eigenex_tpu_torch.solvers.gmres.shift_invert_operator_general`).
+    inner_tol: GMRES target for ``sigma`` (default: 1e-2 of the outer
+    tolerance).  refine: with a COOMatrix operand, polish the returned
+    pairs with f64 complex inverse iteration
+    (:func:`~eigenex_tpu_torch.solvers.refine.general_inverse_iteration_refine`).
+    v0: initial Krylov vector (scipy parity; original-space for
+    accelerated operands).  accelerate: repack a scalar-sparse operand
+    through the RCM + block pipeline
+    (:func:`eigenex_tpu_torch.sparse.accelerate.accelerate`, 32x128
+    general blocks for a non-symmetric operator) and solve in permuted
+    space.  COMPLEX general operators ride the same path through the real
+    embedding [[A,-B],[B,A]]: the doubled spectrum {lambda} U {conj lambda}
+    is reconstructed and deduped on restore, as in
+    :func:`eigenex_tpu_torch.sparse.realify.eigs_realified`; ``sigma``
+    must be real on that route (the embedding is real).
+    device: as for :func:`eigsh`.
+
+    Returns an :class:`~eigenex_tpu_torch.solvers.arnoldi.ArnoldiResult`:
+    complex eigenvalues in ``which`` order, eigenvectors as a complex
+    tensor on the solve's device (a host array on the accelerated routes).
+    """
+    from ..sparse.accelerate import AcceleratedOperator
+
+    if mesh is not None:
+        raise not_ported("eigs(mesh=) (the distributed Krylov-Schur solvers)")
+    coo = _coo_operand(A)
+    if accelerate and not isinstance(A, AcceleratedOperator):
+        from ..sparse.accelerate import accelerate as _accelerate_fn
+
+        A = _accelerate_fn(A, device=device)
+    if isinstance(A, AcceleratedOperator):
+        route = _eigs_accelerated_complex if A.complexified else _eigs_accelerated
+        return route(
+            A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
+            max_restarts=max_restarts, seed=seed, inner_tol=inner_tol, refine=refine,
+            v0=v0, coo=coo,
+        )
+
+    op = _resolve_operand(A, device)
+    n = op.shape[0]
+    if op.shape[0] != op.shape[1]:
+        raise EigenexError("eigs requires a square operator")
+    if which not in ("LM", "SM", "LR", "SR", "LI", "SI"):
+        raise EigenexError(
+            f"which must be one of 'LM','SM','LR','SR','LI','SI', got {which!r}"
+        )
+    m = min(max_subspace or max(4 * k + 24, 48), n)
+    options = KrylovSchurOptions(
+        max_eigenvalues=k, tolerance=tol, max_subspace=m, max_restarts=max_restarts,
+        seed=seed, which=which,
+    )
+    if sigma is not None:
+        si = shift_invert_operator_general(
+            op, sigma, tol=_default_inner_tol(inner_tol, tol, op.dtype))
+        ks = KrylovSchurArnoldiSolver(si, options)
+        if v0 is not None:
+            ks.set_initial_vector(v0)
+        res = ks.compute()
+        res.inner_stats = si.stats
+        # theta already which-ordered by the solver (scipy: which applies to
+        # the transformed spectrum theta = 1/(lambda - sigma)); back-transform
+        res.eigenvalues = complex(sigma) + 1.0 / res.eigenvalues
+        res = _check_true_residuals(res, op, "eigs sigma (GMRES shift-invert)", tol)
+        return _maybe_refine_general(res, coo, refine, which, sigma)
+    ks = KrylovSchurArnoldiSolver(op, options)
+    if v0 is not None:
+        ks.set_initial_vector(v0)
+    res = ks.compute()
+    return _maybe_refine_general(res, coo, refine, which)
+
+
+def _maybe_refine_general(res, coo, refine, which: str | None = None, sigma=None):
+    """Refinement keeps the route's ordering: on the sigma routes ``which``
+    applies to theta = 1/(lambda - sigma) (scipy), so the refined pairs are
+    re-sorted by the same transformed key."""
+    if not refine:
+        return res
+    if coo is None:
+        raise EigenexError("refine=True requires a COOMatrix operand")
+    if res.eigenvectors is None:
+        raise EigenexError("refine=True requires computed eigenvectors")
+    from .refine import general_inverse_iteration_refine
+
+    iters = int(refine) if not isinstance(refine, bool) else 60
+    lam, X, _ = general_inverse_iteration_refine(
+        coo, res.eigenvectors, np.asarray(res.eigenvalues), iters=iters
+    )
+    if sigma is not None:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            key_vals = 1.0 / (lam - complex(sigma))
+    else:
+        key_vals = lam
+    order = np.argsort(_which_key(key_vals, which or "LM"), kind="stable")
+    res.eigenvalues = lam[order]
+    res.eigenvectors = X[:, order]
+    return res
+
+
+def _eigs_accelerated(
+    acc, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
+    refine, v0, coo,
+):
+    """eigs route for a (real) :class:`AcceleratedOperator`: solve over the
+    permuted+padded block container with a padding-safe start, restore
+    eigenvectors to original coordinates (host array)."""
+    res = eigs(
+        acc.matrix, k, which=which, sigma=sigma, tol=tol,
+        max_subspace=max_subspace, max_restarts=max_restarts, seed=seed,
+        inner_tol=inner_tol, v0=_accelerated_v0(acc, v0, seed),
+    )
+    if res.eigenvectors is not None:
+        res.eigenvectors = acc.restore(res.eigenvectors)
+    return _maybe_refine_general(res, coo, refine, which, sigma)
+
+
+def _eigs_accelerated_complex(
+    acc, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
+    refine, v0, coo,
+):
+    """eigs for a COMPLEXIFIED (complex general) AcceleratedOperator.
+
+    The packed container is the real embedding [[A,-B],[B,A]], whose
+    spectrum is {lambda} U {conj lambda}.  Krylov-Schur runs in real
+    arithmetic on the block kernels; each computed pair (theta, q)
+    reconstructs the genuine A-pair as z = q_top + i q_bot (norm ~ sqrt(2)
+    |c| for a genuine pair, ~0 for a mirror pair, whose A-pair is instead
+    (conj theta, conj reconstruction)).  2k pairs are tracked so A's k best
+    under ``which`` are among the embedded 2k (the conj mirrors can shadow
+    at most k slots)."""
+    from ..sparse.realify import _genuine_pairs
+
+    if sigma is not None and abs(complex(sigma).imag) > 0:
+        raise EigenexError(
+            "eigs(accelerate=True) on a complex operator supports REAL "
+            "sigma only (the iteration runs on the real embedding); for "
+            "complex shifts use the scalar eigs_realified path"
+        )
+    n = acc.orig_shape[0]
+    res = eigs(
+        acc.matrix, min(2 * k, max(acc.n_work - 2, 1)), which=which,
+        sigma=sigma, tol=tol, max_subspace=max_subspace,
+        max_restarts=max_restarts, seed=seed, inner_tol=inner_tol,
+        v0=_accelerated_v0(acc, v0, seed),
+    )
+    theta = np.asarray(res.eigenvalues, np.complex128)
+    if res.eigenvectors is None:
+        raise EigenexError("complexified eigs needs eigenvectors to split the embedding")
+    Q = _host(res.eigenvectors).astype(np.complex128)  # (n_pad, p)
+    op = acc.as_linear_operator()
+    kept = _genuine_pairs(
+        theta, Q, acc.restore,  # restore: q_top + i q_bot through the permutation
+        # A z through the packed real embedding (embed realifies, permutes, pads)
+        lambda z: acc.restore(op.matvec(acc.embed(z))), tol)
+    lam_all = np.array([t[0] for t in kept], np.complex128)
+    if sigma is not None:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            keyv = 1.0 / (lam_all - complex(sigma))
+    else:
+        keyv = lam_all
+    order = np.argsort(_which_key(keyv, which), kind="stable")[:k]
+    res.eigenvalues = lam_all[order]
+    res.eigenvectors = (
+        np.stack([kept[i][1] for i in order], axis=1)
+        if len(order)
+        else np.zeros((n, 0), np.complex128)
+    )
+    return _maybe_refine_general(res, coo, refine, which, sigma)
+
+
+def svds(A, k: int = 6, **kwargs):
+    """Truncated SVD front end of the JAX package (the Gram pipeline over
+    rectangular packs): not ported yet."""
+    raise not_ported("svds (the Gram pipeline, rectangular packs)")
+
+
+def _check_true_residuals(res, op, label: str, user_tol: float | None = None):
+    """Post-hoc honesty check for the shift-invert routes: measure the true
+    eigenpair residuals ||A v - lambda v|| on the ORIGINAL operator.
+
+    A silently failed inner solve makes the outer iteration converge
+    cleanly to eigenpairs of the wrong operator; the residual on A is the
+    only signal.  The check costs one product with the eigenvector block
+    (two, real and imaginary parts, for complex vectors on a real
+    operator) and turns a failure into ``converged=False`` + an ERROR
+    trace entry instead of wrong numbers."""
+    from ..utils.tolerance import default_tolerance
+    from ..utils.trace import Severity
+
+    if res.eigenvectors is None:
+        return res
+    lam = np.asarray(res.eigenvalues)
+    if lam.size == 0 or not np.all(np.isfinite(lam)):
+        return res
+    V = torch.as_tensor(res.eigenvectors).to(op.device)
+    if V.is_complex() and not op.dtype.is_complex:
+        AV = (_host(op.matmat(V.real.to(op.dtype).contiguous())).astype(np.complex128)
+              + 1j * _host(op.matmat(V.imag.to(op.dtype).contiguous())))
+    else:
+        AV = _host(op.matmat(V.to(op.dtype)))
+    Vn = _host(V)
+    resid = np.linalg.norm(AV - Vn * lam[None, :], axis=0) / np.maximum(
+        np.linalg.norm(Vn, axis=0), 1e-300
+    )
+    scale = max(float(np.max(np.abs(lam))), 1.0)
+    rel = float(np.max(resid)) / scale
+    # honour a LOOSER user-requested tolerance: a run converged to tol=1e-3
+    # must not be flagged as an inner-solve failure by the dtype floor
+    threshold = max(1e-6, 100.0 * default_tolerance(op.dtype))
+    if user_tol is not None:
+        threshold = max(threshold, 100.0 * float(user_tol))
+    res.trace.log(
+        Severity.INFO, f"{label}: max true eigenpair residual {rel:.3e} (relative)"
+    )
+    if not np.isfinite(rel) or rel > threshold:
+        res.converged = False
+        res.termination = "inner_solve_failure"
+        res.trace.log(
+            Severity.ERROR,
+            f"{label}: true residual {rel:.3e} exceeds {threshold:.1e} -- the "
+            "shift-invert inner solve failed; returned eigenpairs are unreliable",
+        )
+    return res

@@ -1,15 +1,16 @@
 """Scalar-sparse acceleration: band-reducing reorder + dense-block packing.
 
-Counterpart of the symmetric real route of
-``eigenex_tpu/sparse/accelerate.py``.  A scalar COO matvec is a
-gather/scatter that moves a few bytes per request; the card's bandwidth
-only flows through dense tiles.  This module is the bridge from "born
-scalar" to the block kernels of :mod:`eigenex_tpu_torch.ops.cuda_spmv`:
+Counterpart of the square routes of ``eigenex_tpu/sparse/accelerate.py``.
+A scalar COO matvec is a gather/scatter that moves a few bytes per
+request; the card's bandwidth only flows through dense tiles.  This
+module is the bridge from "born scalar" to the block kernels of
+:mod:`eigenex_tpu_torch.ops.cuda_spmv`:
 
 1. **Reorder** -- a reverse Cuthill-McKee permutation over the
    (symmetrised) pattern concentrates entries near the diagonal.
 2. **Pack** -- the permuted triplets densify into 128x128 blocks in
-   diagonal + strictly-upper (SymBSR) storage.  bf16 storage is
+   diagonal + strictly-upper (SymBSR) storage, or, for a non-symmetric
+   operator, into 32x128 general BSR-ELL blocks.  bf16 storage is
    auto-selected only when *lossless* (every value round-trips bf16
    exactly -- dyadic couplings do), and the kernels widen bf16 blocks to
    f32 in registers, so bf16 storage never degrades Krylov convergence.
@@ -24,10 +25,16 @@ subspace, so no spurious eigenvalues enter the computed spectrum
 (:meth:`AcceleratedOperator.embed` and :func:`_padding_safe_v0` build
 such vectors).
 
+Complex operators ride the same pipeline through the real embedding
+[[A,-B],[B,A]] (:mod:`eigenex_tpu_torch.sparse.realify`): a complex
+Hermitian operator becomes real symmetric and reaches the half-storage
+kernel; a complex general one becomes a real general operator.
+
 The host stages use numpy and scipy only (the JAX package's route for
 machines without a C++ toolchain); the native C++ packers are not ported
-yet.  Also not ported yet, and raising as such: complex operands (the
-real embedding), the general and rectangular packs, ``save``/``load``.
+yet.  Also not ported yet, and raising as such: rectangular operands and
+the pieces of the ``svds`` pipeline (``embed_left``, ``restore_right``,
+``adjoint_matrix``), ``save``/``load``.
 """
 
 from __future__ import annotations
@@ -46,9 +53,10 @@ from ..utils.prng import make_generator, random_vector
 from ..utils.tolerance import as_torch_dtype
 from .bsr import BSRMatrix, _pack_bsr_host
 from .coo import COOMatrix
+from .realify import realify_coo
 from .sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
 
-__all__ = ["AcceleratedOperator", "accelerate", "band_permutation"]
+__all__ = ["AcceleratedOperator", "accelerate", "band_permutation", "dedup_embedded_pairs"]
 
 
 def _as_host_triplets(A) -> tuple[np.ndarray, np.ndarray, np.ndarray, tuple[int, int]]:
@@ -218,6 +226,14 @@ def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device) -> SymBSR
     )
 
 
+def _pack_general(r, c, v, m_pad, n_pad, bm, bn, dtype: torch.dtype, device) -> BSRMatrix:
+    """Permuted triplets -> general BSR-ELL with (bm, bn) blocks, packed
+    on the host in f32 and cast there to the storage dtype."""
+    data, block_cols, _ = _pack_bsr_host(r, c, v.astype(np.float32), (m_pad, n_pad), (bm, bn))
+    return BSRMatrix(_host_cast(data, dtype, device), torch.as_tensor(block_cols).to(device),
+                     (m_pad, n_pad))
+
+
 def _padding_safe_v0(orig_n: int, padded_n: int, dtype, seed: int, device) -> torch.Tensor:
     """Random start vector supported on the ORIGINAL coordinates only.
 
@@ -241,12 +257,15 @@ class AcceleratedOperator:
     vectors in and :meth:`restore` carries results back (one host-side
     permutation each -- never a per-matvec gather)."""
 
-    matrix: Any  # SymBSRMatrix, permuted + padded
+    matrix: Any  # SymBSRMatrix | BSRMatrix, permuted + padded
     perm: np.ndarray  # (n_work,) original index at permuted position i
-    orig_shape: tuple[int, int]  # user-facing shape
+    orig_shape: tuple[int, int]  # user-facing shape (before the embedding)
     symmetric: bool
-    complexified: bool  # always False until the real embedding is ported
+    complexified: bool  # True: ``matrix`` is the real embedding (dim 2n)
     stats: dict
+    #: PERMUTED host triplets, kept for general packs only (the JAX package
+    #: packs A^H from them for ``svds``, which is not ported yet)
+    host_triplets: Any = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -255,7 +274,7 @@ class AcceleratedOperator:
 
     @property
     def n_work(self) -> int:
-        """Unpadded working dimension."""
+        """Unpadded working dimension (2n for complexified)."""
         return len(self.perm)
 
     @property
@@ -273,7 +292,8 @@ class AcceleratedOperator:
 
     def embed(self, v) -> torch.Tensor:
         """Original-space (n,) or (n, k) vector(s) -> permuted,
-        zero-padded tensor on the operator's device."""
+        zero-padded tensor on the operator's device.  Complex inputs
+        realify to [Re v; Im v] first when the operator was complexified."""
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         squeeze = v.ndim == 1
         if squeeze:
@@ -282,7 +302,9 @@ class AcceleratedOperator:
             raise EigenexError(
                 f"embed expects length {self.orig_shape[1]}, got {v.shape[0]}"
             )
-        if np.iscomplexobj(v):
+        if self.complexified:
+            v = np.concatenate([v.real, v.imag], axis=0)
+        elif np.iscomplexobj(v):
             raise EigenexError("complex vector for a real operator")
         out = torch.zeros((self.shape[1], v.shape[1]), dtype=self._embed_dtype)
         out[: self.n_work] = torch.as_tensor(v[self.perm]).to(self._embed_dtype)
@@ -292,7 +314,8 @@ class AcceleratedOperator:
 
     def restore(self, V) -> np.ndarray:
         """Permuted-padded (n_pad,) or (n_pad, k) result(s) -> original
-        coordinates, as a host array.  Inverts :meth:`embed`."""
+        coordinates, as a host array (complex when the operator was
+        complexified).  Inverts :meth:`embed`."""
         V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
         squeeze = V.ndim == 1
         if squeeze:
@@ -303,9 +326,22 @@ class AcceleratedOperator:
             )
         out = np.zeros((self.n_work, V.shape[1]), V.dtype)
         out[self.perm] = V[: self.n_work]
+        if self.complexified:
+            n = self.orig_shape[0]
+            out = out[:n] + 1j * out[n:]
         if squeeze:
             out = out[:, 0]
         return out
+
+    # -- the svds pipeline (rectangular operands) -------------------------
+    def embed_left(self, v):
+        raise not_ported("AcceleratedOperator.embed_left (the svds pipeline)")
+
+    def restore_right(self, V):
+        raise not_ported("AcceleratedOperator.restore_right (the svds pipeline)")
+
+    def adjoint_matrix(self):
+        raise not_ported("AcceleratedOperator.adjoint_matrix (the svds pipeline)")
 
     # -- persistence ------------------------------------------------------
     def save(self, path) -> None:
@@ -316,6 +352,38 @@ class AcceleratedOperator:
         raise not_ported("AcceleratedOperator.load")
 
 
+def dedup_embedded_pairs(lam, vecs, keep_max: int | None = None):
+    """Indices to KEEP from a RESTORED doubled-spectrum result.
+
+    Eigenvalues of a complexified (real-embedded) Hermitian operator
+    appear up to twice; a clean Krylov space may hold only ONE vector
+    per 2-D embedded eigenspace, so dedup goes by value-closeness AND
+    vector overlap, never by blind pairing.  ``vecs`` are the restored
+    complex eigenvectors (columns, any normalization); eigenvalues are
+    assumed sorted the way the caller wants them kept."""
+    lam = np.asarray(lam)
+    spread = float(np.abs(lam).max()) if lam.size else 1.0
+    close = max(spread, 1.0) * 1e-3
+    unit = None
+    if vecs is not None:
+        norms = np.linalg.norm(vecs, axis=0)
+        unit = vecs / np.maximum(norms, 1e-300)
+    keep: list[int] = []
+    for i in range(len(lam)):
+        dup = False
+        for j in keep:
+            if abs(lam[i] - lam[j]) > close:
+                continue
+            if unit is None or abs(np.vdot(unit[:, j], unit[:, i])) > 0.9:
+                dup = True
+                break
+        if not dup:
+            keep.append(i)
+        if keep_max is not None and len(keep) >= keep_max:
+            break
+    return keep
+
+
 def accelerate(
     A,
     *,
@@ -323,6 +391,7 @@ def accelerate(
     symmetric_check: bool = True,
     dtype: Any = "auto",
     block: int = 128,
+    general_block: tuple[int, int] = (32, 128),
     reorder: bool = True,
     merge_duplicates: bool | None = None,
     device=None,
@@ -332,11 +401,12 @@ def accelerate(
     Parameters
     ----------
     A : COOMatrix | scipy sparse | (rows, cols, vals, shape)
-        The operator, in any scalar-sparse form.  Real symmetric
-        operators only for now; complex, general and rectangular operands
-        raise "not ported yet".
+        The operator, in any scalar-sparse form.  Complex operators are
+        embedded as [[A,-B],[B,A]] automatically (Hermitian -> real
+        symmetric -> the half-storage kernel).  Square operators only:
+        rectangular ones raise "not ported yet".
     symmetric : bool | None
-        None (default) detects A == A^T exactly on the triplets.  Passing
+        None (default) detects A == A^H exactly on the triplets.  Passing
         True skips the full check; a cheap sampled probe (pattern counts
         + mirror-value sample, see ``symmetric_check``) still guards the
         claim, because the pack drops lower-triangle blocks and
@@ -349,8 +419,12 @@ def accelerate(
         "auto" stores bf16 when every value round-trips bf16 exactly
         (lossless; halves traffic), else f32.  An explicit dtype forces.
     block : int
-        Block size (the CUDA kernel takes multiples of 128; other sizes
-        run through the plain version).
+        Symmetric block size (the CUDA kernel takes multiples of 128; other
+        sizes run through the plain version).
+    general_block : (bm, bn)
+        Block shape for non-symmetric operators; the SpMV kernel takes any
+        bm and a bn that is a multiple of 128.  A square operator is padded
+        to a multiple of lcm(bm, bn), so it stays square.
     reorder : bool
         Apply the RCM band-reducing permutation (disable only for
         operators already ordered, e.g. tridiagonal).
@@ -377,9 +451,7 @@ def accelerate(
     if shape[0] != shape[1]:
         if symmetric:
             raise EigenexError("a rectangular operator cannot be symmetric")
-        raise not_ported("accelerate() of a rectangular operator")
-    if np.iscomplexobj(v):
-        raise not_ported("accelerate() of a complex operator (the real embedding)")
+        raise not_ported("accelerate() of a rectangular operator (the svds pipeline)")
     if merge_duplicates is None:
         merge_duplicates = True
     ts = time.time()
@@ -392,9 +464,15 @@ def accelerate(
     elif symmetric and symmetric_check:
         _sampled_hermitian_check(r, c, v, shape)
     ts = _stage("symmetry_check", ts)
-    if not symmetric:
-        raise not_ported("accelerate() of a non-symmetric operator (the general pack)")
-    n_work = shape[0]
+    complexified = bool(np.iscomplexobj(v))
+    if complexified:
+        emb = realify_coo(COOMatrix(torch.as_tensor(r.astype(np.int32)),
+                                    torch.as_tensor(c.astype(np.int32)), torch.as_tensor(v), shape))
+        r = emb.row.numpy().astype(np.int64)
+        c = emb.col.numpy().astype(np.int64)
+        v = emb.val.numpy()
+        ts = _stage("realify", ts)
+    n_work = 2 * shape[0] if complexified else shape[0]
 
     bw_before = int(np.abs(r - c).max()) if len(r) else 0
     if reorder and len(r):
@@ -414,34 +492,46 @@ def accelerate(
     else:
         target = as_torch_dtype(dtype)
 
-    # pad to 32 BLOCK rows, as the JAX package does, so that packed
-    # operators have the same shape in both packages
-    n_pad = -(-n_work // (32 * block)) * (32 * block)
-    mat = _pack_symmetric(r, c, v, n_pad, block, target, device)
+    if symmetric:
+        # pad to 32 BLOCK rows, as the JAX package does, so that packed
+        # operators have the same shape in both packages
+        n_pad = -(-n_work // (32 * block)) * (32 * block)
+        mat = _pack_symmetric(r, c, v, n_pad, block, target, device)
+        slots = mat.diag_data.numel() + mat.upper_data.numel()
+        applied = mat.diag_data.numel() + 2 * mat.upper_data.numel()
+        widths = dict(ku=int(mat.upper_cols.shape[1]), band_reach=int(mat.band_reach))
+    else:
+        bm, bn = general_block
+        # square stays square (eigs needs it): pad both sides to lcm(bm, bn)
+        mult = int(np.lcm(bm, bn))
+        n_pad = -(-n_work // mult) * mult
+        mat = _pack_general(r, c, v, n_pad, n_pad, bm, bn, target, device)
+        slots = applied = mat.data.numel()
+        widths = dict(kmax=mat.k_max)
     _stage("pack_scatter", ts)
-    slots = mat.diag_data.numel() + mat.upper_data.numel()
-    applied = mat.diag_data.numel() + 2 * mat.upper_data.numel()
 
     stats = dict(
         nnz=nnz,
         slots=int(slots),
         fill=float(nnz / max(applied, 1)),
-        bytes=int(slots * mat.upper_data.element_size()),
+        bytes=int(slots * (torch.finfo(target).bits // 8)),
         dtype=str(target).replace("torch.", ""),
         bandwidth_before=bw_before,
         bandwidth_after=bw_after,
-        symmetric=True,
-        complexified=False,
+        symmetric=bool(symmetric),
+        complexified=complexified,
         pack_seconds=time.time() - t0,
         pack_stages={k: round(s, 4) for k, s in stages.items()},
-        ku=int(mat.upper_cols.shape[1]),
-        band_reach=int(mat.band_reach),
+        **widths,
     )
     return AcceleratedOperator(
         matrix=mat,
         perm=perm,
         orig_shape=shape,
-        symmetric=True,
-        complexified=False,
+        symmetric=bool(symmetric),
+        complexified=complexified,
         stats=stats,
+        # general packs keep the permuted triplets, as the JAX package does
+        # for its adjoint pack; symmetric containers keep memory flat
+        host_triplets=None if symmetric else (r, c, v),
     )

@@ -112,10 +112,42 @@ class BSRMatrix:
             return cuda_spmv.bsr_spmm(self, X)
         return self._plain_matmat(X)
 
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A^H @ x, through :meth:`kernel_adjoint` (so on CUDA tensors the
+        same kernel as :meth:`matvec`)."""
+        return self.kernel_adjoint().matvec(x)
+
+    def kernel_adjoint(self) -> "BSRMatrix":
+        """A^H as a container of the SAME block shape, built once on the
+        host from the stored entries and cached.  The block transpose of
+        :meth:`adjoint` turns (bm, bn) blocks into (bn, bm); the SpMV kernel
+        needs a block width that is a multiple of 128, which a (32, 128)
+        general pack would lose.  Where the transposed shape does not tile
+        by (bm, bn), this is :meth:`adjoint`."""
+        cached = self.__dict__.get("_kernel_adjoint")
+        if cached is not None:
+            return cached
+        bm, bn = self.block_shape
+        m, n = self.shape
+        if n % bm or m % bn:
+            adj = self.adjoint()
+        else:
+            data = self.data.to(self._acc_dtype).cpu().numpy()
+            rb, kk, ii, jj = np.nonzero(data)
+            rows = rb * bm + ii
+            cols = self.block_cols.cpu().numpy()[rb, kk].astype(np.int64) * bn + jj
+            vals = data[rb, kk, ii, jj]
+            packed, block_cols, _ = _pack_bsr_host(
+                cols, rows, np.conj(vals) if np.iscomplexobj(vals) else vals, (n, m), (bm, bn))
+            adj = BSRMatrix(torch.as_tensor(packed).to(self.dtype).to(self.device),
+                            torch.as_tensor(block_cols).to(self.device), (n, m))
+        object.__setattr__(self, "_kernel_adjoint", adj)
+        return adj
+
     def as_linear_operator(self) -> LinearOperator:
         return LinearOperator(
             _container_matvec, self, self.shape, self._acc_dtype, self.device,
-            matmat_fn=_container_matmat,
+            rmatvec_fn=_container_rmatvec, matmat_fn=_container_matmat,
         )
 
     def to_dense(self) -> torch.Tensor:
@@ -197,6 +229,10 @@ class BSRMatrix:
 
 def _container_matvec(p, x):
     return p.matvec(x)
+
+
+def _container_rmatvec(p, x):
+    return p.rmatvec(x)
 
 
 def _container_matmat(p, X):

@@ -1,9 +1,15 @@
-"""``accelerate()`` parity: the port's symmetric real route against the JAX
-package's numpy/scipy route (its native C++ packers switched off, so both
-run the same RCM and the same packer) on the same numpy-seeded triplets.
+"""``accelerate()`` parity: the port's square routes (symmetric, general,
+complex through the real embedding) against the JAX package's numpy/scipy
+route (its native C++ packers switched off, so both run the same RCM and the
+same packer) on the same numpy-seeded triplets; and the accelerated ``eigs``
+and ``eigsh`` routes against the reference's (mirrors
+``tests/test_accelerate.py:302-390``).
 
 The pack is integer and copy work: permutation, band reach, slot count,
-storage dtype and the dense operator are compared exactly.
+storage dtype and the dense operator are compared exactly, ELL slots without
+regard to their order in a block row.  Solves on f64 packs: eigenvalues
+1e-10 against the reference with the same explicit start vector; one-call
+routes on auto (f32) packs against ``numpy.linalg.eig`` at f32 grade.
 """
 
 import jax.numpy as jnp
@@ -13,16 +19,22 @@ import scipy.sparse as sp
 import torch
 
 import eigenex_tpu.native as j_native
+import eigenex_tpu_torch as ext
+from eigenex_tpu.solvers.api import eigs as j_eigs
+from eigenex_tpu.solvers.api import eigsh as j_eigsh
 from eigenex_tpu.sparse.accelerate import accelerate as j_accelerate
+from eigenex_tpu.sparse.accelerate import dedup_embedded_pairs as j_dedup
 from eigenex_tpu_torch.sparse.accelerate import (
     AcceleratedOperator,
     _bf16_lossless,
     _padding_safe_v0,
     accelerate,
     band_permutation,
+    dedup_embedded_pairs,
 )
 from eigenex_tpu_torch.sparse.coo import coo_from_dense
 from eigenex_tpu_torch.utils.exceptions import EigenexError
+from test_torch_containers import canonical_slots
 
 torch.set_num_threads(1)
 
@@ -158,10 +170,11 @@ def test_non_hermitian_input_raises(how):
     r, c, v, shape = band_triplets(80, 7)
     v = v.copy()
     v[0] += 1.0  # one entry no longer equals its mirror
-    with pytest.raises(EigenexError):
-        if how == "auto_detect":  # detected exactly -> the general pack, not ported
-            accelerate((r, c, v, shape), block=8, device="cpu")
-        else:  # the sampled probe behind symmetric=True catches it
+    if how == "auto_detect":  # detected exactly -> the general pack, no error
+        acc = accelerate((r, c, v, shape), block=8, device="cpu")
+        assert not acc.symmetric and isinstance(acc.matrix, ext.BSRMatrix)
+    else:  # the sampled probe behind symmetric=True catches the claim
+        with pytest.raises(EigenexError, match="not Hermitian|not equal"):
             accelerate((r, c, v, shape), block=8, symmetric=True, device="cpu")
     upper = r < c
     with pytest.raises(EigenexError, match="not Hermitian"):
@@ -172,9 +185,13 @@ def test_non_hermitian_input_raises(how):
     "build",
     [
         lambda: accelerate((np.array([0]), np.array([1]), np.array([1.0]), (2, 3)), device="cpu"),
-        lambda: accelerate((np.array([0, 1]), np.array([1, 0]), np.array([1j, -1j]), (2, 2)),
-                           device="cpu"),
-        lambda: accelerate((np.array([0]), np.array([1]), np.array([1.0]), (2, 2)), device="cpu"),
+        # complex operands are ported; a complexified operand's window filter is not
+        lambda: ext.eigsh_window(
+            accelerate((np.array([0, 1]), np.array([1, 0]), np.array([1j, -1j]), (2, 2)),
+                       block=8, device="cpu"), (-0.5, 0.5)),
+        # the general pack is ported; its svds pieces are not
+        lambda: accelerate((np.array([0]), np.array([1]), np.array([1.0]), (2, 2)),
+                           device="cpu").adjoint_matrix(),
         lambda: accelerate(band_triplets(40, 8), block=8, device="cpu").save("x.npz"),
         lambda: AcceleratedOperator.load("x.npz"),
     ],
@@ -188,3 +205,207 @@ def test_unported_routes_say_so(build):
 def test_bad_operand_raises():
     with pytest.raises(EigenexError):
         accelerate(np.eye(3), device="cpu")
+
+
+# -- the general and complex packs ---------------------------------------------
+def general_triplets(n, seed, complex_=False):
+    rng = np.random.default_rng(seed)
+    m = sp.random(n, n, density=0.03, random_state=seed) + sp.eye(n)
+    if complex_:
+        m = m + 1j * sp.random(n, n, density=0.03, random_state=seed + 1)
+    m = m.tocoo()
+    relabel = rng.permutation(n)  # so that RCM has work to do
+    return relabel[m.row], relabel[m.col], m.data, m.shape
+
+
+@pytest.mark.parametrize("kind", ["real_general", "complex_general", "complex_hermitian"])
+def test_general_and_complex_packs_match_reference(numpy_route, kind):
+    if kind == "complex_hermitian":
+        r, c, v, shape = band_triplets(150, 9)
+        rng = np.random.default_rng(9)
+        phase = np.exp(1j * rng.uniform(0, 2 * np.pi, len(v)))
+        v = np.where(r < c, v * phase, v + 0j)
+        mirror = {(a, b): x for a, b, x in zip(r, c, v) if a < b}
+        v = np.array([np.conj(mirror[(b, a)]) if a > b else x for a, b, x in zip(r, c, v)])
+        trip = (r, c, v, shape)
+    else:
+        trip = general_triplets(300, 4, complex_=kind == "complex_general")
+    ref = j_accelerate(trip, block=8)
+    got = accelerate(trip, block=8, device="cpu")
+    assert got.symmetric == ref.symmetric == (kind == "complex_hermitian")
+    assert got.complexified == ref.complexified == kind.startswith("complex")
+    assert np.array_equal(got.perm, ref.perm) and got.shape == ref.shape
+    for key in ("nnz", "slots", "fill", "bytes", "dtype", "bandwidth_before", "bandwidth_after",
+                "symmetric", "complexified"):
+        assert got.stats[key] == ref.stats[key], key
+    if got.symmetric:
+        assert got.stats["ku"] == ref.stats["ku"]
+        assert np.array_equal(got.matrix.to_dense().float().numpy(),
+                              np.asarray(ref.matrix.to_dense().astype(jnp.float32)))
+    else:
+        assert got.matrix.block_shape == ref.matrix.block_shape == (32, 128)
+        assert got.shape[0] % 128 == 0 and got.stats["kmax"] == ref.stats["kmax"]
+        gc, gd = canonical_slots(got.matrix.block_cols.numpy(), got.matrix.data.float().numpy())
+        rc, rd = canonical_slots(ref.matrix.block_cols, np.asarray(ref.matrix.data, np.float32))
+        assert np.array_equal(gc, rc) and np.array_equal(gd, rd)
+        for g, w in zip(got.host_triplets, ref.host_triplets):
+            assert np.array_equal(g, np.asarray(w))
+    # embed / restore carry complex vectors through the real embedding
+    n = trip[3][0]
+    z = np.random.default_rng(5).standard_normal(n)
+    if got.complexified:
+        z = z + 1j * np.random.default_rng(6).standard_normal(n)
+    e = got.embed(z)
+    assert e.dtype == torch.float32 and np.array_equal(e.numpy(), np.asarray(ref.embed(z)))
+    np.testing.assert_allclose(got.restore(e), z, rtol=0, atol=1e-6)
+    A = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3]).toarray()
+    y = got.restore(got.as_linear_operator().matvec(e))
+    np.testing.assert_allclose(y, A @ got.restore(e), rtol=0, atol=1e-4)
+
+
+def test_general_pack_adjoint_for_the_kernels():
+    """A^H of a general pack keeps its (32, 128) block shape, the SpMV
+    kernel's (the block transpose would give (128, 32))."""
+    r, c, v, shape = general_triplets(250, 7)
+    acc = accelerate((r, c, v, shape), dtype=torch.float64, device="cpu")
+    adj = acc.matrix.kernel_adjoint()
+    assert adj.block_shape == (32, 128) and adj is acc.matrix.kernel_adjoint()  # cached
+    np.testing.assert_array_equal(adj.to_dense().numpy(), acc.matrix.to_dense().numpy().T)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(acc.shape[0]))
+    np.testing.assert_allclose(acc.as_linear_operator().rmatvec(x).numpy(),
+                               acc.matrix.to_dense().numpy().T @ x.numpy(), rtol=0, atol=1e-12)
+    odd = ext.bsr_from_dense(np.random.default_rng(9).standard_normal((12, 8)), (4, 8), device="cpu")
+    assert odd.kernel_adjoint().block_shape == (8, 4)  # 8 columns do not tile by 4 rows of 8
+    # CGLS, the fallback of the general shift-invert, takes the adjoint from here
+    b = np.random.default_rng(10).standard_normal(acc.shape[0])
+    x, _, it = ext.cgls_solve(acc.as_linear_operator(), b, tol=1e-12, max_iters=8)
+    x_d, _, it_d = ext.cgls_solve(acc.matrix.to_dense(), b, tol=1e-12, max_iters=8)
+    assert int(it) == int(it_d) == 8
+    assert np.linalg.norm(x.numpy() - x_d.numpy()) <= 1e-10 * np.linalg.norm(x_d.numpy())
+
+
+def test_dedup_embedded_pairs_matches_reference():
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((30, 3)) + 1j * rng.standard_normal((30, 3))
+    vecs = np.stack([v[:, 0], 1j * v[:, 0], v[:, 1], v[:, 2], (1 + 1j) * v[:, 2]], axis=1)
+    lam = np.array([1.0, 1.0 + 1e-6, 2.0, 3.0, 3.0])
+    assert dedup_embedded_pairs(lam, vecs) == j_dedup(lam, vecs) == [0, 2, 3]
+    assert dedup_embedded_pairs(lam, vecs, keep_max=2) == j_dedup(lam, vecs, keep_max=2)
+    assert dedup_embedded_pairs(lam, None) == j_dedup(lam, None)
+
+
+# -- eigs / eigsh on accelerated operands ----------------------------------------
+def test_eigs_accelerate_real_general(numpy_route):
+    trip = general_triplets(200, 51)
+    n = 200
+    v0 = np.random.default_rng(3).standard_normal(n)
+    rj = j_eigs(j_accelerate(trip, dtype=jnp.float64), k=2, tol=1e-10, v0=v0)
+    rt = ext.eigs(accelerate(trip, dtype=torch.float64, device="cpu"), k=2, tol=1e-10, v0=v0)
+    assert isinstance(rt.eigenvectors, np.ndarray) and rt.eigenvectors.shape == (n, 2)
+    key = lambda a: np.sort_complex(a.real + 1j * np.abs(a.imag))  # noqa: E731
+    np.testing.assert_allclose(key(rt.eigenvalues), key(np.asarray(rj.eigenvalues)), atol=1e-10)
+    # the one-call route on the auto (f32) pack, against numpy
+    res = ext.eigs(trip, k=2, tol=1e-6, accelerate=True, v0=v0, device="cpu")
+    dense = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3]).toarray()
+    ref = np.linalg.eigvals(dense)
+    ref = ref[np.argsort(-np.abs(ref))][:2]
+    np.testing.assert_allclose(key(res.eigenvalues), key(ref), atol=2e-5)
+    for j in range(2):
+        z = res.eigenvectors[:, j] / np.linalg.norm(res.eigenvectors[:, j])
+        assert np.linalg.norm(dense @ z - res.eigenvalues[j] * z) < 1e-4
+
+
+def test_eigs_accelerate_seeded_start_stays_out_of_the_padding():
+    """200 rows pad to 256: the padding adds a zero eigenvalue of
+    multiplicity 56, which "SM" would return if the seeded start had any
+    component on the padding rows."""
+    n = 200
+    m = (sp.random(n, n, density=0.04, random_state=8) + 2 * sp.eye(n)).tocoo()
+    acc = accelerate((m.row, m.col, m.data, m.shape), dtype=torch.float64, device="cpu")
+    assert acc.shape == (256, 256) and not acc.symmetric
+    res = ext.eigs(acc, k=2, which="SM", tol=1e-10, max_subspace=256, seed=4)
+    lam = np.linalg.eigvals(m.toarray().astype(np.float32).astype(np.float64))
+    want = lam[np.argsort(np.abs(lam))][:2]
+    np.testing.assert_allclose(np.sort_complex(res.eigenvalues), np.sort_complex(want), atol=1e-8)
+
+
+def test_eigs_accelerate_sigma_on_the_general_pack(numpy_route):
+    """GMRES shift-invert on the packed general operand (sigma below the
+    spectrum, where GMRES(48) converges in one cycle)."""
+    trip = general_triplets(120, 12)
+    v0 = np.random.default_rng(5).standard_normal(120)
+    kw = dict(k=2, sigma=-0.5, tol=1e-8, v0=v0)
+    rj = j_eigs(j_accelerate(trip, dtype=jnp.float64), **kw)
+    rt = ext.eigs(accelerate(trip, dtype=torch.float64, device="cpu"), **kw)
+    assert rt.converged and rt.termination != "inner_solve_failure"
+    key = lambda a: np.sort_complex(a.real + 1j * np.abs(a.imag))  # noqa: E731
+    np.testing.assert_allclose(key(rt.eigenvalues), key(np.asarray(rj.eigenvalues)), atol=1e-10)
+    assert rt.inner_stats["fallbacks"] == 0
+    dense = sp.coo_matrix((trip[2].astype(np.float32), (trip[0], trip[1])), shape=trip[3]).toarray()
+    d = np.sort(np.abs(np.linalg.eigvals(dense.astype(np.float64)) + 0.5))[:2]
+    np.testing.assert_allclose(np.sort(np.abs(rt.eigenvalues + 0.5)), d, atol=1e-8)
+
+
+@pytest.mark.parametrize("refine", [False, True], ids=["plain", "refined"])
+def test_eigs_accelerate_complex_general(numpy_route, refine):
+    n = 120
+    trip = general_triplets(n, 5, complex_=True)
+    v0 = np.random.default_rng(6).standard_normal(n) + 0j
+    m = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3])
+    if refine:  # one call: raw complex COO, auto (f32) pack, f64 polish
+        coo = ext.COOMatrix(torch.as_tensor(m.row.astype(np.int32)),
+                            torch.as_tensor(m.col.astype(np.int32)), torch.as_tensor(m.data), m.shape)
+        rt = ext.eigs(coo, k=4, tol=1e-6, accelerate=True, refine=True, v0=v0, device="cpu")
+    else:
+        acc = accelerate(trip, dtype=torch.float64, device="cpu")
+        assert acc.complexified and not acc.symmetric and acc.n_work == 2 * n
+        rt = ext.eigs(acc, k=4, tol=1e-10, v0=v0)
+        rj = j_eigs(j_accelerate(trip, dtype=jnp.float64), k=4, tol=1e-10, v0=v0)
+        np.testing.assert_allclose(rt.eigenvalues, np.asarray(rj.eigenvalues), rtol=0, atol=1e-10)
+    ev = np.linalg.eigvals(m.toarray())
+    want = ev[np.argsort(-np.abs(ev))[:4]]
+    np.testing.assert_allclose(np.sort(np.abs(rt.eigenvalues)), np.sort(np.abs(want)), rtol=1e-6)
+    A, V, lam = m.tocsr(), rt.eigenvectors, rt.eigenvalues
+    scale = float(np.abs(lam).max())
+    # the numpy route packs through f32 entries; the refinement reads the f64 COO
+    limit = 1e-10 if refine else 1e-6
+    for j in range(4):
+        assert np.linalg.norm(A @ V[:, j] - lam[j] * V[:, j]) < limit * scale
+
+
+def hopping_chain(n, seed=0):
+    """The complex Hermitian chain of ``benchmarks/bench_complex.py``."""
+    rng = np.random.default_rng(seed)
+    diag = rng.standard_normal(n)
+    t1 = np.exp(1j * rng.uniform(0, 2 * np.pi, n - 1))
+    t2 = 0.5 * np.exp(1j * rng.uniform(0, 2 * np.pi, n - 2))
+    ar = np.arange
+    r = np.concatenate([ar(n), ar(n - 1), ar(1, n), ar(n - 2), ar(2, n)])
+    c = np.concatenate([ar(n), ar(1, n), ar(n - 1), ar(2, n), ar(n - 2)])
+    v = np.concatenate([diag.astype(complex), t1, np.conj(t1), t2, np.conj(t2)])
+    return r, c, v, (n, n)
+
+
+@pytest.mark.parametrize("route", ["SA", "sigma"])
+def test_eigsh_accelerate_complex_hermitian(numpy_route, route):
+    """The real embedding on the symmetric pack; the doubled spectrum deduped,
+    also behind MINRES shift-invert (every eigenvalue of the embedding twice
+    on both sides of sigma)."""
+    n = 300 if route == "SA" else 60
+    trip = hopping_chain(n)
+    v0 = np.random.default_rng(1).standard_normal(n) + 0j
+    kw = dict(k=2, which="SA", tol=1e-10, v0=v0) if route == "SA" else dict(
+        k=2, sigma=0.1, tol=1e-10, max_subspace=32, v0=v0)
+    rj = j_eigsh(j_accelerate(trip, symmetric=True, dtype=jnp.float64), **kw)
+    rt = ext.eigsh(accelerate(trip, symmetric=True, dtype=torch.float64, device="cpu"), **kw)
+    assert rt.eigenvectors.shape == (n, 2) and np.iscomplexobj(rt.eigenvectors)
+    np.testing.assert_allclose(rt.eigenvalues, np.asarray(rj.eigenvalues), rtol=0, atol=1e-10)
+    # against the operator's f32-rounded entries, which the numpy route packs
+    v32 = trip[2].real.astype(np.float32) + 1j * trip[2].imag.astype(np.float32)
+    H = sp.coo_matrix((v32, (trip[0], trip[1])), shape=trip[3]).toarray()
+    ev = np.linalg.eigvalsh(H)
+    want = ev[:2] if route == "SA" else np.sort(ev[np.argsort(np.abs(ev - 0.1))[:2]])
+    np.testing.assert_allclose(rt.eigenvalues, want, atol=1e-10)
+    for j in range(2):
+        z = rt.eigenvectors[:, j]
+        assert np.linalg.norm(H @ z - rt.eigenvalues[j] * z) < 1e-8

@@ -180,3 +180,46 @@ def test_every_solver_matvec_is_a_kernel_launch(card):
     assert res.converged
     assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": res.iterations,
                                          "bsr_spmm": 0, "sym_bsr_spmm": 0}
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_bsr_spmv_at_the_general_pack_shape(card, storage):
+    """32x128 blocks, the shape ``accelerate()`` gives a non-symmetric
+    operator: against the plain version, and bit-equal on a second run."""
+    from eigenex_tpu_torch.sparse.bsr import BSRMatrix
+
+    gen = torch.Generator(card).manual_seed(3)
+    nbr, kmax, nbc = 96, 5, 24
+    data = torch.randn((nbr, kmax, 32, 128), generator=gen, device=card).to(storage)
+    cols = torch.randint(0, nbc, (nbr, kmax), generator=gen, device=card, dtype=torch.int32)
+    bsr = BSRMatrix(data, cols, (nbr * 32, nbc * 128))
+    x = torch.randn(bsr.shape[1], generator=gen, device=card)
+    y = cuda_spmv.bsr_spmv(bsr, x)
+    ref = cuda_spmv.bsr_spmv_plain(bsr.astype(torch.float32), x)
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert torch.equal(y, cuda_spmv.bsr_spmv(bsr, x))
+
+
+def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
+    """``eigs`` on an accelerated non-symmetric operand (the upwind stencil of
+    BASELINE config 2 at nx = 40): every Krylov-Schur matvec is one launch of
+    the general SpMV kernel, and the pairs are right on the host in f64."""
+    import scipy.sparse as sp
+
+    from eigenex_tpu_torch import accelerate, eigs
+
+    nx, conv = 40, 0.4
+    n = nx * nx
+    lap = sp.diags([-1.0 - conv, 4.0, -1.0 + conv], [-1, 0, 1], shape=(nx, nx))
+    A = (sp.kron(sp.eye(nx), lap) + sp.kron(sp.diags([-1.0 - conv, -1.0 + conv], [-1, 1],
+                                                     shape=(nx, nx)), sp.eye(nx))).tocoo()
+    acc = accelerate((A.row, A.col, A.data, A.shape), device=card)
+    assert acc.matrix.block_shape == (32, 128) and acc.matrix.dtype == torch.float32
+    cuda_spmv.reset_launch_counts()
+    res = eigs(acc, k=2, tol=1e-5, seed=1)
+    assert res.converged
+    assert cuda_spmv.launch_counts() == {"bsr_spmv": res.iterations, "sym_bsr_spmv": 0,
+                                         "bsr_spmm": 0, "sym_bsr_spmm": 0}
+    X, lam = res.eigenvectors, res.eigenvalues
+    rel = np.linalg.norm(A.tocsr() @ X - X * lam[None, :], axis=0) / np.abs(lam)
+    assert rel.max() <= 1e-4 and X.shape == (n, 2)

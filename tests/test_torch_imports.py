@@ -18,9 +18,10 @@ EXPECTED_MODULES = [
     "__init__.py", "convert.py", "core/operators.py", "ops/cuda_spmv.py",
     "ops/orthogonalize.py", "solvers/api.py", "solvers/arnoldi.py", "solvers/lanczos.py",
     "solvers/restart.py", "solvers/block_lanczos.py", "solvers/chebyshev.py", "solvers/kpm.py",
-    "solvers/lobpcg.py", "solvers/precond.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
-    "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py", "utils/tolerance.py",
-    "utils/trace.py",
+    "solvers/lobpcg.py", "solvers/precond.py", "solvers/krylov_schur.py", "solvers/cg.py",
+    "solvers/gmres.py", "solvers/refine.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
+    "sparse/realify.py", "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py",
+    "utils/tolerance.py", "utils/trace.py",
 ]
 
 
@@ -93,6 +94,8 @@ def test_importing_the_port_is_light():
         "import eigenex_tpu_torch.ops.cuda_spmv as k\n"
         "import eigenex_tpu_torch.convert\n"
         "from eigenex_tpu_torch.solvers import block_lanczos, chebyshev, kpm, lobpcg, precond\n"
+        "from eigenex_tpu_torch.solvers import cg, gmres, krylov_schur, refine\n"
+        "from eigenex_tpu_torch.sparse import realify\n"
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -100,6 +103,8 @@ def test_importing_the_port_is_light():
         "assert not k._libs and not any(k.launch_counts().values())\n"
         "assert callable(ext.eigsh) and callable(ext.accelerate)\n"
         "assert callable(ext.lobpcg) and callable(ext.eigsh_window) and callable(ext.eigsh_range)\n"
+        "assert callable(ext.eigs) and callable(ext.gmres_solve) and callable(ext.minres_solve)\n"
+        "assert 'scipy' not in sys.modules\n"
         "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm'}\n"
         "print('light')\n"
     )

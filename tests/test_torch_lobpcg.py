@@ -149,7 +149,7 @@ def test_eigsh_lobpcg_route_on_a_container_uses_matmat():
         (dict(which="BE"), "spectrum extremes only"),
         (dict(which="LM"), "spectrum extremes only"),
         (dict(accelerate=True), "accelerate=True cannot combine"),
-        (dict(sigma=1.0), "not ported yet"),
+        (dict(sigma=1.0), "cannot be combined with sigma"),
         (dict(mesh=object()), "not ported yet"),
     ],
     ids=["v0", "BE", "LM", "accelerate", "sigma", "mesh"],
