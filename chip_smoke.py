@@ -39,6 +39,17 @@ filter) through the SpMM kernels -- at full size:
                          reduced nx = 128 (every outer matvec is a whole inner solve).
 13. ``eigsh_complex_accelerated``  a complex Hermitian hopping chain at n = 2^18 through
                          the real embedding (n = 2^19, f32) on the symmetric SpMV kernel.
+14. ``expm_accelerated`` ``expm_multiply`` on the bf16 accelerated operator of phase 5,
+                         by Lanczos (64 steps) and by the step-split Taylor series, one
+                         real x < 0 with |x| rho <= 20; the two held together.
+15. ``tridiag_si``       BASELINE config 1 at its full size: the lowest 5 pairs of the
+                         n = 10^4 Laplacian through the exact tridiagonal shift-invert
+                         operator (cuSPARSE gtsv2, f64), one solve held to the host's LAPACK.
+16. ``svds_accelerated`` ``svds(k=6)`` on a 400,000 x 200,000 rectangular operator
+                         (3.2 M nnz, shuffled) -> bipartite RCM -> f32 32x128 packs of A and
+                         A^H: both Gram matvecs on the general SpMV kernel.
+17. ``svds_config4``     BASELINE config 4: the truncated SVD of a (6, 8, 7, 5) f64 tensor by
+                         Lanczos on its Gram operator, on the card.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -49,6 +60,11 @@ lists every kernel with its launches on the main path, error, times and bound
 (``sym_bsr_spmv`` and ``sym_bsr_spmm`` twice each: their f32 and their bf16 main
 case, each with the launches of the phases on that storage).  The ``kernels``
 line also gives each SpMV wrapper's host time per call.
+
+Phases 14 and 16 hold the kernels' launch counts against an independent count
+of operator applications: the container behind the solve is replaced by a
+subclass that counts its ``matvec``/``matmat`` calls (``counted``) and then
+calls the container's own product.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
 is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated``,
@@ -62,6 +78,7 @@ time of each kernel of one SpMV and one SpMM product at the main-path shapes (ph
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -78,14 +95,22 @@ from eigenex_tpu_torch import (
     COOMatrix,
     accelerate,
     eigs,
+    LanczosEigenSolver,
+    LanczosOptions,
     eigsh,
     eigsh_window,
+    expm_multiply,
     jacobi_preconditioner,
     lobpcg,
+    svds,
     sym_bsr_from_bsr,
+    tridiagonal_operator,
+    tridiagonal_shift_invert_operator,
+    truncated_svd_via_lanczos,
 )
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
+from eigenex_tpu_torch.solvers import direct
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix
 from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
 
@@ -146,6 +171,27 @@ SIGMA_RESID_LIMIT = 1e-4
 CHAIN_N = 2 ** 18          # phase eigsh_complex_accelerated: complex Hermitian chain, embedded 2^19
 CHAIN_TOL = 1e-6
 CHAIN_RESID_LIMIT = 1e-4   # host complex128 ||H z - lambda z|| / |lambda| of the restored vector
+
+EXPM_STEPS = 64            # phase expm_accelerated: Lanczos steps of expm_multiply(method="lanczos")
+EXPM_X_RHO = 20.0          # |x| times the Gershgorin bound of the spectral radius, x < 0
+EXPM_TAYLOR_TOL = 1e-7     # the Taylor series' stop (term norm / sum norm): f32's reach, not the
+                           # f32 default 1e-4, which would leave 1e-4 in each of the sub-steps
+EXPM_AGREE = 1e-4          # ||lanczos - taylor_auto|| / ||taylor_auto||
+TRIDIAG_N = 10_000         # phase tridiag_si: BASELINE config 1 at its full size, f64
+TRIDIAG_SIGMA = -1e-6
+TRIDIAG_ERR_LIMIT = 1e-10  # max |lambda_k - (2 - 2 cos(k pi / (n + 1)))| over the lowest 5
+TRIDIAG_COLS = 8           # columns of the matmats held to the host's LAPACK solve:
+TRIDIAG_SOLVE_LIMIT = 1e-12  # worst column's relative difference from LAPACK gtsv on the same bands
+TRIDIAG_WELL_SIGMA = -1.0  # shifted to -1 (condition 5); at sigma itself (condition 3.6e6) two
+                           # stable solvers part by up to eps * condition = 8.1e-10 (1.3e-11 measured),
+                           # so there the gtsv2 solve's backward error is held to the limit instead,
+                           # and its forward difference to eps * condition
+SVDS_SHAPE = (400_000, 200_000)  # phase svds_accelerated: the operator of
+SVDS_BW, SVDS_PER_ROW = 600, 8   # benchmarks/bench_svds_rect.py at its defaults (seed 0)
+SVDS_K, SVDS_TOL = 6, 1e-5
+SVDS_RESID_LIMIT = 1e-4    # ||A v_j - s_j u_j|| / s_1, host f64 on the original triplets
+SVDS_ORTH_LIMIT = 1e-4     # ||U^T U - I|| (Frobenius)
+CONFIG4_ERR_LIMIT = 1e-10  # phase svds_config4: singular values against numpy.linalg.svd
 
 BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
@@ -338,6 +384,40 @@ def build_complex_hopping(n: int, seed: int = 0):
     cols = [np.arange(n), np.arange(1, n), np.arange(n - 1), np.arange(2, n), np.arange(n - 2)]
     vals = [diag.astype(complex), t1, np.conj(t1), t2, np.conj(t2)]
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+def banded_rect_triplets(m: int, n: int, bw: int, per_row: int, seed: int = 0):
+    """The rectangular operator of ``benchmarks/bench_svds_rect.py``: ``per_row``
+    Gaussian entries a row near the matched diagonal j ~ i n / m, within
+    ``bw``, then rows and columns shuffled so that the bipartite RCM has to
+    find the band again."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(m), per_row)
+    c = (r * n) // m + rng.integers(-bw, bw, size=len(r))
+    keep = (c >= 0) & (c < n)
+    r, c = r[keep], c[keep]
+    v = rng.standard_normal(len(r))
+    pr, pc = rng.permutation(m), rng.permutation(n)
+    return pr[r], pc[c], v, (m, n)
+
+
+def counted(container, counts: dict):
+    """``container`` as a subclass of its own type that adds one to
+    ``counts["matvec"]`` / ``counts["matmat"]`` at each product and then
+    computes it as the container does (its wrapper launches the kernel): the
+    count of operator applications a phase holds the launch counts against."""
+    base = type(container)
+
+    class Counted(base):
+        def matvec(self, x):
+            counts["matvec"] += 1
+            return base.matvec(self, x)
+
+        def matmat(self, X):
+            counts["matmat"] += 1
+            return base.matmat(self, X)
+
+    return Counted(*(getattr(container, f.name) for f in dataclasses.fields(container)))
 
 
 def coo_on(r, c, v, n: int, dev) -> COOMatrix:
@@ -974,7 +1054,7 @@ def main() -> None:
                               max_restarts=400)))
 
     # -- 5. eigsh_accelerated --------------------------------------------------
-    if wanted("eigsh_accelerated") or wanted("window_accelerated"):
+    if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated"):
         import scipy.sparse as sp
 
         n_a = nbr * BLOCK
@@ -990,6 +1070,8 @@ def main() -> None:
         acc = accelerate(trip, symmetric=True)
         if acc.matrix.dtype != torch.bfloat16:
             fail(f"eigsh_accelerated: dyadic values packed as {acc.matrix.dtype}, expected bfloat16")
+
+    if wanted("eigsh_accelerated") or wanted("window_accelerated"):
         res, seconds, counts = drive(
             "eigsh_accelerated", acc.matrix,
             lambda: eigsh(acc, k=2, which="LA", tol=ACCEL_TOL, seed=3, max_restarts=400))
@@ -1050,6 +1132,52 @@ def main() -> None:
                 fail(f"window_accelerated: launches {counts} for {res.iterations} rounds")
             if args.profile:
                 emit("profile_window", solve="window_accelerated", **profile_solve(solve_window))
+
+    if wanted("expm_accelerated"):
+        # -- 14. expm_accelerated: exp(xA) v on the symmetric kernel, two ways --------
+        lo, hi = acc.matrix.estimate_eigenvalue_range()
+        rho = max(abs(float(lo)), abs(float(hi)))
+        x_exp = -math.floor(EXPM_X_RHO / rho * 1e6) / 1e6  # |x| rho <= 20
+        applied = {"matvec": 0, "matmat": 0}
+        acc_e = dataclasses.replace(acc, matrix=counted(acc.matrix, applied))
+        v_exp = acc_e.embed(np.random.default_rng(SEED + 11).standard_normal(n_a))
+
+        def solve_expm():
+            out = {}
+            for method, kw in (("lanczos", dict(num_steps=EXPM_STEPS)),
+                               ("taylor_auto", dict(tol=EXPM_TAYLOR_TOL))):
+                before = applied["matvec"]
+                t0 = time.time()
+                y = expm_multiply(acc_e, v_exp, x_exp, method=method, **kw)
+                torch.cuda.synchronize()
+                out[method] = (y, time.time() - t0, applied["matvec"] - before)
+            return out
+
+        out, seconds, counts = drive("expm_accelerated", acc.matrix, solve_expm)
+        y_l, y_t = out["lanczos"][0], out["taylor_auto"][0]
+        finite = bool(torch.isfinite(y_l).all() and torch.isfinite(y_t).all())
+        agree = float(torch.linalg.vector_norm(y_l - y_t) / torch.linalg.vector_norm(y_t))
+        n_div = math.ceil(abs(x_exp) * rho)
+        emit("expm_accelerated", n=n_a, storage="bfloat16", x=x_exp, gershgorin_rho=rho,
+             abs_x_times_rho=abs(x_exp) * rho, lanczos_steps=EXPM_STEPS,
+             taylor_tol=EXPM_TAYLOR_TOL, taylor_substeps=n_div,
+             applications={m: o[2] for m, o in out.items()},
+             seconds={m: o[1] for m, o in out.items()},
+             ms_per_application={m: o[1] * 1e3 / max(o[2], 1) for m, o in out.items()},
+             norm_v=float(torch.linalg.vector_norm(v_exp)),
+             norm_result=float(torch.linalg.vector_norm(y_t)), rel_diff=agree,
+             agree_limit=EXPM_AGREE, launches=counts, seconds_total=seconds)
+        if tuple(y_l.shape) != (acc.shape[0],) or not finite:
+            fail("expm_accelerated: results are not finite vectors of the operator's size")
+        if not agree <= EXPM_AGREE:
+            fail(f"expm_accelerated: lanczos and taylor_auto differ by {agree:.3e} > {EXPM_AGREE}")
+        if out["lanczos"][2] != EXPM_STEPS:
+            fail(f"expm_accelerated: {out['lanczos'][2]} applications for {EXPM_STEPS} Lanczos steps")
+        if counts != only_kernel("sym_bsr_spmv", applied["matvec"]) or applied["matmat"]:
+            fail(f"expm_accelerated: launches {counts} for {applied['matvec']} applications")
+        del acc_e, v_exp, out, y_l, y_t
+
+    if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated"):
         del acc
 
     # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
@@ -1308,6 +1436,159 @@ def main() -> None:
         if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_complex_accelerated: launches {counts} for {res.iterations} matvecs")
         del acc_c
+
+    # -- 15. tridiag_si: BASELINE config 1 through cuSPARSE gtsv2 ---------------------
+    if wanted("tridiag_si"):
+        n = TRIDIAG_N
+        d = np.full(n, 2.0)
+        off = np.full(n - 1, -1.0)
+        si = tridiagonal_shift_invert_operator(off, d, off, TRIDIAG_SIGMA, dtype=np.float64)
+        # matmats on the card against LAPACK gtsv on the host, same bands and shift
+        X = torch.randn((n, TRIDIAG_COLS), generator=gen, device=dev, dtype=torch.float64)
+
+        def against_host(shift):
+            card = tridiagonal_shift_invert_operator(off, d, off, shift, dtype=np.float64)
+            host = tridiagonal_shift_invert_operator(off, d, off, shift, dtype=np.float64,
+                                                     device="cpu")
+            direct.reset_gtsv2_calls()
+            Yc = card.matmat(X).cpu()
+            if direct.gtsv2_calls() != 1:
+                fail(f"tridiag_si: one matmat made {direct.gtsv2_calls()} gtsv2 calls")
+            Yh = host.matmat(X.cpu())
+            forward = float((torch.linalg.vector_norm(Yc - Yh, dim=0)
+                             / torch.linalg.vector_norm(Yh, dim=0)).max())
+            # backward error: ||(A - shift I) Y - X|| / (||A - shift I||_2 ||Y||), ||A||_2 < 4
+            lap = tridiagonal_operator(off, d, off, device="cpu")
+            R = lap.matmat(Yc) - shift * Yc - X.cpu()
+            backward = float((torch.linalg.vector_norm(R, dim=0)
+                              / ((4 + abs(shift)) * torch.linalg.vector_norm(Yc, dim=0))).max())
+            return forward, backward
+
+        well_forward, well_backward = against_host(TRIDIAG_WELL_SIGMA)
+        solve_forward, solve_backward = against_host(TRIDIAG_SIGMA)
+        lam_lo = 2 - 2 * np.cos(np.pi / (n + 1)) - TRIDIAG_SIGMA
+        cond = (4 - TRIDIAG_SIGMA) / lam_lo
+        forward_bound = float(np.finfo(np.float64).eps * cond)
+        xv = X[:, 0].contiguous()
+        ms_matvec = time_ms(lambda: si.matvec(xv))
+        ms_matmat = time_ms(lambda: si.matmat(X))
+        options = LanczosOptions(max_eigenvalues=5, eigenvalue_indices=(-5, -4, -3, -2, -1),
+                                 tolerance=1e-14, max_subspace=40, reorthogonalize_interval=1,
+                                 compute_eigenvectors=False)
+
+        def solve_tridiag():
+            direct.reset_gtsv2_calls()
+            return LanczosEigenSolver(si, options).compute()
+
+        res, seconds, counts = drive("tridiag_si", si, solve_tridiag)
+        solves = direct.gtsv2_calls()
+        theta = np.sort(np.asarray(res.eigenvalues))[::-1][:5]
+        lam = np.sort(TRIDIAG_SIGMA + 1.0 / theta)
+        exact = 2 - 2 * np.cos(np.arange(1, 6) * np.pi / (n + 1))
+        err = float(np.max(np.abs(lam - exact)))
+        emit("tridiag_si", n=n, dtype="float64", sigma=TRIDIAG_SIGMA, k=5, max_subspace=40,
+             tol=1e-14, converged=res.converged, termination=res.termination,
+             eigenvalues=lam.tolist(), closed_form=exact.tolist(), max_abs_err=err,
+             err_limit=TRIDIAG_ERR_LIMIT, matvecs=res.iterations, gtsv2_solves=solves,
+             seconds=seconds, ms_per_solve_in_solve=seconds * 1e3 / max(solves, 1),
+             ms_per_solve_by_events=ms_matvec,
+             ms_per_matmat_by_events={f"p={TRIDIAG_COLS}": ms_matmat},
+             matmat_vs_host_lapack={
+                 f"sigma={TRIDIAG_WELL_SIGMA}": dict(max_col_rel_diff=well_forward,
+                                                     backward_err=well_backward),
+                 f"sigma={TRIDIAG_SIGMA}": dict(max_col_rel_diff=solve_forward,
+                                                backward_err=solve_backward,
+                                                condition=cond, eps_times_condition=forward_bound)},
+             solve_limit=TRIDIAG_SOLVE_LIMIT, launches=counts)
+        if not err <= TRIDIAG_ERR_LIMIT:
+            fail(f"tridiag_si: error {err:.3e} against the closed form exceeds {TRIDIAG_ERR_LIMIT}")
+        if not (well_forward <= TRIDIAG_SOLVE_LIMIT and solve_backward <= TRIDIAG_SOLVE_LIMIT
+                and well_backward <= TRIDIAG_SOLVE_LIMIT and solve_forward <= forward_bound):
+            fail(f"tridiag_si: gtsv2 against the host LAPACK solve: difference {well_forward:.3e} "
+                 f"at sigma {TRIDIAG_WELL_SIGMA}, {solve_forward:.3e} at {TRIDIAG_SIGMA} (bound "
+                 f"{forward_bound:.3e}); backward errors {well_backward:.3e}, {solve_backward:.3e}")
+        if solves != res.iterations or any(counts.values()):
+            fail(f"tridiag_si: {solves} gtsv2 calls, launches {counts} for {res.iterations} matvecs")
+        del si, X
+
+    # -- 16. svds_accelerated: the Gram pipeline on two general packs -----------------
+    if wanted("svds_accelerated"):
+        import scipy.sparse as sp
+
+        r_s, c_s, v_s, shape_s = banded_rect_triplets(*SVDS_SHAPE, SVDS_BW, SVDS_PER_ROW, SEED)
+        t0 = time.time()
+        acc_s = accelerate((r_s, c_s, v_s, shape_s))  # what svds(..., accelerate=True) does first
+        pack_s = time.time() - t0
+        applied = {"matvec": 0, "matmat": 0}
+        acc_s = dataclasses.replace(acc_s, matrix=counted(acc_s.matrix, applied))
+        t0 = time.time()
+        adj = acc_s.adjoint_matrix()  # packed once, kept on the operator
+        adj_s = time.time() - t0
+        mat_s = acc_s.matrix
+        for what, b in (("pack", mat_s), ("adjoint pack", adj)):
+            if b.dtype != torch.float32 or b.block_shape != (32, 128):
+                fail(f"svds_accelerated: {what} {tuple(b.data.shape)} {b.dtype}, expected f32 32x128")
+        packs = {}
+        for what, b in (("A", mat_s), ("A^H", adj)):
+            xb = torch.randn(b.shape[1], generator=gen, device=dev)
+            case = check_kernel("bsr_spmv", f"svds {what} pack " + "x".join(map(str, b.data.shape))
+                                + " f32", b, xb, peaks)
+            packs[what] = dict(shape=list(b.data.shape), nbr=b.n_block_rows, kmax=b.k_max,
+                               bytes=b.data.numel() * 4, bsr_spmv=case)
+        del xb
+
+        res_s, seconds, counts = drive(
+            "svds_accelerated", mat_s, lambda: svds(acc_s, k=SVDS_K, tol=SVDS_TOL))
+        U, s, Vh = res_s
+        A64 = sp.csr_matrix((v_s, (r_s, c_s)), shape=shape_s)
+        V = np.conj(Vh).T
+        rv = (np.linalg.norm(A64 @ V - U * s[None, :], axis=0) / s[0]).tolist()
+        ru = (np.linalg.norm(A64.T @ U - V * s[None, :], axis=0) / s[0]).tolist()
+        orth = float(np.linalg.norm(U.T @ U - np.eye(SVDS_K)))
+        gram = applied["matvec"]
+        emit("svds_accelerated", m=shape_s[0], n=shape_s[1], nnz=int(A64.nnz), bw=SVDS_BW,
+             per_row=SVDS_PER_ROW, k=SVDS_K, tol=SVDS_TOL, singular_values=s.tolist(),
+             rel_residuals_av_su=rv, resid_limit=SVDS_RESID_LIMIT,
+             rel_residuals_ahu_sv=ru, u_orthonormality=orth, orth_limit=SVDS_ORTH_LIMIT,
+             pack=dict(acc_s.stats), pack_seconds_wall=pack_s, adjoint_pack_seconds=adj_s,
+             packs=packs, gram_matvecs=gram, recovery_products=applied["matmat"],
+             launches=counts, seconds=seconds, ms_per_gram_matvec=seconds * 1e3 / max(gram, 1))
+        finite = np.isfinite(s).all() and np.isfinite(U).all() and np.isfinite(Vh).all()
+        if U.shape != (shape_s[0], SVDS_K) or Vh.shape != (SVDS_K, shape_s[1]) or not finite:
+            fail("svds_accelerated: factors are not finite (m, k) and (k, n)")
+        if not max(rv) <= SVDS_RESID_LIMIT:
+            fail(f"svds_accelerated: residual {max(rv):.3e} exceeds {SVDS_RESID_LIMIT}")
+        if not orth <= SVDS_ORTH_LIMIT:
+            fail(f"svds_accelerated: ||U^T U - I|| = {orth:.3e} exceeds {SVDS_ORTH_LIMIT}")
+        want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+        want.update(bsr_spmv=2 * gram, bsr_spmm=applied["matmat"])
+        if counts != want or gram == 0:
+            fail(f"svds_accelerated: launches {counts}, expected {want}")
+        del acc_s, adj, mat_s, A64, U, Vh, V, res_s
+
+    # -- 17. svds_config4: BASELINE config 4 on the card -----------------------------
+    if wanted("svds_config4"):
+        t4 = np.random.default_rng(SEED).standard_normal((6, 8, 7, 5))
+        t4_dev = torch.as_tensor(t4, device=dev)
+        out4, seconds, counts = drive(
+            "svds_config4", t4_dev,
+            lambda: truncated_svd_via_lanczos(t4_dev, left_axes=2, rank=3, tolerance=1e-14))
+        u_np, s_np, vt_np = np.linalg.svd(t4.reshape(48, 35), full_matrices=False)
+        s4 = out4.singular_values.cpu().numpy()
+        err4 = float(np.max(np.abs(s4 - s_np[:3])))
+        rec = out4.reconstruct().reshape(48, 35).cpu().numpy()
+        rec_err = float(np.linalg.norm(rec - (u_np[:, :3] * s_np[:3]) @ vt_np[:3]))
+        emit("svds_config4", shape=[6, 8, 7, 5], left_axes=2, rank=3, dtype="float64",
+             device=str(out4.tensor_u.device), singular_values=s4.tolist(),
+             numpy_singular_values=s_np[:3].tolist(), max_abs_err=err4,
+             err_limit=CONFIG4_ERR_LIMIT, rank3_reconstruction_err=rec_err, seconds=seconds,
+             launches=counts)
+        if out4.tensor_u.device.type != "cuda":
+            fail(f"svds_config4: the factors came back on {out4.tensor_u.device}")
+        if not err4 <= CONFIG4_ERR_LIMIT:
+            fail(f"svds_config4: singular-value error {err4:.3e} exceeds {CONFIG4_ERR_LIMIT}")
+        if any(counts.values()):
+            fail(f"svds_config4: launches {counts}: the dense Gram route launches no kernel")
 
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)

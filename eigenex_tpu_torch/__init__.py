@@ -1,8 +1,9 @@
 """eigenex_tpu_torch -- the PyTorch/CUDA port of eigenex_tpu.
 
-Krylov, Krylov-Schur and block eigensolvers, CG/MINRES/CGLS/GMRES
-shift-invert inner solvers, and host f64 refinement over block-sparse
-operators on torch tensors, with hand-written CUDA kernels for the
+Krylov, Krylov-Schur and block eigensolvers, CG/MINRES/CGLS/GMRES and
+exact tridiagonal shift-invert operators, truncated SVD on the Gram
+operator, Krylov and Taylor f(A)v / exp(xA)v, and host f64 refinement
+over block-sparse operators on torch tensors, with hand-written CUDA kernels for the
 block-sparse matvec and multi-vector product on an NVIDIA Hopper card.
 The JAX package ``eigenex_tpu`` is the reference; a module here sits at
 the same subpath as its counterpart there.
@@ -15,6 +16,13 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from .core.operators import LinearOperator, aslinearoperator, identity_operator
+from .ops.sparse_svd import gram_operator, truncated_svd_via_lanczos
+from .ops.tensor_svd import TensorSVDResult, tensor_svd, truncated_tensor_svd
+from .ops.tensor_util import (
+    contract_vector_as_diagonal,
+    transform_tensor_with_matrix,
+    zerowisely_resized,
+)
 from .solvers.api import eigs, eigsh, svds
 from .solvers.arnoldi import ArnoldiEigenSolver, ArnoldiOptions, ArnoldiResult
 from .solvers.block_lanczos import BlockLanczosEigenSolver, BlockLanczosOptions
@@ -26,6 +34,17 @@ from .solvers.chebyshev import (
     eigsh_window,
 )
 from .solvers.cg import cg_solve, cgls_solve, minres_solve, shift_invert_operator
+from .solvers.direct import tridiagonal_operator, tridiagonal_shift_invert_operator
+from .solvers.functions import (
+    LanczosExponentialSolver,
+    LanczosFunctionSolver,
+    dense_expmv,
+    expm_multiply,
+    lanczos_expmv,
+    lanczos_function_apply,
+    taylor_expmv,
+    taylor_expmv_auto,
+)
 from .solvers.gmres import gmres_solve, gmres_solve_jit, shift_invert_operator_general
 from .solvers.kpm import chebyshev_moments, eigenvalue_count, eigsh_range, spectral_density
 from .solvers.krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions
@@ -72,11 +91,14 @@ __all__ = [
     "LOBPCGSolver",
     "LanczosEigenSolver",
     "LanczosError",
+    "LanczosExponentialSolver",
+    "LanczosFunctionSolver",
     "LanczosOptions",
     "LanczosResult",
     "LinearOperator",
     "OperatorError",
     "SymBSRMatrix",
+    "TensorSVDResult",
     "ThickRestartLanczosEigenSolver",
     "ThickRestartOptions",
     "accelerate",
@@ -89,21 +111,27 @@ __all__ = [
     "chebyshev_filter_apply",
     "chebyshev_moments",
     "complex_from_real",
+    "contract_vector_as_diagonal",
     "coo_from_dense",
     "dedup_doubled_eigenvalues",
+    "dense_expmv",
     "eigenvalue_count",
     "eigs",
     "eigs_realified",
     "eigsh",
     "eigsh_range",
     "eigsh_window",
+    "expm_multiply",
     "general_inverse_iteration_refine",
     "general_rayleigh_refine",
     "gmres_solve",
     "gmres_solve_jit",
+    "gram_operator",
     "identity_operator",
     "inverse_iteration_refine",
     "jacobi_preconditioner",
+    "lanczos_expmv",
+    "lanczos_function_apply",
     "lobpcg",
     "minres_solve",
     "rayleigh_refine",
@@ -114,4 +142,13 @@ __all__ = [
     "spectral_density",
     "svds",
     "sym_bsr_from_bsr",
+    "taylor_expmv",
+    "taylor_expmv_auto",
+    "tensor_svd",
+    "transform_tensor_with_matrix",
+    "tridiagonal_operator",
+    "tridiagonal_shift_invert_operator",
+    "truncated_svd_via_lanczos",
+    "truncated_tensor_svd",
+    "zerowisely_resized",
 ]

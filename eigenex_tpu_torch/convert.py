@@ -19,10 +19,18 @@ from .sparse.sym_bsr import SymBSRMatrix
 from .utils.device import resolve_device
 from .utils.tolerance import accumulation_dtype, as_torch_dtype
 
-__all__ = ["bsr_from_numpy", "sym_bsr_from_numpy", "coo_from_numpy", "to_numpy"]
+__all__ = [
+    "bsr_from_numpy",
+    "sym_bsr_from_numpy",
+    "coo_from_numpy",
+    "accelerated_from_numpy",
+    "to_numpy",
+]
 
 
 def _tensor(a, np_dtype=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor) and np_dtype is None:  # e.g. bf16 blocks read from a file
+        return a.contiguous()
     a = np.ascontiguousarray(a, dtype=np_dtype)
     if not a.flags.writeable:  # e.g. a view of a jax array: torch wants its own copy
         a = a.copy()
@@ -68,6 +76,37 @@ def coo_from_numpy(row, col, val, shape, device=None) -> COOMatrix:
         _index(row, device), _index(col, device),
         _tensor(val).to(device),
         (int(shape[0]), int(shape[1])),
+    )
+
+
+def accelerated_from_numpy(meta: dict, perm, *, data=None, bcols=None, diag=None, upper=None,
+                           ucols=None, row_perm=None, dtype=None, device=None):
+    """An :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`
+    from the arrays of the JAX package's one: ``perm`` (and ``row_perm`` for
+    a rectangular pack), the blocks -- ``data``/``bcols`` of a general pack
+    or ``diag``/``upper``/``ucols`` of a symmetric one -- and ``meta``, a
+    dict with the keys of its ``save`` metadata (``orig_shape``,
+    ``symmetric``, ``complexified``, ``stats``, ``shape``, ``band_reach``
+    and the storage ``dtype`` name, which ``dtype`` overrides).  The kept
+    host triplets of a fresh pack do not come across: the adjoint pack is
+    then made from the blocks."""
+    from .sparse.accelerate import AcceleratedOperator
+
+    dtype = as_torch_dtype(meta["dtype"] if dtype is None else dtype)
+    shape = tuple(meta["shape"])
+    if diag is not None:
+        mat = sym_bsr_from_numpy(diag, upper, ucols, shape, meta.get("band_reach", -1),
+                                 dtype=dtype, device=device)
+    else:
+        mat = bsr_from_numpy(data, bcols, shape, dtype=dtype, device=device)
+    return AcceleratedOperator(
+        matrix=mat,
+        perm=np.asarray(perm, np.int64),
+        orig_shape=tuple(int(d) for d in meta["orig_shape"]),
+        symmetric=bool(meta["symmetric"]),
+        complexified=bool(meta["complexified"]),
+        stats=dict(meta.get("stats") or {}),
+        row_perm=None if row_perm is None else np.asarray(row_perm, np.int64),
     )
 
 

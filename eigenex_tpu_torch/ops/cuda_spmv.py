@@ -69,6 +69,7 @@ __all__ = [
     "sym_bsr_spmm",
     "sym_bsr_spmm_plain",
     "build_kernels",
+    "LIBRARY_SOURCES",
     "kernel_storage",
     "launch_counts",
     "reset_launch_counts",
@@ -87,6 +88,13 @@ KERNEL_SOURCES = {
     "sym_bsr_spmm": "sym_bsr_spmm.cu",
 }
 _HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
+#: sources that bind a CUDA library rather than hold a kernel of their own ->
+#: their file under ``csrc/``; built by :func:`build_kernels` like the kernels
+LIBRARY_SOURCES = {
+    "tridiag_solve": "tridiag_solve.cu",  # cuSPARSE gtsv2 (solvers/direct.py)
+}
+#: extra ``nvcc`` arguments of one source: the libraries it links
+_LINK_FLAGS = {"tridiag_solve": ("-lcusparse",)}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -138,20 +146,37 @@ def _find_nvcc() -> str:
     raise EigenexError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
+def _source(name: str) -> str:
+    return KERNEL_SOURCES.get(name) or LIBRARY_SOURCES[name]
+
+
+def _link_flags(name: str, nvcc: str | None = None) -> list[str]:
+    """The libraries a source links, with the toolkit's library directory as
+    its run path (``nvcc`` passes the directory to the linker, not to the
+    loader)."""
+    flags = list(_LINK_FLAGS.get(name, ()))
+    if flags and nvcc is not None:
+        lib = Path(nvcc).resolve().parent.parent / "lib64"
+        flags += ["-Xlinker", "-rpath", "-Xlinker", str(lib)]
+    return flags
+
+
 def _library_path(name: str) -> Path:
-    """Build product of one kernel, keyed by the content it is built from."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (KERNEL_SOURCES[name],) + _HEADERS:
+    """Build product of one source, keyed by the content it is built from."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(_link_flags(name))).encode())
+    for fname in (_source(name),) + _HEADERS:
         h.update((_CSRC / fname).read_bytes())
     return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_kernels(names=None) -> dict[str, Path]:
-    """Compile the kernels that are not built yet, one ``nvcc`` per
+    """Compile the sources that are not built yet -- every kernel of
+    :data:`KERNEL_SOURCES` and every library binding of
+    :data:`LIBRARY_SOURCES` unless ``names`` picks some -- one ``nvcc`` per
     source, all started together.  Returns name -> shared library.  The
     compiler's resource report (``-Xptxas -v``) of each fresh build is
     kept beside the library as ``<library>.log``."""
-    names = list(KERNEL_SOURCES) if names is None else list(names)
+    names = [*KERNEL_SOURCES, *LIBRARY_SOURCES] if names is None else list(names)
     paths = {name: _library_path(name) for name in names}
     todo = [name for name in names if not paths[name].exists()]
     if not todo:
@@ -162,14 +187,14 @@ def build_kernels(names=None) -> dict[str, Path]:
     for name in todo:
         tmp = paths[name].with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / KERNEL_SOURCES[name])]
+               str(_CSRC / _source(name)), *_link_flags(name, nvcc)]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{KERNEL_SOURCES[name]}: nvcc exited {proc.returncode}\n{out}")
+            failures.append(f"{_source(name)}: nvcc exited {proc.returncode}\n{out}")
             continue
         paths[name].with_suffix(".so.log").write_text(out)
         os.replace(tmp, paths[name])

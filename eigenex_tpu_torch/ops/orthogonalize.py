@@ -8,9 +8,15 @@ as a pair of matrix-vector products -- classical Gram-Schmidt applied
 **twice** (CGS2, "twice is enough": Giraud et al.).
 
 These are plain ``V.conj() @ v`` products outside any hand-written
-kernel and stay ``torch.mv``.  On the card a float32 product runs in
-full float32 (``torch.backends.cuda.matmul.allow_tf32`` is False by
-default, and nothing in this package turns it on).  The mesh-axis hook
+kernel and stay ``torch.mv``.  Their f32 grade follows the process-wide
+``torch.set_float32_matmul_precision``: a caller's ``"high"`` would take
+them in TF32 on the card, ``"medium"`` at bf16 grade.  So every front end
+and every solver's ``compute()`` runs under
+:func:`eigenex_tpu_torch.utils.precision.highest_f32_matmul`, which pins
+``"highest"`` for the solve and gives the caller's setting back after it,
+as the JAX package pins ``precision="highest"`` on these products.  A
+caller who uses these primitives outside a solver gets its own setting.
+The mesh-axis hook
 of the JAX version (``axis_name``) comes with the distributed layer.
 """
 

@@ -1,6 +1,6 @@
 """One-call eigensolver front ends (scipy.sparse.linalg-style).
 
-Counterpart of ``eigsh`` and ``eigs`` in ``eigenex_tpu/solvers/api.py``:
+Counterpart of ``eigsh``, ``eigs`` and ``svds`` in ``eigenex_tpu/solvers/api.py``:
 
 - :func:`eigsh` -- Hermitian: ``which`` in {"SA", "LA", "BE", "LM",
   "SM"}, optional ``sigma`` (shift-invert through a MINRES inner solve).
@@ -21,8 +21,12 @@ complex (complex operands of ``accelerate=`` ride the real embedding).
 With a COOMatrix operand, ``refine=True`` polishes the returned pairs on
 the host in float64.
 
+- :func:`svds` -- the top-k singular triplets through Hermitian Lanczos on
+  the smaller-side Gram operator; on an accelerated (rectangular) operand
+  both Gram matvecs run on packed general blocks.
+
 ``mesh=`` (the distributed solvers) is not ported yet and raises
-``EigenexError("not ported yet: ...")``; so does ``svds``.
+``EigenexError("not ported yet: ...")``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import EigenexError, not_ported
+from ..utils.precision import highest_f32_matmul
 from .gmres import shift_invert_operator_general
 from .krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions, _which_key
 from .lanczos import LanczosEigenSolver, LanczosOptions, LanczosResult
@@ -83,6 +88,7 @@ def _default_inner_tol(inner_tol, tol, dtype) -> float:
     return max(outer * 1e-2, 1e-14)
 
 
+@highest_f32_matmul()
 def eigsh(
     A,
     k: int = 6,
@@ -400,6 +406,7 @@ def _restore_accelerated(res: LanczosResult, acc, k, refine, coo) -> LanczosResu
     return _maybe_refine_hermitian(res2, coo, refine)
 
 
+@highest_f32_matmul()
 def eigs(
     A,
     k: int = 6,
@@ -593,10 +600,203 @@ def _eigs_accelerated_complex(
     return _maybe_refine_general(res, coo, refine, which, sigma)
 
 
-def svds(A, k: int = 6, **kwargs):
-    """Truncated SVD front end of the JAX package (the Gram pipeline over
-    rectangular packs): not ported yet."""
-    raise not_ported("svds (the Gram pipeline, rectangular packs)")
+def _gram_right_mv(op, x):  # G = A^H A
+    return op.rmatvec(op.matvec(x))
+
+
+def _gram_left_mv(op, x):  # G = A A^H
+    return op.matvec(op.rmatvec(x))
+
+
+def _pair_gram_right_mv(p, x):  # G = A^H A through two packed containers
+    opA, opH = p
+    return opH.matvec(opA.matvec(x))
+
+
+def _pair_gram_left_mv(p, x):  # G = A A^H
+    opA, opH = p
+    return opA.matvec(opH.matvec(x))
+
+
+def _gram_solver(g, k: int, dim: int, dim_pad: int, *, tol, max_subspace, max_restarts,
+                 seed, vectors: bool):
+    """The Hermitian solver of the Gram operator ``g`` (its k largest
+    pairs): plain Lanczos when the subspace covers the ``dim`` unpadded
+    coordinates, thick-restart Lanczos otherwise.  ``dim_pad`` > ``dim``
+    leaves room for the padding, which a padding-safe start never enters."""
+    m = min(max_subspace or max(4 * k + 16, 32), dim)
+    indices = tuple(range(-k, 0))  # largest Ritz values of G
+    if m >= dim:
+        return LanczosEigenSolver(g, LanczosOptions(
+            max_eigenvalues=k, eigenvalue_indices=indices, tolerance=tol,
+            max_subspace=min(dim_pad, m + (dim_pad - dim)), seed=seed,
+            compute_eigenvectors=vectors))
+    return ThickRestartLanczosEigenSolver(g, ThickRestartOptions(
+        max_eigenvalues=k, eigenvalue_indices=indices, tolerance=tol, max_subspace=m,
+        max_restarts=max_restarts, seed=seed, compute_eigenvectors=vectors))
+
+
+def _descending(res):
+    """(sigma descending as a host array, the Gram eigenvectors in that
+    order) of a Gram solve."""
+    theta = np.maximum(np.asarray(res.eigenvalues)[::-1], 0.0)
+    s = np.sqrt(theta)
+    W = res.eigenvectors.flip(1) if res.eigenvectors is not None else None
+    return s, W
+
+
+def _safe(s: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """sigma with zeros replaced by 1, to divide by, on ``like``'s device."""
+    return torch.as_tensor(np.where(s > 0, s, 1.0)).to(device=like.device, dtype=like.dtype)
+
+
+@highest_f32_matmul()
+def svds(
+    A,
+    k: int = 6,
+    *,
+    tol: float | None = None,
+    max_subspace: int | None = None,
+    max_restarts: int = 200,
+    seed: int = 0,
+    return_singular_vectors: bool = True,
+    mesh=None,
+    accelerate: bool = False,
+    device=None,
+):
+    """Top-``k`` singular triplets of a sparse or matrix-free operator --
+    the scipy.sparse.linalg.svds-style front end.
+
+    Runs Hermitian Lanczos (plain or thick-restart) on the smaller-side
+    Gram operator G = A^H A or A A^H without forming G (two matvecs an
+    application; BASELINE config 4's route for any operator, cf.
+    :func:`eigenex_tpu_torch.ops.sparse_svd.truncated_svd_via_lanczos`).
+    Needs an operand with an adjoint: a dense matrix, a COOMatrix, or a
+    LinearOperator with ``rmatvec_fn``.
+
+    Returns ``(U (nrows, k), s (k,) descending, Vh (k, ncols))``, or just
+    ``s`` when ``return_singular_vectors=False``.  ``s`` is a host array; U
+    and Vh are tensors on the solve's device, host arrays on the
+    accelerated route.
+
+    accelerate: repack the operand through
+    :func:`eigenex_tpu_torch.sparse.accelerate.accelerate` first -- for a
+    RECTANGULAR operator the bipartite-RCM two-sided permutation and a
+    general 32x128 pack, so that both Gram matvecs (A, and A^H packed at
+    the same block shape) run on the general SpMV kernel; an
+    :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`
+    operand takes this route implicitly.  A complex square operand rides
+    the real embedding, where every sigma appears twice.
+    device: as for :func:`eigsh`.  ``mesh=`` (and with it the reference's
+    ``matvec_mode`` and ``block_shape``, which only the mesh route reads) is
+    not ported yet."""
+    from ..sparse.accelerate import AcceleratedOperator
+
+    if mesh is not None:
+        raise not_ported("svds(mesh=) (the distributed Gram pipeline)")
+    if accelerate and not isinstance(A, AcceleratedOperator):
+        from ..sparse.accelerate import accelerate as _accelerate_fn
+
+        A = _accelerate_fn(A, device=device)
+    if isinstance(A, AcceleratedOperator):
+        return _svds_accelerated(
+            A, k, tol=tol, max_subspace=max_subspace, max_restarts=max_restarts,
+            seed=seed, return_singular_vectors=return_singular_vectors,
+        )
+
+    op = _resolve_operand(A, device)
+    if not op.has_adjoint:
+        raise EigenexError(
+            "svds requires an operator with an adjoint (rmatvec); dense "
+            "matrices, COOMatrix, and LinearOperator(rmatvec_fn=...) all "
+            "provide one"
+        )
+    nrows, ncols = op.shape
+    small = min(nrows, ncols)
+    if k > small:
+        raise EigenexError(f"k={k} exceeds min(shape)={small}")
+    use_right = ncols <= nrows
+    dim = ncols if use_right else nrows
+    g = LinearOperator(_gram_right_mv if use_right else _gram_left_mv, op, (dim, dim),
+                       op.dtype, op.device)
+    res = _gram_solver(g, k, dim, dim, tol=tol, max_subspace=max_subspace,
+                       max_restarts=max_restarts, seed=seed,
+                       vectors=return_singular_vectors).compute()
+    s, W = _descending(res)
+    if not return_singular_vectors:
+        return s
+    safe = _safe(s, W)
+    if use_right:
+        V = W
+        U = op.matmat(V) / safe[None, :]
+    else:
+        U = W
+        V = op.H.matmat(U) / safe.conj()[None, :]
+    return U, s, V.conj().T
+
+
+def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
+                      return_singular_vectors):
+    """svds on an :class:`AcceleratedOperator`: Hermitian Lanczos on the
+    smaller-side Gram operator of the PACKED container (two block matvecs an
+    application, A and its adjoint pack), a padding-safe start, and a
+    two-sided restore: left singular vectors through the row permutation,
+    right ones through the column permutation."""
+    from ..sparse.accelerate import _padding_safe_v0, dedup_embedded_pairs
+    from ..sparse.sym_bsr import SymBSRMatrix
+
+    if acc.complexified and acc.symmetric:
+        raise EigenexError(
+            "svds on a complexified HERMITIAN operator is redundant -- its "
+            "singular values are |eigenvalues|; use eigsh"
+        )
+    mult = 2 if acc.complexified else 1  # sigma(A) appears twice in the embedding
+    mat = acc.matrix
+    opA = mat.as_linear_operator()
+    # A^H packed at the same block shape, so both matvecs reach the kernel
+    opH = opA if isinstance(mat, SymBSRMatrix) else acc.adjoint_matrix().as_linear_operator()
+    nrows, ncols = acc.orig_shape
+    small = min(nrows, ncols)
+    if k > small:
+        raise EigenexError(f"k={k} exceeds min(shape)={small}")
+    use_right = ncols <= nrows
+    dim_work = acc.n_work if use_right else acc.m_work
+    dim_pad = mat.shape[1] if use_right else mat.shape[0]
+    g = LinearOperator(_pair_gram_right_mv if use_right else _pair_gram_left_mv, (opA, opH),
+                       (dim_pad, dim_pad), opA.dtype, opA.device)
+    kk = mult * k
+    solver = _gram_solver(g, kk, dim_work, dim_pad, tol=tol, max_subspace=max_subspace,
+                          max_restarts=max_restarts, seed=seed,
+                          vectors=return_singular_vectors or mult == 2)
+    if dim_pad != dim_work:
+        solver.set_initial_vector(_padding_safe_v0(dim_work, dim_pad, g.dtype, seed, g.device))
+    res = solver.compute()
+    s, W = _descending(res)
+    if not return_singular_vectors and mult == 1:
+        return s
+    safe = _safe(s, W)
+    if acc.complexified:
+        # the real embedding M = [[B,-C],[C,B]] of a general complex A holds
+        # each sigma twice (its right space spans [Re v, Im v] and
+        # [-Im v, Re v]); restore() rebuilds a valid complex vector from any
+        # unit member, so a dedup by value and vector overlap keeps one
+        # representative a sigma (square operand: one permutation)
+        V = acc.restore(W)
+        U = acc.restore(opA.matmat(W) / safe[None, :])
+        keep = dedup_embedded_pairs(s, V, keep_max=k)
+        s, V, U = s[keep], V[:, keep], U[:, keep]
+        V = V / np.maximum(np.linalg.norm(V, axis=0), 1e-300)
+        U = U / np.maximum(np.linalg.norm(U, axis=0), 1e-300)
+        if not return_singular_vectors:
+            return s
+        return U, s, np.conj(V).T
+    if use_right:
+        V = acc.restore_right(W)
+        U = acc.restore(opA.matmat(W) / safe[None, :])
+    else:
+        U = acc.restore(W)
+        V = acc.restore_right(opH.matmat(W) / safe[None, :])
+    return U, s, np.conj(V).T
 
 
 def _check_true_residuals(res, op, label: str, user_tol: float | None = None):

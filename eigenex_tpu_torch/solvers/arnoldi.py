@@ -31,6 +31,7 @@ import torch
 from ..core.operators import LinearOperator, aslinearoperator
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
 from ..utils.exceptions import ArnoldiError
+from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance, real_dtype_of
 from ..utils.trace import ConvergenceTrace, Severity
 from .lanczos import UNLIMITED, LanczosOptions, _formal_indices, _host_flags, _phase_fix, _start_vector
@@ -340,6 +341,7 @@ class ArnoldiEigenSolver:
         m = min(o.max_subspace, n, max_iters) if max_iters > 0 else min(o.max_subspace, n)
         return tol, bd, m, max(o.min_iterations, 0)
 
+    @highest_f32_matmul()
     def compute(self, operator=None) -> ArnoldiResult:
         """cf. compute arnoldi.hpp:741-762"""
         if operator is not None:
@@ -362,6 +364,7 @@ class ArnoldiEigenSolver:
         self.trace.log(Severity.INFO, "compute: start")
         return self._main_loop()
 
+    @highest_f32_matmul()
     def continue_to_compute(self) -> ArnoldiResult:
         """cf. continueToCompute arnoldi.hpp:720-736 (operator must be
         unchanged)."""

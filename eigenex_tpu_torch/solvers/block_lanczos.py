@@ -34,6 +34,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import LanczosError
+from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import (
     default_breakdown_threshold,
@@ -213,6 +214,7 @@ class BlockLanczosEigenSolver:
         self._initial_block = v0
         return self
 
+    @highest_f32_matmul()
     def compute(self, operator=None) -> LanczosResult:
         if operator is not None:
             self.operator = aslinearoperator(operator)

@@ -29,6 +29,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import EigenexError
+from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_tolerance, real_dtype_of
 
 __all__ = ["cg_solve", "cgls_solve", "minres_solve", "shift_invert_operator", "CHECK_EVERY"]
@@ -90,6 +91,7 @@ def _cg_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     return x, torch.sqrt(rs.abs()), i
 
 
+@highest_f32_matmul()
 def cg_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 1000):
     """Solve A x = b for Hermitian positive/negative-definite A.
 
@@ -235,6 +237,7 @@ def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     return x, torch.sqrt(rn2.abs()), i
 
 
+@highest_f32_matmul()
 def cgls_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 2000):
     """Least-squares solve min ||A x - b|| via CGLS (works for any A,
     including indefinite Hermitian and rectangular operators; needs
@@ -305,6 +308,7 @@ def _minres_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     return out[1], out[-1], out[0]
 
 
+@highest_f32_matmul()
 def minres_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 2000):
     """Solve A x = b for HERMITIAN A (definite or indefinite) with MINRES.
 

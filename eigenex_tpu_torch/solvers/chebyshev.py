@@ -32,6 +32,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import LanczosError, not_ported
+from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import default_tolerance, real_dtype_of
 from ..utils.trace import ConvergenceTrace, Severity
@@ -250,6 +251,7 @@ class ChebyshevFilterSolver:
         rq, nrm = _power_probe_norm(op, o.seed + 7)
         return -1.05 * max(nrm, abs(rq)), 1.05 * max(nrm, abs(rq))
 
+    @highest_f32_matmul()
     @torch.no_grad()
     def compute(self, operator=None) -> LanczosResult:
         if operator is not None:
@@ -402,6 +404,7 @@ def _padding_safe_block(orig_n, padded_n, b, dtype, seed, device):
     return out
 
 
+@highest_f32_matmul()
 def eigsh_window(
     A,
     window: tuple[float, float],

@@ -27,6 +27,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import EigenexError
+from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_tolerance, real_dtype_of
 from .arnoldi import ArnoldiState, _arnoldi_chunk, arnoldi_steps, init_arnoldi_state
 from .cg import _cgls_loop, _Counted, _new_stats, _scalar_for
@@ -44,6 +45,7 @@ def _lstsq_host(H: torch.Tensor, beta: float):
     return y, Hh, e1
 
 
+@highest_f32_matmul()
 @torch.no_grad()
 def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
                 max_restarts: int = 100):
@@ -87,6 +89,7 @@ def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
     return x, rel, max_restarts
 
 
+@highest_f32_matmul()
 @torch.no_grad()
 def gmres_solve_jit(op, b, x0=None, *, restart: int = 32, cycles: int = 10, tol=0.0):
     """GMRES(m) with residual-controlled restart cycles: at most ``cycles``

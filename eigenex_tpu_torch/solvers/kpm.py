@@ -30,6 +30,7 @@ import torch
 
 from ..core.operators import LinearOperator
 from ..utils.exceptions import LanczosError, not_ported
+from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import real_dtype_of
 from ..utils.trace import ConvergenceTrace
@@ -93,6 +94,7 @@ def _bounds_of(op, A, spectral_bounds, seed):
     return -1.05 * nrm, 1.05 * nrm
 
 
+@highest_f32_matmul()
 def chebyshev_moments(
     A,
     n_moments: int = 128,
@@ -135,6 +137,7 @@ def chebyshev_moments(
     return mu.double().cpu().numpy(), (lo_m, hi_m)
 
 
+@highest_f32_matmul()
 def spectral_density(
     A,
     n_moments: int = 128,
@@ -163,6 +166,7 @@ def spectral_density(
     return lam_grid, n * rho_t / ext
 
 
+@highest_f32_matmul()
 def eigenvalue_count(
     A,
     interval: tuple[float, float],
@@ -199,6 +203,7 @@ def eigenvalue_count(
     return float(n * np.sum(mu * g * c))
 
 
+@highest_f32_matmul()
 def eigsh_range(
     A,
     interval: tuple[float, float],

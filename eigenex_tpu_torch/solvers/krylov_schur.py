@@ -26,6 +26,7 @@ import torch
 
 from ..core.operators import aslinearoperator
 from ..utils.exceptions import ArnoldiError
+from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
 from .arnoldi import ArnoldiResult, ArnoldiState, _lift_ritz, arnoldi_steps, init_arnoldi_state
@@ -127,6 +128,7 @@ class KrylovSchurArnoldiSolver:
         self._initial_vector = v0
         return self
 
+    @highest_f32_matmul()
     def compute(self, operator=None) -> ArnoldiResult:
         if operator is not None:
             self.operator = aslinearoperator(operator)

@@ -45,6 +45,7 @@ import torch
 from ..core.operators import LinearOperator, aslinearoperator
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
 from ..utils.exceptions import LanczosError
+from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_vector
 from ..utils.tolerance import (
     default_breakdown_threshold,
@@ -515,6 +516,7 @@ class LanczosEigenSolver:
         return tol, bd, m, max_iters, min_iters
 
     # -- main entry points ----------------------------------------------
+    @highest_f32_matmul()
     def compute(self, operator=None) -> LanczosResult:
         """Run from scratch (cf. compute lanczos.hpp:717-738: clears state,
         sets the initial vector, runs mainCalculation_)."""
@@ -538,6 +540,7 @@ class LanczosEigenSolver:
         self.trace.log(Severity.INFO, "compute: start")
         return self._main_loop()
 
+    @highest_f32_matmul()
     def continue_to_compute(self) -> LanczosResult:
         """Resume iteration with retained basis/alpha/beta after the user
         changed settings -- operator must be unchanged (cf.

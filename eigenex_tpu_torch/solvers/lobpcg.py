@@ -37,6 +37,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import LanczosError
+from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import default_tolerance, real_dtype_of
 from ..utils.trace import ConvergenceTrace, Severity
@@ -181,6 +182,7 @@ class LOBPCGSolver:
         opB = self.b_operator if has_b else self.operator
         return _gram_stage(self.operator, opB, S, has_b=has_b)
 
+    @highest_f32_matmul()
     @torch.no_grad()
     def compute(self, operator=None) -> LanczosResult:
         if operator is not None:
@@ -302,6 +304,7 @@ class LOBPCGSolver:
         return self._result
 
 
+@highest_f32_matmul()
 def lobpcg(
     A,
     k: int = 4,

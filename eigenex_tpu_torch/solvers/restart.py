@@ -29,6 +29,7 @@ import torch
 
 from ..core.operators import aslinearoperator
 from ..utils.exceptions import LanczosError
+from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
 from .arnoldi import ArnoldiState, arnoldi_steps, init_arnoldi_state
@@ -87,6 +88,7 @@ class ThickRestartLanczosEigenSolver:
         self._initial_vector = v0
         return self
 
+    @highest_f32_matmul()
     def compute(self, operator=None) -> LanczosResult:
         if operator is not None:
             self.operator = aslinearoperator(operator)

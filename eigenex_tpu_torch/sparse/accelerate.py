@@ -30,11 +30,20 @@ Complex operators ride the same pipeline through the real embedding
 Hermitian operator becomes real symmetric and reaches the half-storage
 kernel; a complex general one becomes a real general operator.
 
+Rectangular operators take a two-sided route: RCM on the bipartite graph
+[[0, A], [A^T, 0]] gives a row and a column permutation
+(:func:`bipartite_band_permutation`), both sides pad to lcm(bm, bn), and
+the pack is general 32x128 BSR-ELL.  That is the ``svds`` Gram pipeline:
+:meth:`AcceleratedOperator.embed_left` / :meth:`~AcceleratedOperator.restore_right`
+carry vectors of the other side, and :meth:`~AcceleratedOperator.adjoint_matrix`
+packs A^H at the same block shape, so both Gram matvecs reach the general
+SpMV kernel.
+
 The host stages use numpy and scipy only (the JAX package's route for
 machines without a C++ toolchain); the native C++ packers are not ported
-yet.  Also not ported yet, and raising as such: rectangular operands and
-the pieces of the ``svds`` pipeline (``embed_left``, ``restore_right``,
-``adjoint_matrix``), ``save``/``load``.
+yet.  :meth:`AcceleratedOperator.save` / :meth:`~AcceleratedOperator.load`
+read and write the JAX package's ``.npz`` format, so a pack made by either
+package loads in the other.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch
 
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
-from ..utils.exceptions import EigenexError, not_ported
+from ..utils.exceptions import EigenexError
 from ..utils.prng import make_generator, random_vector
 from ..utils.tolerance import as_torch_dtype
 from .bsr import BSRMatrix, _pack_bsr_host
@@ -56,7 +65,13 @@ from .coo import COOMatrix
 from .realify import realify_coo
 from .sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
 
-__all__ = ["AcceleratedOperator", "accelerate", "band_permutation", "dedup_embedded_pairs"]
+__all__ = [
+    "AcceleratedOperator",
+    "accelerate",
+    "band_permutation",
+    "bipartite_band_permutation",
+    "dedup_embedded_pairs",
+]
 
 
 def _as_host_triplets(A) -> tuple[np.ndarray, np.ndarray, np.ndarray, tuple[int, int]]:
@@ -192,6 +207,23 @@ def band_permutation(rows, cols, n: int) -> np.ndarray:
     return reverse_cuthill_mckee(pattern, symmetric_mode=True).astype(np.int64)
 
 
+def bipartite_band_permutation(rows, cols, m: int, n: int):
+    """(row_perm, col_perm) banding a RECTANGULAR pattern: RCM on the
+    bipartite graph [[0, A], [A^T, 0]] (row node i, column node m + j for
+    each entry (i, j)), its ordering split back into the row and the column
+    subsequence, so ``A[row_perm][:, col_perm]`` is banded."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    br = np.concatenate([rows, cols + m])
+    bc = np.concatenate([cols + m, rows])
+    pattern = sp.csr_matrix((np.ones(len(br), np.int8), (br, bc)), shape=(m + n, m + n))
+    perm_all = reverse_cuthill_mckee(pattern, symmetric_mode=True).astype(np.int64)
+    return perm_all[perm_all < m], perm_all[perm_all >= m] - m
+
+
 def _bf16_lossless(values: np.ndarray) -> bool:
     """True iff every value round-trips bfloat16 exactly (then bf16
     storage halves SpMV traffic at ZERO accuracy cost -- e.g. the dyadic
@@ -253,18 +285,23 @@ class AcceleratedOperator:
 
     Lives in PERMUTED + PADDED coordinates: ``matrix`` is ``P A P^T``
     (zero-padded to the block multiple), where P is the band-reducing
-    permutation.  Solvers run here; :meth:`embed` carries original-space
-    vectors in and :meth:`restore` carries results back (one host-side
-    permutation each -- never a per-matvec gather)."""
+    permutation; a rectangular operator has a row permutation of its own,
+    ``matrix`` = ``P_r A P^T``.  Solvers run here; :meth:`embed` carries
+    original-space vectors in and :meth:`restore` carries results back
+    (one host-side permutation each -- never a per-matvec gather)."""
 
     matrix: Any  # SymBSRMatrix | BSRMatrix, permuted + padded
-    perm: np.ndarray  # (n_work,) original index at permuted position i
+    perm: np.ndarray  # (n_work,) original COLUMN index at permuted position i
     orig_shape: tuple[int, int]  # user-facing shape (before the embedding)
     symmetric: bool
     complexified: bool  # True: ``matrix`` is the real embedding (dim 2n)
     stats: dict
-    #: PERMUTED host triplets, kept for general packs only (the JAX package
-    #: packs A^H from them for ``svds``, which is not ported yet)
+    #: rectangular operators carry a separate ROW permutation (bipartite
+    #: RCM); None for square operators, where ``perm`` applies to both sides
+    row_perm: np.ndarray | None = None
+    #: PERMUTED host triplets, kept for general packs only:
+    #: :meth:`adjoint_matrix` packs A^H from them.  Not written by
+    #: :meth:`save`.
     host_triplets: Any = None
 
     @property
@@ -274,8 +311,17 @@ class AcceleratedOperator:
 
     @property
     def n_work(self) -> int:
-        """Unpadded working dimension (2n for complexified)."""
+        """Unpadded working COLUMN dimension (2n for complexified)."""
         return len(self.perm)
+
+    @property
+    def m_work(self) -> int:
+        """Unpadded working ROW dimension (= :attr:`n_work` when square)."""
+        return len(self._row_perm)
+
+    @property
+    def _row_perm(self) -> np.ndarray:
+        return self.row_perm if self.row_perm is not None else self.perm
 
     @property
     def device(self) -> torch.device:
@@ -313,9 +359,10 @@ class AcceleratedOperator:
         return out.contiguous().to(self.device)
 
     def restore(self, V) -> np.ndarray:
-        """Permuted-padded (n_pad,) or (n_pad, k) result(s) -> original
-        coordinates, as a host array (complex when the operator was
-        complexified).  Inverts :meth:`embed`."""
+        """Permuted-padded ROW-space (m_pad,) or (m_pad, k) result(s) ->
+        original row coordinates, as a host array (complex when the operator
+        was complexified).  For a square operator rows and columns share one
+        permutation, so this inverts :meth:`embed`."""
         V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
         squeeze = V.ndim == 1
         if squeeze:
@@ -324,8 +371,9 @@ class AcceleratedOperator:
             raise EigenexError(
                 f"restore expects length {self.shape[0]}, got {V.shape[0]}"
             )
-        out = np.zeros((self.n_work, V.shape[1]), V.dtype)
-        out[self.perm] = V[: self.n_work]
+        rp = self._row_perm
+        out = np.zeros((len(rp), V.shape[1]), V.dtype)
+        out[rp] = V[: len(rp)]
         if self.complexified:
             n = self.orig_shape[0]
             out = out[:n] + 1j * out[n:]
@@ -334,22 +382,123 @@ class AcceleratedOperator:
         return out
 
     # -- the svds pipeline (rectangular operands) -------------------------
-    def embed_left(self, v):
-        raise not_ported("AcceleratedOperator.embed_left (the svds pipeline)")
+    def embed_left(self, v) -> torch.Tensor:
+        """Original ROW-space vector(s) -> permuted, zero-padded tensor over
+        the operator's OUTPUT side: the input side of A^H in the ``svds``
+        Gram pipeline (the rectangular analog of :meth:`embed`)."""
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        squeeze = v.ndim == 1
+        if squeeze:
+            v = v[:, None]
+        if v.shape[0] != self.orig_shape[0]:
+            raise EigenexError(
+                f"embed_left expects length {self.orig_shape[0]}, got {v.shape[0]}"
+            )
+        if np.iscomplexobj(v):
+            raise EigenexError("complex vector for a real operator")
+        rp = self._row_perm
+        out = torch.zeros((self.shape[0], v.shape[1]), dtype=self._embed_dtype)
+        out[: len(rp)] = torch.as_tensor(v[rp]).to(self._embed_dtype)
+        if squeeze:
+            out = out[:, 0]
+        return out.contiguous().to(self.device)
 
-    def restore_right(self, V):
-        raise not_ported("AcceleratedOperator.restore_right (the svds pipeline)")
+    def restore_right(self, V) -> np.ndarray:
+        """Permuted-padded COLUMN-space result(s) -> original column space:
+        the right singular vectors of the ``svds`` pipeline (the rectangular
+        analog of :meth:`restore`)."""
+        V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        if V.shape[0] != self.shape[1]:
+            raise EigenexError(
+                f"restore_right expects length {self.shape[1]}, got {V.shape[0]}"
+            )
+        out = np.zeros((self.n_work, V.shape[1]), V.dtype)
+        out[self.perm] = V[: self.n_work]
+        if squeeze:
+            out = out[:, 0]
+        return out
 
     def adjoint_matrix(self):
-        raise not_ported("AcceleratedOperator.adjoint_matrix (the svds pipeline)")
+        """A^H of the packed container at the SAME (bm, bn) block shape, so
+        the ``svds`` Gram pipeline's second matvec reaches the general SpMV
+        kernel too (the block transpose of ``BSRMatrix.adjoint()`` gives
+        (bn, bm) blocks, which the kernel does not take).  Packed once from
+        the kept host triplets or, for a loaded pack that has none, from the
+        stored blocks (:meth:`BSRMatrix.kernel_adjoint`); cached.  A
+        symmetric container is its own adjoint."""
+        cached = self.__dict__.get("_adjoint_cache")
+        if cached is not None:
+            return cached
+        if isinstance(self.matrix, SymBSRMatrix):
+            return self.matrix
+        if self.host_triplets is None:
+            adj = self.matrix.kernel_adjoint()
+        else:
+            r, c, v = self.host_triplets
+            bm, bn = self.matrix.block_shape
+            m_pad, n_pad = self.matrix.shape
+            # swapped triplets: rows of A^H are columns of A; the pad sizes
+            # swap with them, the block shape stays
+            adj = _pack_general(c, r, np.conj(v) if np.iscomplexobj(v) else v,
+                                n_pad, m_pad, bm, bn, self.matrix.dtype, self.device)
+        object.__setattr__(self, "_adjoint_cache", adj)
+        return adj
 
     # -- persistence ------------------------------------------------------
     def save(self, path) -> None:
-        raise not_ported("AcceleratedOperator.save")
+        """Write the packed operator (blocks, permutations, metadata) as a
+        ``.npz`` in the JAX package's format: bf16 blocks as a uint16 view
+        (npz has no bf16), the metadata as JSON bytes.  The pack is the
+        largest set-up cost and is deterministic: pack once, reload."""
+        import json
+
+        def host(a: torch.Tensor) -> np.ndarray:
+            a = a.detach().cpu()
+            if a.dtype == torch.bfloat16:
+                return a.view(torch.int16).numpy().view(np.uint16)
+            return a.numpy()
+
+        sym = isinstance(self.matrix, SymBSRMatrix)
+        meta = dict(
+            orig_shape=list(self.orig_shape),
+            symmetric=self.symmetric,
+            complexified=self.complexified,
+            stats=self.stats,
+            kind="sym" if sym else "gen",
+            dtype=str(self.matrix.dtype).replace("torch.", ""),
+            shape=list(self.matrix.shape),
+            band_reach=getattr(self.matrix, "band_reach", -1),
+        )
+        arrays = dict(perm=np.asarray(self.perm),
+                      meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
+        if self.row_perm is not None:
+            arrays["row_perm"] = np.asarray(self.row_perm)
+        if sym:
+            arrays.update(diag=host(self.matrix.diag_data), upper=host(self.matrix.upper_data),
+                          ucols=host(self.matrix.upper_cols))
+        else:
+            arrays.update(data=host(self.matrix.data), bcols=host(self.matrix.block_cols))
+        np.savez(path, **arrays)
 
     @classmethod
-    def load(cls, path) -> "AcceleratedOperator":
-        raise not_ported("AcceleratedOperator.load")
+    def load(cls, path, device=None) -> "AcceleratedOperator":
+        """Read a :meth:`save`'d operator (either package's file), blocks at
+        the stored dtype on ``device`` (the card unless told otherwise)."""
+        import json
+
+        from ..convert import accelerated_from_numpy
+
+        with np.load(path) as z:
+            arrays = {name: z[name] for name in z.files if name != "meta"}
+            meta = json.loads(bytes(z["meta"]).decode())
+        for name in ("data", "diag", "upper"):  # bf16 blocks are stored as uint16
+            a = arrays.get(name)
+            if a is not None and a.dtype == np.uint16:
+                arrays[name] = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return accelerated_from_numpy(meta, device=device, **arrays)
 
 
 def dedup_embedded_pairs(lam, vecs, keep_max: int | None = None):
@@ -384,6 +533,64 @@ def dedup_embedded_pairs(lam, vecs, keep_max: int | None = None):
     return keep
 
 
+def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
+                            merge_duplicates, device, t0, stage, stages) -> AcceleratedOperator:
+    """Rectangular pack: bipartite RCM (a row and a column permutation) and
+    general BSR-ELL with both sides padded to lcm(bm, bn), so that the
+    adjoint pack (rows and columns swapped, same block shape) tiles the same
+    padded shape and the Gram pipeline chains A and A^H without re-padding."""
+    m, n = shape
+    ts = time.time()
+    if merge_duplicates:
+        r, c, v = _canonicalize(r, c, v, shape)
+    ts = stage("merge", ts)
+    if reorder and len(r):
+        row_perm, col_perm = bipartite_band_permutation(r, c, m, n)
+        ts = stage("rcm", ts)
+        ipr = np.empty(m, np.int64)
+        ipr[row_perm] = np.arange(m)
+        ipc = np.empty(n, np.int64)
+        ipc[col_perm] = np.arange(n)
+        r, c = ipr[r], ipc[c]
+        ts = stage("permute", ts)
+    else:
+        row_perm = np.arange(m, dtype=np.int64)
+        col_perm = np.arange(n, dtype=np.int64)
+    if isinstance(dtype, str) and dtype == "auto":
+        target = torch.bfloat16 if _bf16_lossless(v) else torch.float32
+    else:
+        target = as_torch_dtype(dtype)
+    bm, bn = general_block
+    mult = int(np.lcm(bm, bn))
+    m_pad = -(-m // mult) * mult
+    n_pad = -(-n // mult) * mult
+    mat = _pack_general(r, c, v, m_pad, n_pad, bm, bn, target, device)
+    stage("pack_scatter", ts)
+    slots = mat.data.numel()
+    # normalised cross bandwidth: how far an entry sits from the matched
+    # band diagonal after the two-sided permutation (row positions scaled
+    # onto the column axis)
+    bw = int(np.abs(r * (n / max(m, 1)) - c).max()) if len(r) else 0
+    stats = dict(
+        nnz=len(v),
+        slots=int(slots),
+        fill=float(len(v) / max(slots, 1)),
+        bytes=int(slots * (torch.finfo(target).bits // 8)),
+        dtype=str(target).replace("torch.", ""),
+        bandwidth_before=-1,
+        bandwidth_after=bw,
+        symmetric=False,
+        complexified=False,
+        pack_seconds=time.time() - t0,
+        pack_stages={k: round(s, 4) for k, s in stages.items()},
+        kmax=mat.k_max,
+    )
+    return AcceleratedOperator(
+        matrix=mat, perm=col_perm, orig_shape=(m, n), symmetric=False, complexified=False,
+        stats=stats, row_perm=row_perm, host_triplets=(r, c, v),
+    )
+
+
 def accelerate(
     A,
     *,
@@ -403,8 +610,11 @@ def accelerate(
     A : COOMatrix | scipy sparse | (rows, cols, vals, shape)
         The operator, in any scalar-sparse form.  Complex operators are
         embedded as [[A,-B],[B,A]] automatically (Hermitian -> real
-        symmetric -> the half-storage kernel).  Square operators only:
-        rectangular ones raise "not ported yet".
+        symmetric -> the half-storage kernel).  RECTANGULAR (real)
+        operators take the two-sided route: bipartite RCM and general
+        BSR-ELL with both sides padded to lcm(bm, bn) (the ``svds`` Gram
+        path); their vectors go in and out through ``embed`` /
+        ``embed_left`` and ``restore`` / ``restore_right``.
     symmetric : bool | None
         None (default) detects A == A^H exactly on the triplets.  Passing
         True skips the full check; a cheap sampled probe (pattern counts
@@ -451,7 +661,16 @@ def accelerate(
     if shape[0] != shape[1]:
         if symmetric:
             raise EigenexError("a rectangular operator cannot be symmetric")
-        raise not_ported("accelerate() of a rectangular operator (the svds pipeline)")
+        if np.iscomplexobj(v):
+            raise EigenexError(
+                "complex rectangular acceleration is not supported -- "
+                "realify by hand or use the COO Gram path"
+            )
+        return _accelerate_rectangular(
+            r, c, v, shape, dtype=dtype, general_block=general_block, reorder=reorder,
+            merge_duplicates=merge_duplicates is None or merge_duplicates, device=device,
+            t0=t0, stage=_stage, stages=stages,
+        )
     if merge_duplicates is None:
         merge_duplicates = True
     ts = time.time()

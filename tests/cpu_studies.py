@@ -1,0 +1,162 @@
+"""CPU studies behind numbers in PERF.md that no test asserts (not collected
+by pytest: the file name does not start with ``test_``).
+
+Run from the repository root on the CPU:
+
+    JAX_PLATFORMS=cpu python tests/cpu_studies.py ks-tail      # Krylov-Schur restart tail, both packages
+    python tests/cpu_studies.py rehearse                        # the card phases' API at a tenth of the size
+    python tests/cpu_studies.py tridiag                         # two tridiagonal solvers at config 1's shift
+
+``ks-tail``: f32 ``eigs(k=4, which="LM", tol=1e-6)`` on the upwind
+convection-diffusion COO at nx = 100 (BASELINE config 2's operator), start
+vector ``np.random.default_rng(4)``, in the JAX package and in the port:
+restarts to converge, the residual bound of every restart, where the first
+Arnoldi fill parts, the compression order of the reference, and one-ulp
+changes of the start vector.  ``rehearse``: the ``svds_accelerated`` and
+``expm_accelerated`` phases of ``chip_smoke.py`` on the CPU, 40,000 x 20,000
+and n = 8192.  ``tridiag``: LAPACK ``gtsv`` against a Thomas sweep at
+sigma = -1e-6 (condition 3.6e6).
+"""
+
+import dataclasses
+import math
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (its builders and the counting wrapper)
+import eigenex_tpu_torch as ext  # noqa: E402
+
+
+def ks_tail():
+    import jax.numpy as jnp
+
+    import eigenex_tpu.solvers.arnoldi as ja
+    import eigenex_tpu_torch.solvers.arnoldi as pa
+    import eigenex_tpu_torch.solvers.krylov_schur as pks
+    from eigenex_tpu.solvers.api import eigs as j_eigs
+    from eigenex_tpu.sparse.coo import COOMatrix as JCOO
+
+    r, c, v, n = cs.convection_diffusion_coo(100)
+    v = v.astype(np.float32)
+    jcoo = JCOO(jnp.asarray(r.astype(np.int32)), jnp.asarray(c.astype(np.int32)), jnp.asarray(v),
+                (n, n))
+    pcoo = ext.COOMatrix(torch.as_tensor(r.astype(np.int32)), torch.as_tensor(c.astype(np.int32)),
+                         torch.as_tensor(v), (n, n))
+    v0 = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+
+    def run(v0):
+        ref = j_eigs(jcoo, k=4, which="LM", tol=1e-6, v0=jnp.asarray(v0), max_restarts=400)
+        got = ext.eigs(pcoo, k=4, which="LM", tol=1e-6, v0=torch.as_tensor(v0), max_restarts=400,
+                       device="cpu")
+        return ref, got
+
+    ref, got = run(v0)
+    scale = float(np.abs(ref.eigenvalues).max())
+    print(f"restarts: reference {len(ref.trace.residuals) - 1}, port {len(got.trace.residuals) - 1}")
+    for i in range(min(8, len(ref.trace.residuals), len(got.trace.residuals))):
+        print(f"  restart {i}: residual bound {ref.trace.residuals[i] / scale:.3e} (reference) "
+              f"{got.trace.residuals[i] / scale:.3e} (port)")
+    x = torch.as_tensor(v0 / np.linalg.norm(v0))
+    y_ref = np.asarray(jcoo.as_linear_operator().matvec(jnp.asarray(x.numpy())))
+    print("first matvec bit-equal:", bool(np.array_equal(y_ref, pcoo.matvec(x).numpy())))
+    jop, pop = jcoo.as_linear_operator(), pcoo.as_linear_operator()
+    sj = ja.arnoldi_steps(jop, ja.init_arnoldi_state(jop, 48, jnp.asarray(v0)), 48)
+    sp = pa.arnoldi_steps(pop, pa.init_arnoldi_state(pop, 48, torch.as_tensor(v0)), 48)
+    Hj, Hp = np.asarray(sj.H), sp.H.numpy()
+    diff = np.linalg.norm(Hj - Hp, axis=0) / np.linalg.norm(Hj, axis=0)
+    print(f"first fill: Hessenberg column 0 parts at {diff[0]:.2e}, columns "
+          f"{diff.min():.1e}-{diff.max():.1e}")
+    own = pks._compress_basis
+
+    def reference_order(V, Yk, r):
+        Yk = torch.as_tensor(np.asarray(Yk)).to(device=V.device, dtype=V.dtype)
+        out = torch.zeros_like(V)
+        out[: Yk.shape[1]] = (V[: Yk.shape[0]].T @ Yk).T
+        out[Yk.shape[1]] = r
+        return out
+
+    pks._compress_basis = reference_order
+    try:
+        got2 = ext.eigs(pcoo, k=4, which="LM", tol=1e-6, v0=torch.as_tensor(v0), max_restarts=400,
+                        device="cpu")
+    finally:
+        pks._compress_basis = own
+    print(f"port with the reference's compression order: {len(got2.trace.residuals) - 1} restarts")
+    for k in range(4):
+        vp = v0.copy()
+        i = np.random.default_rng(100 + k).integers(0, n)
+        vp[i] = np.nextafter(vp[i], np.float32(np.inf))
+        a, b = run(vp)
+        print(f"one-ulp change #{k}: reference {len(a.trace.residuals) - 1} restarts, "
+              f"port {len(b.trace.residuals) - 1}")
+
+
+def rehearse():
+    import scipy.sparse as sp
+
+    r, c, v, shape = cs.banded_rect_triplets(40_000, 20_000, cs.SVDS_BW, cs.SVDS_PER_ROW, cs.SEED)
+    applied = {"matvec": 0, "matmat": 0}
+    acc = ext.accelerate((r, c, v, shape), device="cpu")
+    acc = dataclasses.replace(acc, matrix=cs.counted(acc.matrix, applied))
+    adj = acc.adjoint_matrix()
+    print(f"svds packs: A {tuple(acc.matrix.data.shape)}, A^H {tuple(adj.data.shape)}")
+    U, s, Vh = ext.svds(acc, k=cs.SVDS_K, tol=cs.SVDS_TOL)
+    A = sp.csr_matrix((v, (r, c)), shape=shape)
+    V = np.conj(Vh).T
+    print(f"svds: {applied['matvec']} Gram matvecs, ||A v - s u|| / s_1 "
+          f"{(np.linalg.norm(A @ V - U * s, axis=0) / s[0]).max():.1e}, ||U^T U - I|| "
+          f"{np.linalg.norm(U.T @ U - np.eye(cs.SVDS_K)):.1e}")
+    n = 8192
+    rng = np.random.default_rng(cs.SEED + 7)
+    ra = np.repeat(np.arange(n), 2)
+    ca = ra + rng.integers(1, 24, size=len(ra))
+    keep = ca < n
+    ra, ca = ra[keep], ca[keep]
+    va = np.round(rng.standard_normal(len(ra)) * 8) / 8
+    trip = (np.concatenate([ra, ca, np.arange(n)]), np.concatenate([ca, ra, np.arange(n)]),
+            np.concatenate([va, va, np.full(n, 4.0)]), (n, n))
+    sym = ext.accelerate(trip, symmetric=True, device="cpu")
+    lo, hi = sym.matrix.estimate_eigenvalue_range()
+    rho = max(abs(float(lo)), abs(float(hi)))
+    x = -math.floor(cs.EXPM_X_RHO / rho * 1e6) / 1e6
+    applied = {"matvec": 0, "matmat": 0}
+    sym = dataclasses.replace(sym, matrix=cs.counted(sym.matrix, applied))
+    v0 = sym.embed(np.random.default_rng(11).standard_normal(n))
+    y_l = ext.expm_multiply(sym, v0, x, method="lanczos", num_steps=cs.EXPM_STEPS)
+    lanczos = applied["matvec"]
+    y_t = ext.expm_multiply(sym, v0, x, method="taylor_auto", tol=cs.EXPM_TAYLOR_TOL)
+    print(f"expm: rho {rho}, x {x}, applications {lanczos} (Lanczos) "
+          f"{applied['matvec'] - lanczos} (Taylor), relative difference "
+          f"{float(torch.linalg.vector_norm(y_l - y_t) / torch.linalg.vector_norm(y_t)):.1e}")
+
+
+def tridiag():
+    from scipy.linalg import lapack
+
+    n, sigma = cs.TRIDIAG_N, cs.TRIDIAG_SIGMA
+    d = np.full(n, 2.0) - sigma
+    off = np.full(n - 1, -1.0)
+    B = np.random.default_rng(0).standard_normal((n, 2))
+    Y = lapack.dgtsv(off, d, off, B)[3]
+    c, dp = np.zeros(n), np.zeros_like(B)  # Thomas sweep, no pivoting
+    c[0], dp[0] = off[0] / d[0], B[0] / d[0]
+    for i in range(1, n):
+        m = d[i] - off[i - 1] * c[i - 1]
+        c[i] = off[i] / m if i < n - 1 else 0.0
+        dp[i] = (B[i] - off[i - 1] * dp[i - 1]) / m
+    X = np.zeros_like(B)
+    X[-1] = dp[-1]
+    for i in range(n - 2, -1, -1):
+        X[i] = dp[i] - c[i] * X[i + 1]
+    print(f"gtsv against a Thomas sweep: {np.max(np.linalg.norm(Y - X, axis=0) / np.linalg.norm(X, axis=0)):.1e}")
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(4)
+    {"ks-tail": ks_tail, "rehearse": rehearse, "tridiag": tridiag}[sys.argv[1]]()

@@ -223,3 +223,67 @@ def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
     X, lam = res.eigenvectors, res.eigenvalues
     rel = np.linalg.norm(A.tocsr() @ X - X * lam[None, :], axis=0) / np.abs(lam)
     assert rel.max() <= 1e-4 and X.shape == (n, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gtsv2_solve_matches_the_host_lapack_solve(card, dtype):
+    """The tridiagonal shift-invert operator on the card (cuSPARSE gtsv2)
+    against LAPACK gtsv on the host, one call a matvec and a matmat, the
+    workspace made once for each width."""
+    from eigenex_tpu_torch import tridiagonal_shift_invert_operator
+    from eigenex_tpu_torch.solvers import direct
+
+    n = 3000
+    rng = np.random.default_rng(5)
+    dl, d, du = rng.standard_normal(n - 1), 4.0 + rng.standard_normal(n), rng.standard_normal(n - 1)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    si = tridiagonal_shift_invert_operator(dl, d, du, 0.25, dtype=npdt)
+    host = tridiagonal_shift_invert_operator(dl, d, du, 0.25, dtype=npdt, device="cpu")
+    X = torch.as_tensor(rng.standard_normal((n, 4)), dtype=dtype)
+    direct.reset_gtsv2_calls()
+    Y = si.matmat(X.to(card))
+    y = si.matvec(X[:, 1].to(card))
+    si.matvec(X[:, 2].to(card))
+    assert direct.gtsv2_calls() == 3 and sorted(si._params.workspace) == [1, 4]
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    ref = host.matmat(X)
+    err = torch.linalg.vector_norm(Y.cpu() - ref, dim=0) / torch.linalg.vector_norm(ref, dim=0)
+    assert float(err.max()) <= tol
+    assert float(torch.linalg.vector_norm(y.cpu() - ref[:, 1]) / torch.linalg.vector_norm(ref[:, 1])) <= tol
+    assert torch.equal(X, X.clone())  # the right-hand side is not overwritten
+
+
+def test_svds_on_a_rectangular_pack_launches_two_spmv_a_gram_matvec(card):
+    """Both Gram matvecs of ``svds`` on a rectangular pack are general SpMV
+    launches (A, and A^H packed at 32x128); the recovery of U one SpMM."""
+    import scipy.sparse as sp
+
+    from eigenex_tpu_torch import accelerate, svds
+
+    rng = np.random.default_rng(1)
+    m, n = 3000, 1800
+    r = np.repeat(np.arange(m), 4)
+    c = np.clip((r * n) // m + rng.integers(-40, 40, size=len(r)), 0, n - 1)
+    v = rng.standard_normal(len(r))
+    acc = accelerate((r, c, v, (m, n)), device=card)
+    assert acc.adjoint_matrix().block_shape == (32, 128)
+    cuda_spmv.reset_launch_counts()
+    U, s, Vh = svds(acc, k=3, tol=1e-5)
+    counts = cuda_spmv.launch_counts()
+    assert counts["bsr_spmv"] % 2 == 0 and counts["bsr_spmv"] > 0
+    assert counts["bsr_spmm"] == 1 and counts["sym_bsr_spmv"] == counts["sym_bsr_spmm"] == 0
+    A = sp.csr_matrix((v, (r, c)), shape=(m, n))
+    ref = np.sort(np.linalg.svd(A.toarray(), compute_uv=False))[::-1][:3]
+    np.testing.assert_allclose(s, ref, rtol=1e-4)
+
+
+def test_expm_multiply_on_a_symmetric_pack_launches_once_an_application(card):
+    from eigenex_tpu_torch import expm_multiply
+
+    sym = sym_bsr_from_bsr(banded(8, 128, 4, card))
+    x = torch.randn(sym.shape[1], device=card, generator=torch.Generator(card).manual_seed(2))
+    cuda_spmv.reset_launch_counts()
+    y = expm_multiply(sym, x, -0.05, method="lanczos", num_steps=24)
+    assert cuda_spmv.launch_counts()["sym_bsr_spmv"] == 24
+    z = expm_multiply(sym, x, -0.05, method="taylor", tol=1e-7)
+    assert float(torch.linalg.vector_norm(y - z) / torch.linalg.vector_norm(z)) <= 1e-4

@@ -205,4 +205,4 @@ def test_eigs_rejections():
     with pytest.raises(EigenexError, match="COOMatrix"):
         ext.eigs(A, k=1, refine=True, device="cpu")
     with pytest.raises(EigenexError, match="not ported yet"):
-        ext.svds(A, k=1)
+        ext.svds(A, k=1, mesh=object(), device="cpu")

@@ -21,7 +21,8 @@ EXPECTED_MODULES = [
     "solvers/lobpcg.py", "solvers/precond.py", "solvers/krylov_schur.py", "solvers/cg.py",
     "solvers/gmres.py", "solvers/refine.py", "sparse/accelerate.py", "sparse/bsr.py", "sparse/coo.py",
     "sparse/realify.py", "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py",
-    "utils/tolerance.py", "utils/trace.py",
+    "utils/tolerance.py", "utils/trace.py", "utils/precision.py", "solvers/direct.py",
+    "solvers/functions.py", "ops/tensor_util.py", "ops/tensor_svd.py", "ops/sparse_svd.py",
 ]
 
 
@@ -42,7 +43,7 @@ def test_the_slice_has_its_modules():
     assert set(EXPECTED_MODULES) <= have
     assert {p.name for p in (PACKAGE / "csrc").iterdir()} >= {
         "bsr_spmv.cu", "sym_bsr_spmv.cu", "spmv_common.cuh",
-        "bsr_spmm.cu", "sym_bsr_spmm.cu", "spmm_common.cuh"}
+        "bsr_spmm.cu", "sym_bsr_spmm.cu", "spmm_common.cuh", "tridiag_solve.cu"}
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -96,6 +97,9 @@ def test_importing_the_port_is_light():
         "from eigenex_tpu_torch.solvers import block_lanczos, chebyshev, kpm, lobpcg, precond\n"
         "from eigenex_tpu_torch.solvers import cg, gmres, krylov_schur, refine\n"
         "from eigenex_tpu_torch.sparse import realify\n"
+        "from eigenex_tpu_torch.solvers import direct, functions\n"
+        "from eigenex_tpu_torch.ops import sparse_svd, tensor_svd, tensor_util\n"
+        "from eigenex_tpu_torch.utils import precision\n"
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -106,6 +110,10 @@ def test_importing_the_port_is_light():
         "assert callable(ext.eigs) and callable(ext.gmres_solve) and callable(ext.minres_solve)\n"
         "assert 'scipy' not in sys.modules\n"
         "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm'}\n"
+        "assert set(k.LIBRARY_SOURCES) == {'tridiag_solve'} and not direct._lib\n"
+        "assert callable(ext.svds) and callable(ext.expm_multiply)\n"
+        "assert callable(ext.tridiagonal_shift_invert_operator)\n"
+        "assert callable(ext.truncated_svd_via_lanczos) and callable(ext.tensor_svd)\n"
         "print('light')\n"
     )
     build = PACKAGE / "build"
