@@ -50,6 +50,16 @@ filter) through the SpMM kernels -- at full size:
                          A^H: both Gram matvecs on the general SpMV kernel.
 17. ``svds_config4``     BASELINE config 4: the truncated SVD of a (6, 8, 7, 5) f64 tensor by
                          Lanczos on its Gram operator, on the card.
+18. ``block_heisenberg`` BASELINE config 3 at L = 22, f64: ``heisenberg_block_hamiltonian``
+                         (23 COO sector blocks, 4,194,304 rows) -> ``block_operator`` ->
+                         Lanczos ground state, held to 1e-10 against the direct route: the
+                         S_z = 0 sector through ``save_matrix_market`` / ``load_matrix_market``
+                         and ``csr_from_coo``.
+19. ``block_heisenberg_bsr``  the same chain at L = 20 in f32 with every sector packed at 32x128
+                         (21 packs, 7.6 GB): one ``bsr_spmv`` launch a sector a matvec.
+20. ``block_dense``      L = 16 with dense sector blocks (the largest 12,870^2, f64):
+                         ``BlockTensor.contract`` and the block einsum of H.H, the trace
+                         identity, and the dense-group ``block_operator`` ground state.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -61,6 +71,12 @@ lists every kernel with its launches on the main path, error, times and bound
 case, each with the launches of the phases on that storage).  The ``kernels``
 line also gives each SpMV wrapper's host time per call.
 
+Phases 18-20 build their operator once, on the host, and move it to the card through the
+``BlockTensor`` constructor, timing the two stages apart; phase 19 checks the card's default
+block shape on a small chain built on the card.  ``kernels`` adds ``bsr_spmv`` at the S_z = 0
+sector pack of phase 19, which the result line lists as a second ``bsr_spmv`` entry carrying
+that phase's launches.
+
 Phases 14 and 16 hold the kernels' launch counts against an independent count
 of operator applications: the container behind the solve is replaced by a
 subclass that counts its ``matvec``/``matmat`` calls (``counted``) and then
@@ -68,9 +84,10 @@ calls the container's own product.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
 is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated``,
-``lobpcg_banded`` and ``eigs_accelerated`` solves under ``torch.profiler`` and prints the
-device's busy and idle share and the kernels by time (phases ``profile``, ``profile_window``,
-``profile_lobpcg``, ``profile_eigs``), and the device
+``lobpcg_banded``, ``eigs_accelerated``, ``block_heisenberg`` and ``block_heisenberg_bsr``
+solves under ``torch.profiler`` and prints the device's busy and idle share and the kernels
+by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``, ``profile_eigs``,
+``profile_block``, ``profile_block_bsr``), and the device
 time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
 ``profile_kernels``).
 """
@@ -92,8 +109,15 @@ import torch
 from eigenex_tpu_torch import (
     BlockLanczosEigenSolver,
     BlockLanczosOptions,
+    BlockTensor,
     COOMatrix,
     accelerate,
+    csr_from_coo,
+    einsum,
+    heisenberg_block_hamiltonian,
+    heisenberg_sector_coo,
+    load_matrix_market,
+    save_matrix_market,
     eigs,
     LanczosEigenSolver,
     LanczosOptions,
@@ -108,10 +132,11 @@ from eigenex_tpu_torch import (
     tridiagonal_shift_invert_operator,
     truncated_svd_via_lanczos,
 )
+from eigenex_tpu_torch.block.operator import block_operator
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.solvers import direct
-from eigenex_tpu_torch.sparse.bsr import BSRMatrix
+from eigenex_tpu_torch.sparse.bsr import BSRMatrix, bsr_from_coo_arrays
 from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
 
 # ---------------------------------------------------------------------------
@@ -192,6 +217,18 @@ SVDS_K, SVDS_TOL = 6, 1e-5
 SVDS_RESID_LIMIT = 1e-4    # ||A v_j - s_j u_j|| / s_1, host f64 on the original triplets
 SVDS_ORTH_LIMIT = 1e-4     # ||U^T U - I|| (Frobenius)
 CONFIG4_ERR_LIMIT = 1e-10  # phase svds_config4: singular values against numpy.linalg.svd
+HEIS_L = 22                # phase block_heisenberg: BASELINE config 3 at L = 22, 2^22 rows, f64
+CONFIG3_OPTIONS = dict(max_eigenvalues=1, tolerance=1e-13, max_subspace=140,
+                       compute_eigenvectors=False)  # config 3's Lanczos options
+CONFIG3_ERR_LIMIT = 1e-10  # |E_block - E_direct|, config 3's bound
+HEIS_BSR_L = 20            # phase block_heisenberg_bsr: 21 sector packs at 32x128, f32
+CARD_BSR_BLOCK = (32, 128)  # heisenberg_block_hamiltonian's default BSR block shape on a CUDA device
+BSR_LANCZOS = dict(max_eigenvalues=1, tolerance=1e-6, max_subspace=200,
+                   compute_eigenvectors=False)  # f32: Ritz change 1e-6 (f32's reach is ~1e-7)
+BSR_E0_REL_LIMIT = 1e-5    # its E0 against the f64 E0 of the S_z = 0 sector, relative
+HEIS_DENSE_L = 16          # phase block_dense: 17 dense sector blocks, 4.8 GB of f64
+DENSE_REL_LIMIT = 1e-12    # contract against block einsum per block; trace(H.H) against ||H||_F^2
+DENSE_E0_LIMIT = 1e-10     # dense-block against sparse-block ground state
 
 BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
@@ -199,13 +236,17 @@ SEED = 0
 
 #: peak rates by card, NVIDIA's data sheets: device memory bytes/s, then flop/s by
 #: the unit a kernel multiplies on: f32 FMA outside the tensor cores, and the dense
-#: (no sparsity) tensor-core rates for bf16 and TF32 inputs.  The first key found in
-#: the card's name is used.
+#: (no sparsity) tensor-core rates for bf16, TF32 and f64 inputs (f64: the library's
+#: dense products of phase block_dense).  The first key found in the card's name is used.
 PEAKS = (
-    ("H200", 4.8e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12}),
-    ("H100 PCIe", 2.0e12, {"f32_cuda_cores": 51e12, "bf16_tensor_cores": 756e12, "tf32_tensor_cores": 378e12}),
-    ("H100 NVL", 3.9e12, {"f32_cuda_cores": 60e12, "bf16_tensor_cores": 835e12, "tf32_tensor_cores": 417e12}),
-    ("H100", 3.35e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12}),
+    ("H200", 4.8e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12,
+                      "f64_tensor_cores": 67e12}),
+    ("H100 PCIe", 2.0e12, {"f32_cuda_cores": 51e12, "bf16_tensor_cores": 756e12, "tf32_tensor_cores": 378e12,
+                           "f64_tensor_cores": 51e12}),
+    ("H100 NVL", 3.9e12, {"f32_cuda_cores": 60e12, "bf16_tensor_cores": 835e12, "tf32_tensor_cores": 417e12,
+                          "f64_tensor_cores": 60e12}),
+    ("H100", 3.35e12, {"f32_cuda_cores": 67e12, "bf16_tensor_cores": 989e12, "tf32_tensor_cores": 495e12,
+                       "f64_tensor_cores": 67e12}),
 )
 #: the unit each kernel multiplies on, by block storage: the SpMV kernels use f32 FMAs on
 #: widened blocks, the SpMM kernels mma.sync on bf16 inputs (bf16 blocks, X in three bf16
@@ -239,16 +280,20 @@ ALSO_REPLACES = {
     ],
 }
 #: the cases whose times stand for a kernel in the result line: the shapes and
-#: storages its main paths give it, one entry of the line each.  bsr_spmv: the
-#: (3124, 5, 32, 128) f32 pack of phase eigs_accelerated.  sym_bsr_spmv has
-#: two: f32 blocks (eigsh_banded) and bf16 blocks (eigsh_accelerated); sym_bsr_spmm
-#: two: the f32 12-column panel of LOBPCG, and the bf16 8-column block of the
-#: window filter, which carries most of its launches.
+#: storages its main paths give it, one entry of the line each, found by the words
+#: of its case name.  bsr_spmv has two: the (3124, 5, 32, 128) f32 pack of phase
+#: eigs_accelerated, and the S_z = 0 sector pack of phase block_heisenberg_bsr, which
+#: carries that phase's launches ("phases").  sym_bsr_spmv has two: f32 blocks
+#: (eigsh_banded) and bf16 blocks (eigsh_accelerated); sym_bsr_spmm two: the f32
+#: 12-column panel of LOBPCG, and the bf16 8-column block of the window filter, which
+#: carries most of its launches.
 MAIN_CASES = {
-    "bsr_spmv": [("config-2 pack", " f32")],
-    "sym_bsr_spmv": [("banded", " f32"), ("banded", " bf16")],
-    "bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} ")],
-    "sym_bsr_spmm": [("banded", " f32", f"p={MAIN_WIDTH} "), ("banded", " bf16", f"p={WINDOW_WIDTH} ")],
+    "bsr_spmv": [dict(match=("config-2 pack", " f32")),
+                 dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr"})],
+    "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16"))],
+    "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} "))],
+    "sym_bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
+                     dict(match=("banded", " bf16", f"p={WINDOW_WIDTH} "))],
 }
 
 
@@ -819,7 +864,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of phases to run")
     ap.add_argument("--profile", action="store_true",
-                    help="repeat three of the solves under torch.profiler")
+                    help="repeat some of the solves under torch.profiler")
     args = ap.parse_args()
     only = {p for p in args.phases.split(",") if p}
     nbr = NBR
@@ -980,6 +1025,17 @@ def main() -> None:
         kernel_cases.append(check_kernel(
             "bsr_spmv", "config-2 pack " + "x".join(map(str, CD_PACK)) + " f32 (main path)",
             cd_pack, x_cd, peaks))
+        # ... and at the largest sector pack of phase block_heisenberg_bsr: the S_z = 0
+        # sector of the L = 20 chain at the card's default 32x128 blocks, mostly padding
+        sector = heisenberg_sector_coo(HEIS_BSR_L, HEIS_BSR_L // 2, dtype=np.float32, device="cpu")
+        sector_pack = bsr_from_coo_arrays(sector.row.numpy(), sector.col.numpy(),
+                                          sector.val.numpy(), sector.shape, CARD_BSR_BLOCK, device=dev)
+        x_sector = torch.randn(sector_pack.shape[1], generator=gen, device=dev)
+        kernel_cases.append(check_kernel(
+            "bsr_spmv", f"L={HEIS_BSR_L} S_z=0 sector pack "
+            + "x".join(map(str, sector_pack.data.shape)) + " f32 (main path)",
+            sector_pack, x_sector, peaks))
+        del sector, sector_pack, x_sector
         torch.cuda.empty_cache()
         emit("kernels", rel_tol=KERNEL_REL_TOL, model_rel_tol=MODEL_REL_TOL,
              timed_samples=TIMED_LAUNCHES, calls_per_sample=8, cases=kernel_cases)
@@ -1590,6 +1646,240 @@ def main() -> None:
         if any(counts.values()):
             fail(f"svds_config4: launches {counts}: the dense Gram route launches no kernel")
 
+    # -- 18-20. the block layer: BASELINE config 3 and its kernel and dense routes -----
+    def staged_block_hamiltonian(L: int, **kw):
+        """``heisenberg_block_hamiltonian(L, **kw)`` built once on the host (BSR packs at
+        the card's default block shape) and moved to the card by the ``BlockTensor``
+        constructor: the operator the phase drives, with the seconds of each stage.
+        Returns (operator, stage seconds, bytes moved)."""
+        if kw.get("storage") == "bsr":
+            kw = dict(kw, block_shape=CARD_BSR_BLOCK)
+        t0 = time.time()
+        host = heisenberg_block_hamiltonian(L, device="cpu", **kw)
+        host_s = time.time() - t0
+        t0 = time.time()
+        bt = BlockTensor(host.structures, blocks=host.blocks, dtype=host.dtype, device=dev)
+        torch.cuda.synchronize()
+        transfer_s = time.time() - t0
+        del host
+
+        def parts(blk):
+            if isinstance(blk, COOMatrix):
+                return (blk.row, blk.col, blk.val)
+            if isinstance(blk, BSRMatrix):
+                return (blk.data, blk.block_cols)
+            return (blk,)
+
+        nbytes = sum(t.numel() * t.element_size() for b in bt.blocks.values() for t in parts(b))
+        return bt, dict(host_build=host_s, transfer=transfer_s), nbytes
+
+    def bit_equal_matvecs(op, n, dtype) -> bool:
+        """Whether two products of one input are bit-equal (information only: the COO
+        and dense-group scatters use atomics on the card)."""
+        xb = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+        return bool(torch.equal(op.matvec(xb), op.matvec(xb)))
+
+    def diagonal_keys(bt, L) -> bool:
+        return sorted(bt.block_keys()) == [(k, k) for k in range(L + 1)]
+
+    # -- 18. block_heisenberg: BASELINE config 3 at L = 22 ------------------------------
+    if wanted("block_heisenberg"):
+        import tempfile
+        from pathlib import Path
+
+        L = HEIS_L
+        bt, stages, nbytes = staged_block_hamiltonian(L, storage="sparse")
+        op = block_operator(bt)
+        nnz = sum(b.nnz for b in bt.blocks.values())
+        res, seconds, counts = drive(
+            "block_heisenberg", op,
+            lambda: LanczosEigenSolver(op, LanczosOptions(**CONFIG3_OPTIONS)).compute())
+        e_block = float(res.eigenvalues[0])
+        if args.profile:
+            emit("profile_block", solve="block_heisenberg", **profile_solve(
+                lambda: LanczosEigenSolver(op, LanczosOptions(**CONFIG3_OPTIONS)).compute()))
+        bit_equal = bit_equal_matvecs(op, op.shape[1], torch.float64)
+        v_heis = torch.randn(op.shape[1], generator=gen, device=dev, dtype=torch.float64)
+        ms_matvec = time_ms(lambda: op.matvec(v_heis), count=5)
+        keys = sorted(bt.block_keys())
+        del op, bt, v_heis
+        torch.cuda.empty_cache()
+        # the direct route: the S_z = 0 sector through a .mtx file and CSR storage
+        t0 = time.time()
+        sector = heisenberg_sector_coo(L, L // 2)
+        torch.cuda.synchronize()
+        sector_s = time.time() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / f"heisenberg_L{L}_sz0.mtx"
+            t0 = time.time()
+            save_matrix_market(path, sector, symmetry="symmetric",
+                               comment=f"open Heisenberg chain L={L}, S_z=0 sector")
+            save_s = time.time() - t0
+            file_bytes = path.stat().st_size
+            t0 = time.time()
+            loaded = load_matrix_market(path)
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+        t0 = time.time()
+        csr = csr_from_coo(loaded)
+        torch.cuda.synchronize()
+        csr_s = time.time() - t0
+        same_sector = (loaded.nnz == sector.nnz and loaded.shape == sector.shape
+                       and torch.equal(csr.row_ids, sector.row) and torch.equal(csr.indices, sector.col)
+                       and torch.equal(csr.data, sector.val))
+        del loaded, sector
+        t0 = time.time()
+        res_direct = LanczosEigenSolver(csr.as_linear_operator(),
+                                        LanczosOptions(**CONFIG3_OPTIONS)).compute()
+        torch.cuda.synchronize()
+        direct_s = time.time() - t0
+        e_direct = float(res_direct.eigenvalues[0])
+        err = abs(e_block - e_direct)
+        emit("block_heisenberg", L=L, dtype="float64", storage="sparse (COO sector blocks)",
+             n=2 ** L, nnz=nnz, stored_block_keys=[list(k) for k in keys],
+             stored_blocks=len(keys), all_diagonal=all(a == b for a, b in keys),
+             options=CONFIG3_OPTIONS, converged=res.converged, termination=res.termination,
+             matvecs=res.iterations, e_block=e_block, seconds=seconds,
+             ms_per_matvec_in_solve=seconds * 1e3 / max(res.iterations, 1),
+             ms_per_matvec_by_events=ms_matvec, setup_seconds=stages, operator_bytes=nbytes,
+             matvecs_bit_equal=bit_equal, launches=counts,
+             direct=dict(sector_rows=csr.shape[0], sector_nnz=csr.nnz,
+                         sector_build_seconds=sector_s, mtx_save_seconds=save_s,
+                         mtx_bytes=file_bytes, mtx_load_seconds=load_s,
+                         csr_from_coo_seconds=csr_s, loaded_equals_built=same_sector,
+                         converged=res_direct.converged, matvecs=res_direct.iterations,
+                         seconds=direct_s, e_direct=e_direct),
+             abs_err=err, err_limit=CONFIG3_ERR_LIMIT)
+        del csr
+        torch.cuda.empty_cache()
+        if not (res.converged and res_direct.converged):
+            fail(f"block_heisenberg: not converged (block {res.termination}, direct "
+                 f"{res_direct.termination})")
+        if len(keys) != L + 1 or not all(a == b for a, b in keys):
+            fail(f"block_heisenberg: stored keys {keys}, expected {L + 1} diagonal sectors")
+        if not same_sector:
+            fail("block_heisenberg: the sector read back from the .mtx file differs from the one written")
+        if not (np.isfinite(e_block) and err <= CONFIG3_ERR_LIMIT):
+            fail(f"block_heisenberg: |E_block - E_direct| = {err:.3e} exceeds {CONFIG3_ERR_LIMIT}")
+        if any(counts.values()):
+            fail(f"block_heisenberg: launches {counts}: COO sectors launch no kernel")
+
+    # -- 19. block_heisenberg_bsr: the kernel route at L = 20 ----------------------------
+    if wanted("block_heisenberg_bsr"):
+        L = HEIS_BSR_L
+        bt, stages, nbytes = staged_block_hamiltonian(L, dtype=np.float32, storage="bsr")
+        packs = [bt.blocks[(k, k)] for k in range(L + 1)]
+        small = heisenberg_block_hamiltonian(4, dtype=np.float32, storage="bsr")
+        defaults = {b.block_shape for b in small.blocks.values()}
+        del small
+        if defaults != {CARD_BSR_BLOCK} or any(b.dtype != torch.float32 for b in packs):
+            fail(f"block_heisenberg_bsr: the card's default packs are {defaults}, not f32 "
+                 f"{CARD_BSR_BLOCK}")
+        per_sector = [dict(n_up=k, rows=int(bt.structures[0].block_dims[k]),
+                           pack=list(b.data.shape), kmax=b.k_max,
+                           fill=int(torch.count_nonzero(b.data)) / b.data.numel())
+                      for k, b in enumerate(packs)]
+        matvec_bytes = sum(bsr_work(b)[0] for b in packs)
+        op = block_operator(bt)
+        res, seconds, counts = drive(
+            "block_heisenberg_bsr", op,
+            lambda: LanczosEigenSolver(op, LanczosOptions(**BSR_LANCZOS)).compute())
+        e32 = float(res.eigenvalues[0])
+        if args.profile:
+            emit("profile_block_bsr", solve="block_heisenberg_bsr", **profile_solve(
+                lambda: LanczosEigenSolver(op, LanczosOptions(**BSR_LANCZOS)).compute()))
+        bit_equal = bit_equal_matvecs(op, op.shape[1], torch.float32)
+        v32 = torch.randn(op.shape[1], generator=gen, device=dev)
+        ms_matvec = time_ms(lambda: op.matvec(v32), count=5)
+        del op, bt, packs, v32
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        ref = LanczosEigenSolver(heisenberg_sector_coo(L, L // 2).as_linear_operator(),
+                                 LanczosOptions(**CONFIG3_OPTIONS)).compute()
+        torch.cuda.synchronize()
+        ref_s = time.time() - t0
+        e64 = float(ref.eigenvalues[0])
+        rel = abs(e32 - e64) / abs(e64)
+        emit("block_heisenberg_bsr", L=L, dtype="float32", storage="bsr (32x128 sector packs)",
+             n=2 ** L, sectors=per_sector, operator_bytes=nbytes, bytes_per_matvec=matvec_bytes,
+             options=BSR_LANCZOS, converged=res.converged, termination=res.termination,
+             matvecs=res.iterations, e0_f32=e32, seconds=seconds,
+             ms_per_matvec_in_solve=seconds * 1e3 / max(res.iterations, 1),
+             ms_per_matvec_by_events=ms_matvec, setup_seconds=stages,
+             matvecs_bit_equal=bit_equal, launches=counts,
+             e0_f64_sector=e64, f64_sector_matvecs=ref.iterations, f64_sector_seconds=ref_s,
+             rel_err=rel, rel_limit=BSR_E0_REL_LIMIT)
+        if not res.converged:
+            fail(f"block_heisenberg_bsr: not converged ({res.termination})")
+        if counts != only_kernel("bsr_spmv", (L + 1) * res.iterations):
+            fail(f"block_heisenberg_bsr: launches {counts} for {res.iterations} matvecs "
+                 f"over {L + 1} sectors")
+        if not bit_equal:
+            fail("block_heisenberg_bsr: two matvecs of one input differ (bsr_spmv is deterministic)")
+        if not (np.isfinite(e32) and rel <= BSR_E0_REL_LIMIT):
+            fail(f"block_heisenberg_bsr: E0 {e32} against the f64 sector's {e64}: rel {rel:.3e}")
+
+    # -- 20. block_dense: the dense-block contractions at L = 16 ---------------------------
+    if wanted("block_dense"):
+        L = HEIS_DENSE_L
+        H, stages, nbytes = staged_block_hamiltonian(L, storage="dense")
+        dims = [int(d) for d in H.structures[0].block_dims]
+        flops = sum(2 * d ** 3 for d in dims)
+        cuda_spmv.reset_launch_counts()
+        t0 = time.time()
+        HH = H.contract(H, [(1, 0)])
+        torch.cuda.synchronize()
+        contract_s = time.time() - t0
+        t0 = time.time()
+        HH_e = einsum(H, H).from_(["i", "j"], ["j", "k"]).to(["i", "k"])
+        torch.cuda.synchronize()
+        einsum_s = time.time() - t0
+        same_keys = sorted(HH.block_keys()) == sorted(HH_e.block_keys()) == sorted(H.block_keys())
+        block_rel = max(float(torch.linalg.norm(HH.blocks[k] - HH_e.blocks[k])
+                              / torch.linalg.norm(HH_e.blocks[k])) for k in HH.blocks)
+        tr, sq = float(HH.full_trace()), float(H.squared_norm())
+        trace_rel = abs(tr - sq) / sq
+        contract_launches = cuda_spmv.launch_counts()
+        del HH, HH_e
+        torch.cuda.empty_cache()
+        op = block_operator(H)
+        res, seconds, counts = drive(
+            "block_dense", op,
+            lambda: LanczosEigenSolver(op, LanczosOptions(**CONFIG3_OPTIONS)).compute())
+        bit_equal = bit_equal_matvecs(op, op.shape[1], torch.float64)
+        vd = torch.randn(op.shape[1], generator=gen, device=dev, dtype=torch.float64)
+        ms_matvec = time_ms(lambda: op.matvec(vd), count=5)
+        del op, H, vd
+        torch.cuda.empty_cache()
+        sparse = block_operator(heisenberg_block_hamiltonian(L, storage="sparse"))
+        ref = LanczosEigenSolver(sparse, LanczosOptions(**CONFIG3_OPTIONS)).compute()
+        del sparse
+        e_dense, e_sparse = float(res.eigenvalues[0]), float(ref.eigenvalues[0])
+        peak = peaks[2]["f64_tensor_cores"]
+        emit("block_dense", L=L, dtype="float64", storage="dense sector blocks",
+             block_dims=dims, operator_bytes=nbytes, setup_seconds=stages,
+             product_flops=flops, contract_seconds=contract_s, block_einsum_seconds=einsum_s,
+             contract_tflops=flops / contract_s / 1e12, block_einsum_tflops=flops / einsum_s / 1e12,
+             f64_peak_tflops=peak / 1e12, contract_share_of_f64_peak=flops / contract_s / peak,
+             block_einsum_share_of_f64_peak=flops / einsum_s / peak,
+             same_keys=same_keys, max_block_rel_diff=block_rel, trace_hh=tr,
+             squared_norm_h=sq, trace_rel_diff=trace_rel, rel_limit=DENSE_REL_LIMIT,
+             converged=res.converged, matvecs=res.iterations, e_dense=e_dense,
+             e_sparse=e_sparse, e_abs_diff=abs(e_dense - e_sparse), e_limit=DENSE_E0_LIMIT,
+             seconds=seconds, ms_per_matvec_in_solve=seconds * 1e3 / max(res.iterations, 1),
+             ms_per_matvec_by_events=ms_matvec, matvecs_bit_equal=bit_equal,
+             launches=counts, contraction_launches=contract_launches)
+        if not same_keys:
+            fail("block_dense: contract and block einsum give different keys")
+        if not (block_rel <= DENSE_REL_LIMIT and trace_rel <= DENSE_REL_LIMIT):
+            fail(f"block_dense: routes differ by {block_rel:.3e}, trace identity by {trace_rel:.3e}")
+        if not (res.converged and ref.converged):
+            fail("block_dense: a ground-state solve did not converge")
+        if not abs(e_dense - e_sparse) <= DENSE_E0_LIMIT:
+            fail(f"block_dense: dense {e_dense} against sparse {e_sparse}")
+        if any(counts.values()) or any(contract_launches.values()):
+            fail(f"block_dense: launches {counts}, {contract_launches}: dense blocks launch no kernel")
+
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)
         return
@@ -1599,18 +1889,24 @@ def main() -> None:
     for name, src in cuda_spmv.KERNEL_SOURCES.items():
         if main_launches[name] <= 0:
             fail(f"{name}: not launched on the main path")
-        keys = MAIN_CASES[name]
-        for key in keys:
+        entries = MAIN_CASES[name]
+        claimed = set().union(*(e.get("phases", set()) for e in entries))
+        rest = [e for e in entries if "phases" not in e]
+        for e in entries:
             # the case measured at a shape and storage the main path gives the kernel
             c = next(c for c in kernel_cases
-                     if c["kernel"] == name and all(k in c["case"] for k in key))
-            # a kernel with one entry carries all its launches; with an entry per
-            # storage, each carries the launches of the phases on that storage
-            by_phase = {p: v[name] for p, v in per_phase.items()
-                        if len(keys) == 1 or phase_storage[p] == c["storage"]}
+                     if c["kernel"] == name and all(k in c["case"] for k in e["match"]))
+            # an entry with its own phases carries their launches; of the others, a
+            # kernel's only one carries all the rest, and one entry per storage carries
+            # the launches of the phases on that storage
+            if "phases" in e:
+                by_phase = {p: v[name] for p, v in per_phase.items() if p in e["phases"]}
+            else:
+                by_phase = {p: v[name] for p, v in per_phase.items() if p not in claimed
+                            and (len(rest) == 1 or phase_storage[p] == c["storage"])}
             launches = sum(by_phase.values())
             if launches <= 0:
-                fail(f"{name} [{c['storage']}]: not launched on the main path")
+                fail(f"{name} [{c['case'].strip()}]: not launched on the main path")
             worst = [k for k in kernel_cases if k["kernel"] == name]
             entry = dict(
                 name=name, route="cuda", source=f"eigenex_tpu_torch/csrc/{src}",

@@ -4,7 +4,11 @@ Krylov, Krylov-Schur and block eigensolvers, CG/MINRES/CGLS/GMRES and
 exact tridiagonal shift-invert operators, truncated SVD on the Gram
 operator, Krylov and Taylor f(A)v / exp(xA)v, and host f64 refinement
 over block-sparse operators on torch tensors, with hand-written CUDA kernels for the
-block-sparse matvec and multi-vector product on an NVIDIA Hopper card.
+block-sparse matvec and multi-vector product on an NVIDIA Hopper card;
+and the tensor layer: multi-index arithmetic, the string-labeled einsum,
+labeled tensors (``DTensor``), block-sparse symmetry-sector tensors
+(``BlockTensor``) with their operator bridge and spin-chain builders,
+CSR storage and Matrix Market IO.
 The JAX package ``eigenex_tpu`` is the reference; a module here sits at
 the same subpath as its counterpart there.
 
@@ -15,7 +19,18 @@ kernels are compiled with ``nvcc`` at their first launch.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
+from .block.block_tensor import BlockTensor, block_tensor_norm, block_tensor_squared_norm
+from .block.hamiltonians import (
+    heisenberg_block_hamiltonian,
+    heisenberg_ground_state,
+    heisenberg_sector_coo,
+)
+from .core.dtensor import DTensor, dtensor
+from .core.indices import AddIndices, ProductIndices, Slice
 from .core.operators import LinearOperator, aslinearoperator, identity_operator
+from .ops.einsum import contract, einsum
+from .ops.kron import TensorKroneckerProduct, tensor_kronecker_product
+from .ops.orthogonalize import orthogonal_complement
 from .ops.sparse_svd import gram_operator, truncated_svd_via_lanczos
 from .ops.tensor_svd import TensorSVDResult, tensor_svd, truncated_tensor_svd
 from .ops.tensor_util import (
@@ -61,6 +76,8 @@ from .solvers.restart import ThickRestartLanczosEigenSolver, ThickRestartOptions
 from .sparse.accelerate import AcceleratedOperator, accelerate
 from .sparse.bsr import BSRMatrix, bsr_from_coo_arrays, bsr_from_dense
 from .sparse.coo import COOBuilder, COOMatrix, coo_from_dense
+from .sparse.csr import CSRMatrix, csr_from_coo, csr_from_dense
+from .sparse.io import load_matrix_market, save_matrix_market
 from .sparse.realify import (
     complex_from_real,
     dedup_doubled_eigenvalues,
@@ -69,10 +86,27 @@ from .sparse.realify import (
     realify_coo,
 )
 from .sparse.sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
-from .utils.exceptions import ArnoldiError, EigenexError, LanczosError, OperatorError
+from .utils.exceptions import (
+    ArnoldiError,
+    BlockTensorError,
+    EigenexError,
+    EinsumError,
+    LanczosError,
+    OperatorError,
+)
+from .utils.prng import (
+    random_hermitian,
+    random_matrix,
+    random_normal,
+    random_orthogonal,
+    random_tensor,
+    random_uniform,
+    random_vector,
+)
 
 __all__ = [
     "AcceleratedOperator",
+    "AddIndices",
     "ArnoldiEigenSolver",
     "ArnoldiError",
     "ArnoldiOptions",
@@ -80,11 +114,16 @@ __all__ = [
     "BSRMatrix",
     "BlockLanczosEigenSolver",
     "BlockLanczosOptions",
+    "BlockTensor",
+    "BlockTensorError",
     "COOBuilder",
     "COOMatrix",
+    "CSRMatrix",
     "ChebyshevFilterOptions",
     "ChebyshevFilterSolver",
+    "DTensor",
     "EigenexError",
+    "EinsumError",
     "KrylovSchurArnoldiSolver",
     "KrylovSchurOptions",
     "LOBPCGOptions",
@@ -97,12 +136,17 @@ __all__ = [
     "LanczosResult",
     "LinearOperator",
     "OperatorError",
+    "ProductIndices",
+    "Slice",
     "SymBSRMatrix",
+    "TensorKroneckerProduct",
     "TensorSVDResult",
     "ThickRestartLanczosEigenSolver",
     "ThickRestartOptions",
     "accelerate",
     "aslinearoperator",
+    "block_tensor_norm",
+    "block_tensor_squared_norm",
     "bsr_from_coo_arrays",
     "bsr_from_dense",
     "cg_solve",
@@ -111,32 +155,50 @@ __all__ = [
     "chebyshev_filter_apply",
     "chebyshev_moments",
     "complex_from_real",
+    "contract",
     "contract_vector_as_diagonal",
     "coo_from_dense",
+    "csr_from_coo",
+    "csr_from_dense",
     "dedup_doubled_eigenvalues",
     "dense_expmv",
+    "dtensor",
     "eigenvalue_count",
     "eigs",
     "eigs_realified",
     "eigsh",
     "eigsh_range",
     "eigsh_window",
+    "einsum",
     "expm_multiply",
     "general_inverse_iteration_refine",
     "general_rayleigh_refine",
     "gmres_solve",
     "gmres_solve_jit",
     "gram_operator",
+    "heisenberg_block_hamiltonian",
+    "heisenberg_ground_state",
+    "heisenberg_sector_coo",
     "identity_operator",
     "inverse_iteration_refine",
     "jacobi_preconditioner",
     "lanczos_expmv",
     "lanczos_function_apply",
+    "load_matrix_market",
     "lobpcg",
     "minres_solve",
+    "orthogonal_complement",
+    "random_hermitian",
+    "random_matrix",
+    "random_normal",
+    "random_orthogonal",
+    "random_tensor",
+    "random_uniform",
+    "random_vector",
     "rayleigh_refine",
     "real_from_complex",
     "realify_coo",
+    "save_matrix_market",
     "shift_invert_operator",
     "shift_invert_operator_general",
     "spectral_density",
@@ -144,6 +206,7 @@ __all__ = [
     "sym_bsr_from_bsr",
     "taylor_expmv",
     "taylor_expmv_auto",
+    "tensor_kronecker_product",
     "tensor_svd",
     "transform_tensor_with_matrix",
     "tridiagonal_operator",

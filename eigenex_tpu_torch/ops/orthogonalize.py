@@ -24,12 +24,17 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import as_device_tensor
+
 __all__ = [
     "project_coefficients",
     "project_out",
     "cgs2",
     "gram_schmidt",
     "norm_psum",
+    "orthonormal_columns",
+    "orthogonal_complement",
+    "orthogonal_complement_debug",
 ]
 
 
@@ -90,3 +95,57 @@ def gram_schmidt(vectors: torch.Tensor, normalize: bool = True) -> torch.Tensor:
                             torch.ones_like(d))
         q = q * phase.conj()[None, :]
     return q.T
+
+
+def orthonormal_columns(A, device=None) -> torch.Tensor:
+    """Orthonormal basis (columns) for the column space of A via QR.
+
+    A tensor is factored where it lives unless ``device`` names another
+    place; host data goes to ``device``, the card unless told otherwise."""
+    return torch.linalg.qr(as_device_tensor(A, device)).Q
+
+
+def orthogonal_complement(V, n: int | None = None, device=None) -> torch.Tensor:
+    """Orthonormal basis rows spanning the orthogonal complement of the
+    span of the rows of V in C^n (cf. OrthogonalSpace util.hpp:419-471).
+
+    V: (k, n) rows.  Returns (n - k, n) orthonormal rows r with
+    ``r @ V.conj().T == 0``: the trailing columns of the complete QR of
+    V^H -- the batched replacement for the reference's vector-at-a-time
+    projection loop (util.hpp:437-462).  ``device`` as for
+    :func:`orthonormal_columns`.
+    """
+    V = as_device_tensor(V, device)
+    k = V.shape[0]
+    q = torch.linalg.qr(V.conj().T, mode="complete").Q  # (n, n)
+    return torch.conj_physical(q[:, k:]).T
+
+
+def orthogonal_complement_debug(V, n: int | None = None, device=None):
+    """Debug twin of :func:`orthogonal_complement` (cf.
+    ``OrthogonalSpaceDebug`` util.hpp:473-514): returns
+    ``(complement_rows, diagnostics)`` where diagnostics is a dict of the
+    invariants the debug class checked, each a 0-d tensor --
+
+    - ``max_overlap``: max |<r_i, V_j>| (must be ~0: complement orthogonal to span V)
+    - ``orthonormality``: ||R R^H - I||_max over the returned rows
+    - ``completeness``: ||[Vq; R][Vq; R]^H - I||_max with Vq an orthonormal
+      basis of span V -- the two spaces together fill C^n
+    """
+    V = as_device_tensor(V, device)
+    R = orthogonal_complement(V, n)
+    Vq = gram_schmidt(V)
+    k = R.shape[0]
+    zero = torch.zeros((), dtype=R.real.dtype, device=R.device)
+    overlap = (R @ V.conj().T).abs().max() if V.numel() and k else zero
+    gram = R @ R.conj().T
+    eye_k = torch.eye(k, dtype=gram.dtype, device=gram.device)
+    orth = (gram - eye_k).abs().max() if k else zero
+    full = torch.cat([Vq, R], dim=0)
+    gf = full @ full.conj().T
+    comp = (gf - torch.eye(gf.shape[0], dtype=gf.dtype, device=gf.device)).abs().max()
+    return R, {
+        "max_overlap": overlap,
+        "orthonormality": orth,
+        "completeness": comp,
+    }

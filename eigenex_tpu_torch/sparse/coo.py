@@ -149,22 +149,40 @@ class COOMatrix:
     def to(self, device) -> "COOMatrix":
         return COOMatrix(self.row.to(device), self.col.to(device), self.val.to(device), self.shape)
 
+    def scalar_multiple(self, c) -> "COOMatrix":
+        """cf. scalarMultiple triplets_matrix.hpp:423-434"""
+        return COOMatrix(self.row, self.col, self.val * c, self.shape)
+
     # -- compute ---------------------------------------------------------
+    def _index64(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(row, col) as int64, the index type of gathers and ``index_add_``:
+        converted once per container, at its first product, and kept beside
+        the int32 fields (a conversion per call would move as many bytes
+        as the product itself)."""
+        cached = self.__dict__.get("_idx64")
+        if cached is None:
+            cached = (self.row.long(), self.col.long())
+            object.__setattr__(self, "_idx64", cached)
+        return cached
+
     def _scatter(self, contrib, index, size):
         out = torch.zeros((size,) + tuple(contrib.shape[1:]), dtype=contrib.dtype,
                           device=contrib.device)
-        return out.index_add_(0, index.long(), contrib)
+        return out.index_add_(0, index, contrib)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x (cf. operate triplets_matrix.hpp:324-329)."""
-        return self._scatter(self.val * x[self.col.long()], self.row, self.shape[0])
+        row, col = self._index64()
+        return self._scatter(self.val * x[col], row, self.shape[0])
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._scatter(self.val.conj() * x[self.row.long()], self.col, self.shape[1])
+        row, col = self._index64()
+        return self._scatter(self.val.conj() * x[row], col, self.shape[1])
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """Dense-RHS SpMM (cf. triplets_matrix.hpp:359-371)."""
-        return self._scatter(self.val[:, None] * X[self.col.long()], self.row, self.shape[0])
+        row, col = self._index64()
+        return self._scatter(self.val[:, None] * X[col], row, self.shape[0])
 
     def diagonal(self) -> torch.Tensor:
         """Main diagonal as a dense (n,) vector (duplicate triplets sum,
@@ -172,7 +190,7 @@ class COOMatrix:
         (:func:`eigenex_tpu_torch.solvers.precond.jacobi_preconditioner`)."""
         n = min(self.shape)
         on_diag = (self.row == self.col) & (self.row < n)
-        return self._scatter(self.val[on_diag], self.row[on_diag], n)
+        return self._scatter(self.val[on_diag], self._index64()[0][on_diag], n)
 
     # -- host views ------------------------------------------------------
     def _host(self):
@@ -217,11 +235,12 @@ class COOMatrix:
         if self.shape[0] != self.shape[1]:
             raise EigenexError("Gershgorin discs require a square matrix")
         diag_mask = self.row == self.col
+        row = self._index64()[0]
         zero = torch.zeros((), dtype=self.val.dtype, device=self.device)
-        centers = self._scatter(torch.where(diag_mask, self.val, zero), self.row, self.shape[0])
+        centers = self._scatter(torch.where(diag_mask, self.val, zero), row, self.shape[0])
         absv = self.val.abs()
         radii = self._scatter(
-            torch.where(diag_mask, torch.zeros_like(absv), absv), self.row, self.shape[0]
+            torch.where(diag_mask, torch.zeros_like(absv), absv), row, self.shape[0]
         )
         return centers, radii
 

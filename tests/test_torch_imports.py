@@ -23,6 +23,9 @@ EXPECTED_MODULES = [
     "sparse/realify.py", "sparse/sym_bsr.py", "utils/exceptions.py", "utils/prng.py",
     "utils/tolerance.py", "utils/trace.py", "utils/precision.py", "solvers/direct.py",
     "solvers/functions.py", "ops/tensor_util.py", "ops/tensor_svd.py", "ops/sparse_svd.py",
+    "core/indices.py", "core/dtensor.py", "ops/einsum.py", "ops/kron.py", "ops/rotations.py",
+    "sparse/csr.py", "sparse/io.py", "block/block_tensor.py", "block/operator.py",
+    "block/hamiltonians.py",
 ]
 
 
@@ -100,6 +103,10 @@ def test_importing_the_port_is_light():
         "from eigenex_tpu_torch.solvers import direct, functions\n"
         "from eigenex_tpu_torch.ops import sparse_svd, tensor_svd, tensor_util\n"
         "from eigenex_tpu_torch.utils import precision\n"
+        "from eigenex_tpu_torch.core import indices, dtensor\n"
+        "from eigenex_tpu_torch.ops import einsum, kron, rotations\n"
+        "from eigenex_tpu_torch.sparse import csr, io\n"
+        "from eigenex_tpu_torch.block import block_tensor, operator, hamiltonians\n"
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -114,6 +121,8 @@ def test_importing_the_port_is_light():
         "assert callable(ext.svds) and callable(ext.expm_multiply)\n"
         "assert callable(ext.tridiagonal_shift_invert_operator)\n"
         "assert callable(ext.truncated_svd_via_lanczos) and callable(ext.tensor_svd)\n"
+        "assert callable(ext.einsum) and callable(ext.load_matrix_market)\n"
+        "assert callable(ext.heisenberg_block_hamiltonian) and callable(ext.BlockTensor)\n"
         "print('light')\n"
     )
     build = PACKAGE / "build"

@@ -80,3 +80,42 @@ def test_gram_schmidt_matches_reference(complex_):
     close(got, jo.gram_schmidt(jnp.asarray(V)), 1e-12)
     G = got.numpy() @ got.numpy().conj().T
     assert np.abs(G - np.eye(5)).max() <= 1e-13
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_orthogonal_complement_matches_reference(complex_):
+    """The complement is unique only as a space: its projector equals the
+    reference's to 1e-13, and every diagnostic of the debug twin stays at
+    rounding level in both packages."""
+    V, _ = inputs(3, 9, complex_, 4)
+    V = V * np.arange(1, 4)[:, None]  # not orthonormal rows
+    R = to.orthogonal_complement(torch.as_tensor(V)).numpy()
+    Rj = np.asarray(jo.orthogonal_complement(jnp.asarray(V)))
+    assert R.shape == Rj.shape == (6, 9)
+    P, Pj = R.conj().T @ R, Rj.conj().T @ Rj
+    assert np.linalg.norm(P - Pj) <= TOL * np.linalg.norm(Pj)
+    R2, diag = to.orthogonal_complement_debug(torch.as_tensor(V))
+    _, jdiag = jo.orthogonal_complement_debug(jnp.asarray(V))
+    np.testing.assert_array_equal(R2.numpy(), R)
+    assert diag.keys() == jdiag.keys()
+    for k in diag:
+        assert float(diag[k]) <= 1e-13 and float(jdiag[k]) <= 1e-13
+    Q = to.orthonormal_columns(torch.as_tensor(V.T)).numpy()
+    Qj = np.asarray(jo.orthonormal_columns(jnp.asarray(V.T)))
+    assert np.linalg.norm(Q @ Q.conj().T - Qj @ Qj.conj().T) <= TOL * 3
+
+
+def test_complement_of_host_data_runs_on_the_card():
+    """Entry points run on the card unless told otherwise: numpy input with
+    no device is factored on CUDA, or raises where there is none -- never
+    quietly on the CPU.  ``device="cpu"`` keeps it on the host."""
+    V, _ = inputs(2, 5, False, 5)
+    for call in (lambda **kw: to.orthogonal_complement(V, **kw),
+                 lambda **kw: to.orthonormal_columns(V.T, **kw),
+                 lambda **kw: to.orthogonal_complement_debug(V, **kw)[0]):
+        assert call(device="cpu").device.type == "cpu"
+        if torch.cuda.is_available():
+            assert call().is_cuda
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
