@@ -12,7 +12,7 @@ kernels, and the block solvers (LOBPCG, block Lanczos, the Chebyshev window
 filter) through the SpMM kernels -- at full size:
 
 1. ``device``            card, power limit, versions; TF32 must be off.
-2. ``build``             seconds to build the kernels.
+2. ``build``             seconds to build the kernels (nvcc) and the native host builders (g++).
 3. ``kernels``           each kernel against its plain version, every regime,
                          f32 and bf16 storage, with times and bounds; the SpMM
                          kernels over the panel and per column, also on panels
@@ -60,6 +60,23 @@ filter) through the SpMM kernels -- at full size:
 20. ``block_dense``      L = 16 with dense sector blocks (the largest 12,870^2, f64):
                          ``BlockTensor.contract`` and the block einsum of H.H, the trace
                          identity, and the dense-group ``block_operator`` ground state.
+21. ``native_parity``    the native host builders against the numpy routes at L = 18 on
+                         the card's host: sector triplets, ``coo_shrink``, ``bsr_pack``,
+                         and the symmetric and general packers fed one permutation, each
+                         bit for bit.
+22. ``filter_complex``   ``eigsh_window`` and ``eigsh_range`` on the complexified pack of
+                         phase 13, the window taken from ``eigsh``'s lowest eigenvalues on
+                         that pack: the doubled spectrum deduped, every block product one
+                         ``sym_bsr_spmm`` launch.
+23. ``mtx_raw``          the S_z = 0 sector file of phase 18 read back with
+                         ``expand_symmetry=False`` (the native parser): the stored triangle,
+                         which mirrored gives the built sector bit for bit.
+24. ``heisenberg_l24``   BASELINE config 3 at its published size, L = 24, the S_z = 0 sector
+                         (2,704,156 rows, 35.2 M nnz), as ``benchmarks/bench_heisenberg.py``
+                         runs it: native sector enumerator -> ``accelerate(symmetric=True)``
+                         (native RCM, native bf16 packer, 8.4 GiB) -> ``sym_bsr_spmv`` in its
+                         far-reach regime -> f32 Lanczos -> f64 Rayleigh refinement, held to
+                         the published E0; the SpMV time by ``utils.benchtime.chain_slope``.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -75,19 +92,26 @@ Phases 18-20 build their operator once, on the host, and move it to the card thr
 ``BlockTensor`` constructor, timing the two stages apart; phase 19 checks the card's default
 block shape on a small chain built on the card.  ``kernels`` adds ``bsr_spmv`` at the S_z = 0
 sector pack of phase 19, which the result line lists as a second ``bsr_spmv`` entry carrying
-that phase's launches.
+that phase's launches; phase 24 adds ``sym_bsr_spmv`` at the L = 24 pack, a third
+``sym_bsr_spmv`` entry carrying that phase's launches.
 
-Phases 14 and 16 hold the kernels' launch counts against an independent count
+The host stages run on the native builders (``eigenex_tpu_torch.native``, built with
+``g++``).  Every phase whose host stages they serve -- 5, 11, 13, 16, 18, 19 and 24 --
+prints the native calls it made, and fails if there were none; phases 5, 11, 13, 16, 18 and
+19 also time the same host stages on the numpy route (the library switched off), the
+route of the port before the native builders, and print both.
+
+Phases 14, 16 and 22 hold the kernels' launch counts against an independent count
 of operator applications: the container behind the solve is replaced by a
 subclass that counts its ``matvec``/``matmat`` calls (``counted``) and then
 calls the container's own product.
 
 Options (none is needed): ``--phases a,b,c`` runs a subset (the result line
 is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accelerated``,
-``lobpcg_banded``, ``eigs_accelerated``, ``block_heisenberg`` and ``block_heisenberg_bsr``
-solves under ``torch.profiler`` and prints the device's busy and idle share and the kernels
-by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``, ``profile_eigs``,
-``profile_block``, ``profile_block_bsr``), and the device
+``lobpcg_banded``, ``eigs_accelerated``, ``block_heisenberg``, ``block_heisenberg_bsr`` and
+``heisenberg_l24`` solves under ``torch.profiler`` and prints the device's busy and idle
+share and the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``,
+``profile_eigs``, ``profile_block``, ``profile_block_bsr``, ``profile_l24``), and the device
 time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
 ``profile_kernels``).
 """
@@ -95,15 +119,20 @@ time of each kernel of one SpMV and one SpMM product at the main-path shapes (ph
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp  # imported once, here: its import is no phase's host stage
 import torch
 
 from eigenex_tpu_torch import (
@@ -122,10 +151,13 @@ from eigenex_tpu_torch import (
     LanczosEigenSolver,
     LanczosOptions,
     eigsh,
+    eigsh_range,
     eigsh_window,
     expm_multiply,
     jacobi_preconditioner,
     lobpcg,
+    native,
+    rayleigh_refine,
     svds,
     sym_bsr_from_bsr,
     tridiagonal_operator,
@@ -133,11 +165,12 @@ from eigenex_tpu_torch import (
     truncated_svd_via_lanczos,
 )
 from eigenex_tpu_torch.block.operator import block_operator
-from eigenex_tpu_torch.convert import bsr_from_numpy
+from eigenex_tpu_torch.convert import bsr_from_numpy, coo_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.solvers import direct
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix, bsr_from_coo_arrays
 from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
+from eigenex_tpu_torch.utils import benchtime
 
 # ---------------------------------------------------------------------------
 # stated tolerances and sizes
@@ -229,6 +262,19 @@ BSR_E0_REL_LIMIT = 1e-5    # its E0 against the f64 E0 of the S_z = 0 sector, re
 HEIS_DENSE_L = 16          # phase block_dense: 17 dense sector blocks, 4.8 GB of f64
 DENSE_REL_LIMIT = 1e-12    # contract against block einsum per block; trace(H.H) against ||H||_F^2
 DENSE_E0_LIMIT = 1e-10     # dense-block against sparse-block ground state
+PARITY_L = 18              # phase native_parity: the S_z = 0 sector at L = 18 (48,620 rows)
+FILTER_K = 4               # phase filter_complex: eigsh(k, which="SA") on the complex chain's pack;
+FILTER_DEGREE = 120        # the window holds its lowest 3 eigenvalues; filter degree of both solves
+FILTER_BLOCK = 8           # block_size (doubled on the real embedding)
+FILTER_TOL = 1e-5          # tol of both filter solves; eigenvalues against eigsh within 1e-4 relative
+FILTER_AGREE = 1e-4
+L24 = 24                   # phase heisenberg_l24: BASELINE config 3 at its published size
+L24_DIM = 2_704_156        # C(24, 12), the S_z = 0 sector
+L24_E0 = -10.453785760409  # its ground energy as BASELINE.md:179,342 publishes it
+L24_E0_LIMIT = 1e-8        # |E0 (f64 Rayleigh quotient) - published|
+L24_RESID_LIMIT = 1e-4     # ||H x - E0 x|| / |E0| of the refined pair, f64 on the host
+L24_SOLVE = dict(k=1, which="SA", tol=1e-8, max_subspace=160)  # benchmarks/bench_heisenberg.py
+L24_CHAIN = dict(k_lo=16, k_hi=80, reps=5)  # benchtime.chain_slope of its SpMV
 
 BLOCK = 128
 NBR = 2048                 # 2048 block rows of 128 -> n = 262,144
@@ -283,14 +329,17 @@ ALSO_REPLACES = {
 #: storages its main paths give it, one entry of the line each, found by the words
 #: of its case name.  bsr_spmv has two: the (3124, 5, 32, 128) f32 pack of phase
 #: eigs_accelerated, and the S_z = 0 sector pack of phase block_heisenberg_bsr, which
-#: carries that phase's launches ("phases").  sym_bsr_spmv has two: f32 blocks
-#: (eigsh_banded) and bf16 blocks (eigsh_accelerated); sym_bsr_spmm two: the f32
+#: carries that phase's launches ("phases").  sym_bsr_spmv has three: f32 blocks
+#: (eigsh_banded) and bf16 blocks (eigsh_accelerated), both reach 1, and the L = 24
+#: sector pack of phase heisenberg_l24 (bf16, far reach), which carries that phase's
+#: launches; sym_bsr_spmm two: the f32
 #: 12-column panel of LOBPCG, and the bf16 8-column block of the window filter, which
 #: carries most of its launches.
 MAIN_CASES = {
     "bsr_spmv": [dict(match=("config-2 pack", " f32")),
                  dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr"})],
-    "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16"))],
+    "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16")),
+                     dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24"})],
     "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} "))],
     "sym_bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
                      dict(match=("banded", " bf16", f"p={WINDOW_WIDTH} "))],
@@ -304,6 +353,54 @@ def emit(phase: str, **fields) -> None:
 def fail(message: str) -> None:
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def numpy_route():
+    """The host stages with the native builders switched off: the numpy and
+    scipy route of a machine without ``g++``, the port's route before them."""
+    available = native.native_available
+    native.native_available = lambda: False
+    try:
+        yield
+    finally:
+        native.native_available = available
+
+
+def native_total(phase: str, calls: dict) -> int:
+    """The native calls a phase made, all wrappers together; a phase whose
+    host stages the native builders serve fails without any."""
+    total = sum(calls.values())
+    if total <= 0:
+        fail(f"{phase}: no native call: the host stages took the numpy route")
+    return total
+
+
+def numpy_route_pack(operand, **kw) -> dict:
+    """The host seconds of ``accelerate(operand, **kw)`` on the numpy route,
+    packed on the host: the comparison for a native pack."""
+    with numpy_route():
+        t0 = time.time()
+        acc = accelerate(operand, device="cpu", **kw)
+        seconds = time.time() - t0
+    return dict(pack_seconds_wall=seconds, pack_stages=acc.stats["pack_stages"],
+                bandwidth_after=acc.stats["bandwidth_after"])
+
+
+def sorted_slots(data: np.ndarray, cols: np.ndarray, rows: np.ndarray, tcols: np.ndarray, bm: int,
+                 bn: int):
+    """A BSR-ELL pack of the triplets (rows, tcols) with each block row's real
+    slots in column order: the native ``bsr_pack`` fills a row's slots in the
+    order its blocks first occur, the numpy packer in column order.  Padding
+    slots, which both leave zero at column 0, stay last."""
+    nbr, kmax = cols.shape
+    width = int(tcols.max()) // bn + 1
+    blocks = np.unique((rows // bm) * width + tcols // bn)  # the real blocks
+    real = np.bincount(blocks // width, minlength=nbr)  # ... a block row
+    key = np.where(np.arange(kmax)[None, :] < real[:, None], cols, np.iinfo(np.int32).max)
+    order = np.argsort(key, axis=1, kind="stable")
+    return (np.take_along_axis(data, order[:, :, None, None], axis=1),
+            np.take_along_axis(cols, order, axis=1))
 
 
 def card_peaks(name: str):
@@ -877,6 +974,7 @@ def main() -> None:
     t_start = time.time()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    mtx_dir = tempfile.TemporaryDirectory()  # the sector file of phases 18 and 23
 
     # -- 1. device ----------------------------------------------------------
     smi = subprocess.run(
@@ -896,13 +994,20 @@ def main() -> None:
     t0 = time.time()
     libs = cuda_spmv.build_kernels()
     build_s = time.time() - t0
+    # the native host builders, built here so that no phase's host seconds hold
+    # the compiler; a machine with nvcc has g++, so nothing falls back to numpy
+    t0 = time.time()
+    if not native.native_available():
+        fail("the native host builders did not build (g++)")
+    native_build_s = time.time() - t0
     ptxas = {}
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
         lines = log.read_text().splitlines() if log.exists() else []
         ptxas[name] = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     emit("build", seconds=build_s, libraries={k: p.name for k, p in libs.items()},
-         flags=" ".join(cuda_spmv.NVCC_FLAGS), ptxas=ptxas)
+         flags=" ".join(cuda_spmv.NVCC_FLAGS), ptxas=ptxas, native_seconds=native_build_s,
+         native_library=native.library_path().name, native_flags=" ".join(native.GXX_FLAGS))
 
     # -- operators shared by the phases --------------------------------------
     gen = torch.Generator(device=dev)
@@ -928,9 +1033,11 @@ def main() -> None:
     if wanted("kernels") or wanted("eigs_accelerated"):
         r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
         coo_cd = coo_on(r_cd, c_cd, v_cd, n_cd, dev)
+        native.reset_native_calls()
         t0 = time.time()
         acc_cd = accelerate(coo_cd)  # what eigs(coo_cd, accelerate=True) does first
         cd_pack_s = time.time() - t0
+        cd_native = native.native_calls()
         if tuple(acc_cd.matrix.data.shape) != CD_PACK or acc_cd.matrix.dtype != torch.float32:
             fail(f"config-2 pack: {tuple(acc_cd.matrix.data.shape)} {acc_cd.matrix.dtype}, "
                  f"expected {CD_PACK} float32")
@@ -1111,8 +1218,6 @@ def main() -> None:
 
     # -- 5. eigsh_accelerated --------------------------------------------------
     if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated"):
-        import scipy.sparse as sp
-
         n_a = nbr * BLOCK
         rng = np.random.default_rng(SEED + 7)
         r_a = np.repeat(np.arange(n_a), 2)
@@ -1123,7 +1228,11 @@ def main() -> None:
         trip = (np.concatenate([r_a, c_a, np.arange(n_a)]),
                 np.concatenate([c_a, r_a, np.arange(n_a)]),
                 np.concatenate([v_a, v_a, np.full(n_a, 4.0)]), (n_a, n_a))
+        native.reset_native_calls()
+        t0 = time.time()
         acc = accelerate(trip, symmetric=True)
+        acc_pack_s = time.time() - t0
+        acc_native = native.native_calls()
         if acc.matrix.dtype != torch.bfloat16:
             fail(f"eigsh_accelerated: dyadic values packed as {acc.matrix.dtype}, expected bfloat16")
 
@@ -1140,7 +1249,10 @@ def main() -> None:
              tol=ACCEL_TOL, resid_limit=ACCEL_RESID_LIMIT, converged=res.converged,
              termination=res.termination, eigenvalues=lam.tolist(), rel_residuals_f64_host=rr,
              matvecs=res.iterations, launches=counts, seconds=seconds,
-             ms_per_matvec=seconds * 1e3 / max(res.iterations, 1))
+             ms_per_matvec=seconds * 1e3 / max(res.iterations, 1), pack_seconds_wall=acc_pack_s,
+             pack_native_calls=acc_native,
+             pack_numpy_route=numpy_route_pack(trip, symmetric=True))
+        native_total("eigsh_accelerated", acc_native)
         if not res.converged:
             fail(f"eigsh_accelerated: not converged ({res.termination})")
         if X.shape != (n_a, 2) or not np.isfinite(X).all():
@@ -1368,8 +1480,6 @@ def main() -> None:
 
     # -- 11. eigs_accelerated: the general path at full width, BASELINE config 2 -------
     if wanted("eigs_accelerated"):
-        import scipy.sparse as sp
-
         n = n_cd
         A64 = sp.csr_matrix((v_cd, (r_cd, c_cd)), shape=(n, n))
         top = convection_diffusion_top(CD_NX, 10)
@@ -1399,7 +1509,9 @@ def main() -> None:
              matvecs=res.iterations, restarts=len(res.trace.residuals) - 1,
              max_restarts=EIGS_MAX_RESTARTS, residual_bound_every_10th_restart=bound_history,
              launches=counts, seconds=seconds, ms_per_matvec=seconds * 1e3 / max(res.iterations, 1),
-             pack=dict(acc_cd.stats), pack_seconds_wall=cd_pack_s)
+             pack=dict(acc_cd.stats), pack_seconds_wall=cd_pack_s, pack_native_calls=cd_native,
+             pack_numpy_route=numpy_route_pack(coo_cd))
+        native_total("eigs_accelerated", cd_native)
         if not res.converged:
             fail(f"eigs_accelerated: not converged ({res.termination}) after {res.iterations} matvecs")
         if X.shape != (n, EIGS_K) or not np.isfinite(X).all():
@@ -1419,8 +1531,6 @@ def main() -> None:
 
     # -- 12. eigs_sigma: GMRES shift-invert on the general kernel ---------------------
     if wanted("eigs_sigma"):
-        import scipy.sparse as sp
-
         r, c, v, n = convection_diffusion_coo(SIGMA_NX)
         acc_s = accelerate(coo_on(r, c, v, n, dev))
         A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
@@ -1458,31 +1568,36 @@ def main() -> None:
         del acc_s
 
     # -- 13. eigsh_complex_accelerated: the real embedding on the symmetric kernel -----
-    if wanted("eigsh_complex_accelerated"):
-        import scipy.sparse as sp
-
+    if wanted("eigsh_complex_accelerated") or wanted("filter_complex"):
         rc, cc, vc = build_complex_hopping(CHAIN_N, seed=SEED)
         trip_c = (rc, cc, vc, (CHAIN_N, CHAIN_N))
+        native.reset_native_calls()
         t0 = time.time()
         acc_c = accelerate(trip_c, symmetric=True)
         pack_s = time.time() - t0
+        chain_native = native.native_calls()
         if not (acc_c.complexified and acc_c.symmetric and acc_c.matrix.dtype == torch.float32
                 and acc_c.n_work == 2 * CHAIN_N):
             fail(f"eigsh_complex_accelerated: pack {acc_c.stats}")
+        H = sp.csr_matrix((vc, (rc, cc)), shape=(CHAIN_N, CHAIN_N))
+
+    if wanted("eigsh_complex_accelerated"):
         res, seconds, counts = drive(
             "eigsh_complex_accelerated", acc_c.matrix,
             lambda: eigsh(acc_c, k=1, which="SA", tol=CHAIN_TOL, seed=SEED + 5))
-        H = sp.csr_matrix((vc, (rc, cc)), shape=(CHAIN_N, CHAIN_N))
         lam = np.asarray(res.eigenvalues, np.float64)
         Z = np.asarray(res.eigenvectors, np.complex128)
         rr = (np.linalg.norm(H @ Z - Z * lam[None, :], axis=0) / np.abs(lam)).tolist()
         emit("eigsh_complex_accelerated", n=CHAIN_N, n_embedded=acc_c.n_work, k=1, which="SA",
              tol=CHAIN_TOL, pack={k: v for k, v in acc_c.stats.items()},
-             pack_seconds_host=pack_s, converged=res.converged, termination=res.termination,
+             pack_seconds_host=pack_s, pack_native_calls=chain_native,
+             pack_numpy_route=numpy_route_pack(trip_c, symmetric=True),
+             converged=res.converged, termination=res.termination,
              eigenvalues=lam.tolist(), pairs_after_dedup=len(lam),
              rel_residuals_c128_host=rr, resid_limit=CHAIN_RESID_LIMIT, matvecs=res.iterations,
              launches=counts, seconds=seconds,
              ms_per_matvec=seconds * 1e3 / max(res.iterations, 1))
+        native_total("eigsh_complex_accelerated", chain_native)
         if not res.converged:
             fail(f"eigsh_complex_accelerated: not converged ({res.termination})")
         if len(lam) != 1 or Z.shape != (CHAIN_N, 1) or not np.isfinite(Z).all():
@@ -1491,7 +1606,62 @@ def main() -> None:
             fail(f"eigsh_complex_accelerated: residual {max(rr):.3e} exceeds {CHAIN_RESID_LIMIT}")
         if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_complex_accelerated: launches {counts} for {res.iterations} matvecs")
-        del acc_c
+
+    # -- 22. filter_complex: the window filter and KPM slicing on the real embedding --------
+    if wanted("filter_complex"):
+        # the reference eigenvalues: eigsh on the same pack (not a main-path phase)
+        ref = eigsh(acc_c, k=FILTER_K, which="SA", tol=CHAIN_TOL, seed=SEED + 6)
+        lam_ref = np.asarray(ref.eigenvalues, np.float64)
+        window = (lam_ref[0] - 0.5 * (lam_ref[1] - lam_ref[0]), 0.5 * (lam_ref[2] + lam_ref[3]))
+        inside = lam_ref[(lam_ref >= window[0]) & (lam_ref <= window[1])]
+        applied = {"matvec": 0, "matmat": 0}
+        acc_f = dataclasses.replace(acc_c, matrix=counted(acc_c.matrix, applied))
+        filt = dict(degree=FILTER_DEGREE, tol=FILTER_TOL, max_iterations=40)
+
+        def solve_filters():
+            w = eigsh_window(acc_f, window, block_size=FILTER_BLOCK, seed=SEED + 7, **filt)
+            window_products = applied["matmat"]
+            r = eigsh_range(acc_f, window, block_size=FILTER_BLOCK, slack=3, seed=SEED + 8, **filt)
+            return w, window_products, r
+
+        (res_w, window_products, res_r), seconds, counts = drive(
+            "filter_complex", acc_c.matrix, solve_filters)
+        report = dict(n=CHAIN_N, n_embedded=acc_c.n_work, storage="float32", window=window,
+                      eigsh_eigenvalues=lam_ref.tolist(), eigsh_matvecs=ref.iterations,
+                      in_window=len(inside), block_size=FILTER_BLOCK,
+                      embedded_block=2 * FILTER_BLOCK, agree_limit=FILTER_AGREE,
+                      launches=counts, block_products=applied["matmat"],
+                      matvecs=applied["matvec"], seconds=seconds, resid_limit=CHAIN_RESID_LIMIT, **filt)
+        ok = True
+        for name, res, products in (("window", res_w, window_products),
+                                    ("range", res_r, applied["matmat"] - window_products)):
+            lam = np.asarray(res.eigenvalues, np.float64)
+            Z = res.eigenvectors
+            rr = ([] if Z is None else
+                  (np.linalg.norm(H @ Z - Z * lam[None, :], axis=0) / np.abs(lam)).tolist())
+            gaps = np.diff(np.sort(lam))
+            report[name] = dict(converged=res.converged, termination=res.termination,
+                                outer_iterations=res.iterations, eigenvalues=lam.tolist(),
+                                rel_residuals_c128_host=rr, block_products=products,
+                                min_gap=float(gaps.min()) if gaps.size else None)
+            ok &= (bool(res.converged) and len(lam) == len(inside) and Z is not None
+                   and Z.shape == (CHAIN_N, len(lam)) and bool(np.isfinite(Z).all())
+                   and max(rr, default=0.0) <= CHAIN_RESID_LIMIT
+                   and all(np.any(np.abs(lam - l) <= FILTER_AGREE * abs(l)) for l in inside)
+                   and (gaps.size == 0 or gaps.min() > FILTER_AGREE * np.abs(lam).max()))
+        emit("filter_complex", **report)
+        if not ok:
+            fail(f"filter_complex: the window or the range did not give the {len(inside)} eigenvalues "
+                 f"{inside.tolist()} of eigsh once each, converged, within {FILTER_AGREE}")
+        # a window round is `degree` filter products and one Rayleigh-Ritz product
+        if window_products != res_w.iterations * (FILTER_DEGREE + 1):
+            fail(f"filter_complex: {window_products} window products for {res_w.iterations} rounds")
+        want = only_kernel("sym_bsr_spmm", applied["matmat"])
+        want["sym_bsr_spmv"] = applied["matvec"]
+        if counts != want or applied["matmat"] == 0:
+            fail(f"filter_complex: launches {counts} for {applied} products")
+    if wanted("eigsh_complex_accelerated") or wanted("filter_complex"):
+        del acc_c, H
 
     # -- 15. tridiag_si: BASELINE config 1 through cuSPARSE gtsv2 ---------------------
     if wanted("tridiag_si"):
@@ -1569,9 +1739,8 @@ def main() -> None:
 
     # -- 16. svds_accelerated: the Gram pipeline on two general packs -----------------
     if wanted("svds_accelerated"):
-        import scipy.sparse as sp
-
         r_s, c_s, v_s, shape_s = banded_rect_triplets(*SVDS_SHAPE, SVDS_BW, SVDS_PER_ROW, SEED)
+        native.reset_native_calls()
         t0 = time.time()
         acc_s = accelerate((r_s, c_s, v_s, shape_s))  # what svds(..., accelerate=True) does first
         pack_s = time.time() - t0
@@ -1580,6 +1749,7 @@ def main() -> None:
         t0 = time.time()
         adj = acc_s.adjoint_matrix()  # packed once, kept on the operator
         adj_s = time.time() - t0
+        svds_native = native.native_calls()
         mat_s = acc_s.matrix
         for what, b in (("pack", mat_s), ("adjoint pack", adj)):
             if b.dtype != torch.float32 or b.block_shape != (32, 128):
@@ -1607,7 +1777,8 @@ def main() -> None:
              rel_residuals_av_su=rv, resid_limit=SVDS_RESID_LIMIT,
              rel_residuals_ahu_sv=ru, u_orthonormality=orth, orth_limit=SVDS_ORTH_LIMIT,
              pack=dict(acc_s.stats), pack_seconds_wall=pack_s, adjoint_pack_seconds=adj_s,
-             packs=packs, gram_matvecs=gram, recovery_products=applied["matmat"],
+             pack_native_calls=svds_native,
+             pack_numpy_route=numpy_route_pack((r_s, c_s, v_s, shape_s)), packs=packs, gram_matvecs=gram, recovery_products=applied["matmat"],
              launches=counts, seconds=seconds, ms_per_gram_matvec=seconds * 1e3 / max(gram, 1))
         finite = np.isfinite(s).all() and np.isfinite(U).all() and np.isfinite(Vh).all()
         if U.shape != (shape_s[0], SVDS_K) or Vh.shape != (SVDS_K, shape_s[1]) or not finite:
@@ -1620,6 +1791,7 @@ def main() -> None:
         want.update(bsr_spmv=2 * gram, bsr_spmm=applied["matmat"])
         if counts != want or gram == 0:
             fail(f"svds_accelerated: launches {counts}, expected {want}")
+        native_total("svds_accelerated", svds_native)
         del acc_s, adj, mat_s, A64, U, Vh, V, res_s
 
     # -- 17. svds_config4: BASELINE config 4 on the card -----------------------------
@@ -1654,9 +1826,11 @@ def main() -> None:
         Returns (operator, stage seconds, bytes moved)."""
         if kw.get("storage") == "bsr":
             kw = dict(kw, block_shape=CARD_BSR_BLOCK)
+        native.reset_native_calls()
         t0 = time.time()
         host = heisenberg_block_hamiltonian(L, device="cpu", **kw)
         host_s = time.time() - t0
+        calls = native.native_calls()
         t0 = time.time()
         bt = BlockTensor(host.structures, blocks=host.blocks, dtype=host.dtype, device=dev)
         torch.cuda.synchronize()
@@ -1671,7 +1845,18 @@ def main() -> None:
             return (blk,)
 
         nbytes = sum(t.numel() * t.element_size() for b in bt.blocks.values() for t in parts(b))
-        return bt, dict(host_build=host_s, transfer=transfer_s), nbytes
+        return bt, dict(host_build=host_s, transfer=transfer_s, native_calls=calls), nbytes
+
+    def numpy_route_build(L: int, **kw) -> float:
+        """Seconds of the same host build on the numpy route, for comparison."""
+        if kw.get("storage") == "bsr":
+            kw = dict(kw, block_shape=CARD_BSR_BLOCK)
+        with numpy_route():
+            t0 = time.time()
+            host = heisenberg_block_hamiltonian(L, device="cpu", **kw)
+            seconds = time.time() - t0
+        del host
+        return seconds
 
     def bit_equal_matvecs(op, n, dtype) -> bool:
         """Whether two products of one input are bit-equal (information only: the COO
@@ -1683,10 +1868,8 @@ def main() -> None:
         return sorted(bt.block_keys()) == [(k, k) for k in range(L + 1)]
 
     # -- 18. block_heisenberg: BASELINE config 3 at L = 22 ------------------------------
+    sector_mtx = Path(mtx_dir.name) / f"heisenberg_L{HEIS_L}_sz0.mtx"  # read again by mtx_raw
     if wanted("block_heisenberg"):
-        import tempfile
-        from pathlib import Path
-
         L = HEIS_L
         bt, stages, nbytes = staged_block_hamiltonian(L, storage="sparse")
         op = block_operator(bt)
@@ -1709,17 +1892,15 @@ def main() -> None:
         sector = heisenberg_sector_coo(L, L // 2)
         torch.cuda.synchronize()
         sector_s = time.time() - t0
-        with tempfile.TemporaryDirectory() as tmp:
-            path = Path(tmp) / f"heisenberg_L{L}_sz0.mtx"
-            t0 = time.time()
-            save_matrix_market(path, sector, symmetry="symmetric",
-                               comment=f"open Heisenberg chain L={L}, S_z=0 sector")
-            save_s = time.time() - t0
-            file_bytes = path.stat().st_size
-            t0 = time.time()
-            loaded = load_matrix_market(path)
-            torch.cuda.synchronize()
-            load_s = time.time() - t0
+        t0 = time.time()
+        save_matrix_market(sector_mtx, sector, symmetry="symmetric",
+                           comment=f"open Heisenberg chain L={L}, S_z=0 sector")
+        save_s = time.time() - t0
+        file_bytes = sector_mtx.stat().st_size
+        t0 = time.time()
+        loaded = load_matrix_market(sector_mtx)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
         t0 = time.time()
         csr = csr_from_coo(loaded)
         torch.cuda.synchronize()
@@ -1742,6 +1923,7 @@ def main() -> None:
              matvecs=res.iterations, e_block=e_block, seconds=seconds,
              ms_per_matvec_in_solve=seconds * 1e3 / max(res.iterations, 1),
              ms_per_matvec_by_events=ms_matvec, setup_seconds=stages, operator_bytes=nbytes,
+             host_build_seconds_numpy_route=numpy_route_build(L, storage="sparse"),
              matvecs_bit_equal=bit_equal, launches=counts,
              direct=dict(sector_rows=csr.shape[0], sector_nnz=csr.nnz,
                          sector_build_seconds=sector_s, mtx_save_seconds=save_s,
@@ -1763,6 +1945,41 @@ def main() -> None:
             fail(f"block_heisenberg: |E_block - E_direct| = {err:.3e} exceeds {CONFIG3_ERR_LIMIT}")
         if any(counts.values()):
             fail(f"block_heisenberg: launches {counts}: COO sectors launch no kernel")
+        native_total("block_heisenberg", stages["native_calls"])
+
+    # -- 23. mtx_raw: the stored triangle of the sector file, by the native parser -------
+    if wanted("mtx_raw"):
+        L = HEIS_L
+        sector = heisenberg_sector_coo(L, L // 2, device="cpu")
+        if not sector_mtx.exists():  # phase 18 did not run: write the file as it does
+            save_matrix_market(sector_mtx, sector, symmetry="symmetric",
+                               comment=f"open Heisenberg chain L={L}, S_z=0 sector")
+        native.reset_native_calls()
+        t0 = time.time()
+        raw = load_matrix_market(sector_mtx, expand_symmetry=False)
+        torch.cuda.synchronize()
+        raw_s = time.time() - t0
+        raw_native = native.native_calls()
+        r, c, v = (t.cpu().numpy() for t in (raw.row, raw.col, raw.val))
+        sr, sc, sv = (t.numpy() for t in (sector.row, sector.col, sector.val))
+        n_diag = int(np.count_nonzero(sr == sc))
+        want_nnz = (sector.nnz + n_diag) // 2
+        off = r != c
+        full = (np.concatenate([r, c[off]]), np.concatenate([c, r[off]]), np.concatenate([v, v[off]]))
+        order = np.lexsort((full[1], full[0]))
+        expands = (len(order) == sector.nnz and all(
+            np.array_equal(a[order], b) for a, b in zip(full, (sr, sc, sv))))
+        emit("mtx_raw", L=L, file_bytes=sector_mtx.stat().st_size, sector_rows=sector.shape[0],
+             sector_nnz=sector.nnz, diagonal=n_diag, stored_nnz=raw.nnz, expected_stored_nnz=want_nnz,
+             lower_triangle=bool(np.all(r >= c)), device=str(raw.val.device),
+             load_seconds=raw_s, native_calls=raw_native, expands_to_the_sector_bit_for_bit=expands)
+        del raw, sector, full
+        native_total("mtx_raw", raw_native)
+        if not (np.all(r >= c) and len(r) == want_nnz):
+            fail(f"mtx_raw: {len(r)} stored entries, expected (nnz + diag) / 2 = {want_nnz} below "
+                 "the diagonal")
+        if not expands:
+            fail("mtx_raw: the stored triangle, mirrored, differs from the built sector")
 
     # -- 19. block_heisenberg_bsr: the kernel route at L = 20 ----------------------------
     if wanted("block_heisenberg_bsr"):
@@ -1806,6 +2023,7 @@ def main() -> None:
              matvecs=res.iterations, e0_f32=e32, seconds=seconds,
              ms_per_matvec_in_solve=seconds * 1e3 / max(res.iterations, 1),
              ms_per_matvec_by_events=ms_matvec, setup_seconds=stages,
+             host_build_seconds_numpy_route=numpy_route_build(L, dtype=np.float32, storage="bsr"),
              matvecs_bit_equal=bit_equal, launches=counts,
              e0_f64_sector=e64, f64_sector_matvecs=ref.iterations, f64_sector_seconds=ref_s,
              rel_err=rel, rel_limit=BSR_E0_REL_LIMIT)
@@ -1818,6 +2036,9 @@ def main() -> None:
             fail("block_heisenberg_bsr: two matvecs of one input differ (bsr_spmv is deterministic)")
         if not (np.isfinite(e32) and rel <= BSR_E0_REL_LIMIT):
             fail(f"block_heisenberg_bsr: E0 {e32} against the f64 sector's {e64}: rel {rel:.3e}")
+        if stages["native_calls"].get("bsr_pack", 0) != L + 1:
+            fail(f"block_heisenberg_bsr: native calls {stages['native_calls']}: the {L + 1} sector "
+                 "packs did not go through bsr_pack")
 
     # -- 20. block_dense: the dense-block contractions at L = 16 ---------------------------
     if wanted("block_dense"):
@@ -1879,6 +2100,161 @@ def main() -> None:
             fail(f"block_dense: dense {e_dense} against sparse {e_sparse}")
         if any(counts.values()) or any(contract_launches.values()):
             fail(f"block_dense: launches {counts}, {contract_launches}: dense blocks launch no kernel")
+
+    # -- 21. native_parity: the native builders against the numpy routes, on the host ----
+    if wanted("native_parity"):
+        from eigenex_tpu_torch.block.hamiltonians import _heisenberg_triplets
+        from eigenex_tpu_torch.sparse.accelerate import _pack_general, _pack_symmetric
+        from eigenex_tpu_torch.sparse.accelerate import band_permutation
+        from eigenex_tpu_torch.sparse.coo import _shrink
+
+        L = PARITY_L
+        seconds = {}
+        native.reset_native_calls()
+
+        def timed(key, fn):
+            t0 = time.time()
+            out = fn()
+            seconds[key] = time.time() - t0
+            return out
+
+        r, c, v, dim = timed("sector_native", lambda: native.heisenberg_sector(L, L // 2, 1.0, 1.0, False))
+        order = np.lexsort((c, r))
+        r, c, v = r[order], c[order], v[order]
+        nr, nc, nv, _ = timed("sector_numpy", lambda: _heisenberg_triplets(L, L // 2, 1.0, None, False,
+                                                                            np.float64))
+        equal = dict(sector=all(np.array_equal(a, b) for a, b in ((r, nr), (c, nc), (v, nv))))
+        # every entry twice, shuffled: the merge adds each pair
+        dup = np.random.default_rng(SEED + L).permutation(2 * len(v))
+        dr, dc, dv = (np.concatenate([a, a])[dup] for a in (r, c, v))
+        got = timed("coo_shrink_native", lambda: native.coo_shrink(dr, dc, dv, dim, 0.0))
+        want = timed("coo_shrink_numpy", lambda: _shrink(dr.astype(np.int32), dc.astype(np.int32), dv,
+                                                          dim, dim, 0.0))
+        equal["coo_shrink"] = (all(np.array_equal(a, b) for a, b in zip(got, want))
+                               and np.array_equal(got[2], 2 * v))
+        # bsr_pack: the f32 sector at the card's 32x128 blocks, as phase 19 packs it
+        v32 = v.astype(np.float32)
+        got = timed("bsr_pack_native", lambda: bsr_from_coo_arrays(r, c, v32, (dim, dim), CARD_BSR_BLOCK,
+                                                                    device="cpu"))
+        with numpy_route():
+            want = timed("bsr_pack_numpy", lambda: bsr_from_coo_arrays(r, c, v32, (dim, dim),
+                                                                        CARD_BSR_BLOCK, device="cpu"))
+        gd, gc = sorted_slots(got.data.numpy(), got.block_cols.numpy(), r, c, *CARD_BSR_BLOCK)
+        wd, wc = sorted_slots(want.data.numpy(), want.block_cols.numpy(), r, c, *CARD_BSR_BLOCK)
+        equal["bsr_pack"] = np.array_equal(gd, wd) and np.array_equal(gc, wc)
+        del got, want, gd, wd
+        # the accelerate() packers, fed one (native RCM) permutation
+        perm = timed("rcm_native", lambda: band_permutation(r, c, dim, assume_symmetric=True))
+        with numpy_route():
+            perm_scipy = timed("rcm_scipy", lambda: band_permutation(r, c, dim, assume_symmetric=True))
+        ip = np.empty(dim, np.int64)
+        ip[perm] = np.arange(dim)
+        pr, pc = ip[r], ip[c]
+        n_pad = -(-dim // (32 * BLOCK)) * (32 * BLOCK)
+        bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            (gs, skipped), (ws, _) = (
+                timed(f"sym_pack_{tag}_{route}",
+                      lambda use=use: _pack_symmetric(pr, pc, v, n_pad, BLOCK, dt, "cpu", use))
+                for use, route in ((True, "native"), (False, "numpy")))
+            equal[f"sym_pack_{tag}"] = (
+                gs.band_reach == ws.band_reach and skipped == int(np.count_nonzero(pc // BLOCK < pr // BLOCK))
+                and all(torch.equal(bits(a), bits(b)) for a, b in (
+                    (gs.diag_data, ws.diag_data), (gs.upper_data, ws.upper_data),
+                    (gs.upper_cols, ws.upper_cols))))
+            gg, wg = (timed(f"general_pack_{tag}_{route}",
+                            lambda use=use: _pack_general(pr, pc, v, n_pad, n_pad, *CARD_BSR_BLOCK, dt,
+                                                          "cpu", use))
+                      for use, route in ((True, "native"), (False, "numpy")))
+            equal[f"general_pack_{tag}"] = (torch.equal(bits(gg.data), bits(wg.data))
+                                            and torch.equal(gg.block_cols, wg.block_cols))
+            del gs, ws, gg, wg
+        calls = native.native_calls()
+        ip_s = np.empty(dim, np.int64)
+        ip_s[perm_scipy] = np.arange(dim)
+        emit("native_parity", L=L, sector_rows=dim, nnz=len(v), bit_equal=equal,
+             bandwidth_rcm_native=int(np.abs(pr - pc).max()),
+             bandwidth_rcm_scipy=int(np.abs(ip_s[r] - ip_s[c]).max()),
+             host_seconds=seconds, native_calls=calls)
+        native_total("native_parity", calls)
+        if not all(equal.values()):
+            fail(f"native_parity: the native route differs from the numpy route: {equal}")
+
+    # -- 24. heisenberg_l24: BASELINE config 3 at L = 24 on the native route -------------------
+    if wanted("heisenberg_l24"):
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_native_calls()
+        host = {}
+        t0 = time.time()
+        r, c, v, dim = native.heisenberg_sector(L24, L24 // 2, 1.0, 1.0, False)
+        host["sector_build"] = time.time() - t0
+        t0 = time.time()
+        order = np.lexsort((c, r))
+        r, c, v = r[order], c[order], v[order]
+        del order
+        host["lexsort"] = time.time() - t0
+        t0 = time.time()
+        acc24 = accelerate((r, c, v, (dim, dim)), symmetric=True)
+        torch.cuda.synchronize()
+        host["accelerate"] = time.time() - t0
+        calls = native.native_calls()
+        st = acc24.stats
+        sym24 = acc24.matrix
+        values = np.unique(v)  # a handful: J/2 and the diagonal's multiples of Jz/4
+        lossless = bool(torch.equal(torch.as_tensor(values).to(torch.bfloat16).double(),
+                                    torch.as_tensor(values)))
+        res, seconds, counts = drive("heisenberg_l24", sym24, lambda: eigsh(acc24, **L24_SOLVE))
+        if args.profile:
+            emit("profile_l24", solve="heisenberg_l24",
+                 **profile_solve(lambda: eigsh(acc24, **L24_SOLVE)))
+        t0 = time.time()
+        lam, resid = rayleigh_refine(coo_from_numpy(r, c, v, (dim, dim), device="cpu"),
+                                     res.eigenvectors)
+        refine_s = time.time() - t0
+        e0, rel_resid = float(lam[0]), float(resid[0] / abs(lam[0]))
+        solve = dict(converged=res.converged, termination=res.termination, matvecs=res.iterations,
+                     e0_f32=float(res.eigenvalues[0]), seconds=seconds,
+                     ms_per_matvec=seconds * 1e3 / max(res.iterations, 1))
+        del res
+        x24 = acc24.embed(np.random.default_rng(SEED + L24).standard_normal(dim))
+        per, chain = benchtime.chain_slope(lambda p, x: p.matvec(x), sym24, x24, **L24_CHAIN)
+        nbytes, flops = sym_work(sym24)
+        bound_ms, bound_by = bound(nbytes, flops, peaks, OPS_UNIT["sym_bsr_spmv", "bfloat16"])
+        torch.cuda.empty_cache()
+        case = check_kernel("sym_bsr_spmv", f"L={L24} S_z=0 sector pack {sym24.n_block_rows} block rows "
+                            f"reach={sym24.band_reach} ku={st['ku']} bf16 (far-reach regime, main path)",
+                            sym24, x24, peaks)
+        kernel_cases.append(case)
+        emit("heisenberg_l24", L=L24, sector_dim=dim, nnz=len(v), host_seconds=host,
+             pack_seconds=st["pack_seconds"], pack_stages=st["pack_stages"], native_calls=calls,
+             dtype=st["dtype"], bf16_lossless=lossless, fill=st["fill"], ku=st["ku"],
+             band_reach=st["band_reach"], bandwidth_before=st["bandwidth_before"],
+             bandwidth_after=st["bandwidth_after"], pack_bytes=st["bytes"],
+             pack_gib=st["bytes"] / 2 ** 30, n_block_rows=sym24.n_block_rows, options=L24_SOLVE,
+             **solve, launches=counts, refine_seconds=refine_s, e0_f64=e0,
+             e0_published=L24_E0, e0_abs_err=abs(e0 - L24_E0), e0_limit=L24_E0_LIMIT,
+             residual_f64=float(resid[0]), rel_residual_f64=rel_resid, resid_limit=L24_RESID_LIMIT,
+             spmv_ms_chain_slope=None if per is None else per * 1e3, chain_slope=chain,
+             spmv_bytes=nbytes, spmv_bound_ms=bound_ms, spmv_bound_by=bound_by,
+             spmv_kernel_ms_by_events=case["kernel_ms"], spmv_plain_ms=case["plain_ms"],
+             spmv_library_ms=case["library_ms"],
+             peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             peak_host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
+        del acc24, sym24, x24, r, c, v
+        torch.cuda.empty_cache()
+        native_total("heisenberg_l24", calls)
+        if dim != L24_DIM or st["dtype"] != "bfloat16" or not lossless:
+            fail(f"heisenberg_l24: dim {dim}, pack dtype {st['dtype']} (lossless {lossless}): "
+                 f"expected {L24_DIM} rows in lossless bf16")
+        if not solve["converged"]:
+            fail(f"heisenberg_l24: not converged ({solve['termination']})")
+        if counts != only_kernel("sym_bsr_spmv", solve["matvecs"]):
+            fail(f"heisenberg_l24: launches {counts} for {solve['matvecs']} matvecs")
+        if not abs(e0 - L24_E0) <= L24_E0_LIMIT:
+            fail(f"heisenberg_l24: E0 {e0!r} against the published {L24_E0}: "
+                 f"{abs(e0 - L24_E0):.3e} exceeds {L24_E0_LIMIT}")
+        if not rel_resid <= L24_RESID_LIMIT:
+            fail(f"heisenberg_l24: residual {rel_resid:.3e} exceeds {L24_RESID_LIMIT}")
 
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)

@@ -8,13 +8,16 @@ block-sparse matvec and multi-vector product on an NVIDIA Hopper card;
 and the tensor layer: multi-index arithmetic, the string-labeled einsum,
 labeled tensors (``DTensor``), block-sparse symmetry-sector tensors
 (``BlockTensor``) with their operator bridge and spin-chain builders,
-CSR storage and Matrix Market IO.
+CSR storage and Matrix Market IO; the native C++ host builders
+(sector enumeration, RCM, block packing, the Matrix Market parser); and
+solver-state checkpoints, profiling hooks and the timing protocol.
 The JAX package ``eigenex_tpu`` is the reference; a module here sits at
 the same subpath as its counterpart there.
 
 Importing this package imports ``torch`` and nothing else heavy: it
 builds no kernel, imports no ``triton`` and touches no CUDA device.  The
-kernels are compiled with ``nvcc`` at their first launch.
+kernels are compiled with ``nvcc`` at their first launch, the native host
+builders with ``g++`` at their first use.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -30,7 +33,7 @@ from .core.indices import AddIndices, ProductIndices, Slice
 from .core.operators import LinearOperator, aslinearoperator, identity_operator
 from .ops.einsum import contract, einsum
 from .ops.kron import TensorKroneckerProduct, tensor_kronecker_product
-from .ops.orthogonalize import orthogonal_complement
+from .ops.orthogonalize import cgs2, gram_schmidt, orthogonal_complement, project_out
 from .ops.sparse_svd import gram_operator, truncated_svd_via_lanczos
 from .ops.tensor_svd import TensorSVDResult, tensor_svd, truncated_tensor_svd
 from .ops.tensor_util import (
@@ -63,7 +66,15 @@ from .solvers.functions import (
 from .solvers.gmres import gmres_solve, gmres_solve_jit, shift_invert_operator_general
 from .solvers.kpm import chebyshev_moments, eigenvalue_count, eigsh_range, spectral_density
 from .solvers.krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions
-from .solvers.lanczos import LanczosEigenSolver, LanczosOptions, LanczosResult
+from .solvers.lanczos import (
+    UNLIMITED,
+    LanczosEigenSolver,
+    LanczosOptions,
+    LanczosResult,
+    LanczosState,
+    init_lanczos_state,
+    lanczos_steps,
+)
 from .solvers.lobpcg import LOBPCGOptions, LOBPCGSolver, lobpcg
 from .solvers.precond import jacobi_preconditioner
 from .solvers.refine import (
@@ -75,7 +86,7 @@ from .solvers.refine import (
 from .solvers.restart import ThickRestartLanczosEigenSolver, ThickRestartOptions
 from .sparse.accelerate import AcceleratedOperator, accelerate
 from .sparse.bsr import BSRMatrix, bsr_from_coo_arrays, bsr_from_dense
-from .sparse.coo import COOBuilder, COOMatrix, coo_from_dense
+from .sparse.coo import COOBuilder, COOMatrix, coo_from_dense, coo_identity
 from .sparse.csr import CSRMatrix, csr_from_coo, csr_from_dense
 from .sparse.io import load_matrix_market, save_matrix_market
 from .sparse.realify import (
@@ -94,6 +105,7 @@ from .utils.exceptions import (
     LanczosError,
     OperatorError,
 )
+from .utils.checkpoint import load_state, save_state, shard_state
 from .utils.prng import (
     random_hermitian,
     random_matrix,
@@ -103,6 +115,8 @@ from .utils.prng import (
     random_uniform,
     random_vector,
 )
+from .utils.tolerance import default_tolerance
+from .utils.trace import ConvergenceTrace
 
 __all__ = [
     "AcceleratedOperator",
@@ -121,6 +135,7 @@ __all__ = [
     "CSRMatrix",
     "ChebyshevFilterOptions",
     "ChebyshevFilterSolver",
+    "ConvergenceTrace",
     "DTensor",
     "EigenexError",
     "EinsumError",
@@ -134,6 +149,7 @@ __all__ = [
     "LanczosFunctionSolver",
     "LanczosOptions",
     "LanczosResult",
+    "LanczosState",
     "LinearOperator",
     "OperatorError",
     "ProductIndices",
@@ -143,6 +159,7 @@ __all__ = [
     "TensorSVDResult",
     "ThickRestartLanczosEigenSolver",
     "ThickRestartOptions",
+    "UNLIMITED",
     "accelerate",
     "aslinearoperator",
     "block_tensor_norm",
@@ -151,6 +168,7 @@ __all__ = [
     "bsr_from_dense",
     "cg_solve",
     "cgls_solve",
+    "cgs2",
     "chebyshev_bandpass_apply",
     "chebyshev_filter_apply",
     "chebyshev_moments",
@@ -158,9 +176,11 @@ __all__ = [
     "contract",
     "contract_vector_as_diagonal",
     "coo_from_dense",
+    "coo_identity",
     "csr_from_coo",
     "csr_from_dense",
     "dedup_doubled_eigenvalues",
+    "default_tolerance",
     "dense_expmv",
     "dtensor",
     "eigenvalue_count",
@@ -176,18 +196,23 @@ __all__ = [
     "gmres_solve",
     "gmres_solve_jit",
     "gram_operator",
+    "gram_schmidt",
     "heisenberg_block_hamiltonian",
     "heisenberg_ground_state",
     "heisenberg_sector_coo",
     "identity_operator",
+    "init_lanczos_state",
     "inverse_iteration_refine",
     "jacobi_preconditioner",
     "lanczos_expmv",
     "lanczos_function_apply",
+    "lanczos_steps",
     "load_matrix_market",
+    "load_state",
     "lobpcg",
     "minres_solve",
     "orthogonal_complement",
+    "project_out",
     "random_hermitian",
     "random_matrix",
     "random_normal",
@@ -199,6 +224,8 @@ __all__ = [
     "real_from_complex",
     "realify_coo",
     "save_matrix_market",
+    "save_state",
+    "shard_state",
     "shift_invert_operator",
     "shift_invert_operator_general",
     "spectral_density",

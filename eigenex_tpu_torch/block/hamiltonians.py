@@ -17,12 +17,14 @@ block-diagonal over magnetization sectors:
 - the transverse-field Ising chain over its Z2 parity sectors, with the
   free-fermion closed form of its ground energy.
 
-The sector matrices are built on the host, vectorised: the basis states
-are sorted ascending, so ``np.searchsorted(states, s ^ mask)`` gives the
-row of each spin flip, and each row's entries (its diagonal and one flip
-per movable bond) are sorted in place of a global sort.  The triplets,
-their values and their (row, col) order are those of the JAX package's
-builders.
+The f64 sector matrices come from the native enumerator
+(:mod:`eigenex_tpu_torch.native`) where the library is available, as in the
+JAX package.  Otherwise they are built on the host, vectorised: the basis
+states are sorted ascending, so ``np.searchsorted(states, s ^ mask)`` gives
+the row of each spin flip, and each row's entries (its diagonal and one
+flip per movable bond) are sorted in place of a global sort.  Either way
+the triplets, their values and their (row, col) order are those of the JAX
+package's builders.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from math import comb
 import numpy as np
 import torch
 
+from .. import native
 from ..core.indices import AddIndices
 from ..solvers.lanczos import LanczosEigenSolver, LanczosOptions
 from ..sparse.bsr import bsr_from_coo_arrays
@@ -115,6 +118,17 @@ def _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype):
     return _row_sorted_triplets(states, flips, diag, J / 2, dtype) + (dim,)
 
 
+def _sector_triplets(L, n_up, J, Jz, pbc, dtype):
+    """(rows, cols, vals, dim) of one sector in (row, col) order: the
+    native enumerator for f64 where the library is available (its
+    column-major output lexsorted), the numpy builder otherwise."""
+    if np.dtype(dtype) == np.float64 and native.native_available():
+        r, c, v, dim = native.heisenberg_sector(L, n_up, J, J if Jz is None else Jz, pbc)
+        order = np.lexsort((c, r))
+        return r[order].astype(np.int32), c[order].astype(np.int32), v[order], dim
+    return _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype)
+
+
 def heisenberg_sector_coo(
     L: int,
     n_up: int,
@@ -128,7 +142,7 @@ def heisenberg_sector_coo(
     restricted to the total-S_z sector with ``n_up`` up spins, as a COO
     matrix over the sector basis, on ``device`` (the card unless told
     otherwise)."""
-    r, c, v, dim = _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype)
+    r, c, v, dim = _sector_triplets(L, n_up, J, Jz, pbc, dtype)
     return _coo_on(r, c, v, (dim, dim), resolve_device(device))
 
 
@@ -172,7 +186,7 @@ def heisenberg_block_hamiltonian(
     if storage == "bsr" and block_shape is None:
         block_shape = (32, 128) if device.type == "cuda" else (4, 4)
     for n_up in range(L + 1):
-        r, c, v, dim = _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype)
+        r, c, v, dim = _sector_triplets(L, n_up, J, Jz, pbc, dtype)
         if storage == "dense":
             dense = np.zeros((dim, dim), v.dtype)
             dense[r, c] = v

@@ -1,11 +1,14 @@
-"""Operators carried across from the JAX package as numpy arrays.
+"""Operators and solver states carried across from the JAX package as
+numpy arrays.
 
 The containers of the two packages share their layouts, so a packed
 operator moves between them as plain arrays: on the JAX side
 ``np.asarray(bsr.data.astype(jnp.float32))`` (numpy has no bfloat16),
 here ``bsr_from_numpy(..., dtype=torch.bfloat16)`` -- lossless for an
 operator that was stored in bf16.  The parity tests feed both packages
-the same operator this way.
+the same operator this way.  A solver state (the Krylov basis and the
+small recurrence arrays that ``continue_to_compute`` resumes from) crosses
+the same way: :func:`state_from_numpy`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from .sparse.bsr import BSRMatrix
 from .sparse.coo import COOMatrix
 from .sparse.sym_bsr import SymBSRMatrix
 from .utils.device import resolve_device
+from .utils.exceptions import EigenexError
 from .utils.tolerance import accumulation_dtype, as_torch_dtype
 
 __all__ = [
@@ -24,6 +28,7 @@ __all__ = [
     "sym_bsr_from_numpy",
     "coo_from_numpy",
     "accelerated_from_numpy",
+    "state_from_numpy",
     "to_numpy",
 ]
 
@@ -108,6 +113,41 @@ def accelerated_from_numpy(meta: dict, perm, *, data=None, bcols=None, diag=None
         stats=dict(meta.get("stats") or {}),
         row_perm=None if row_perm is None else np.asarray(row_perm, np.int64),
     )
+
+
+def state_from_numpy(cls, arrays: dict, device=None):
+    """A solver state of the port from the numpy arrays of one of either
+    package (``state_to_dict`` of their checkpoint modules, or the fields
+    of a ``.npz`` checkpoint): ``cls`` is ``LanczosState`` or
+    ``ArnoldiState``, or its name.  The step count ``k``, int32 in the JAX
+    package, becomes the port's int64; a state written before the
+    NaN/Inf flag ``failed`` existed gets it False.  The tensors land on
+    ``device`` (the card unless told otherwise)."""
+    import dataclasses
+
+    from .solvers.arnoldi import ArnoldiState
+    from .solvers.lanczos import LanczosState
+
+    if isinstance(cls, str):
+        classes = {"LanczosState": LanczosState, "ArnoldiState": ArnoldiState}
+        if cls not in classes:
+            raise EigenexError(f"unknown state class {cls!r} in checkpoint")
+        cls = classes[cls]
+    fields = [f.name for f in dataclasses.fields(cls)]
+    arrays = dict(arrays)
+    missing = set(fields) - set(arrays)
+    if missing == {"failed"}:
+        # checkpoints written before the NaN/Inf failure flag existed
+        arrays["failed"] = np.zeros((), np.bool_)
+        missing = set()
+    if missing:
+        raise EigenexError(f"checkpoint missing fields {sorted(missing)} for {cls.__name__}")
+    device = resolve_device(device)
+    out = {}
+    for name in fields:
+        t = torch.from_numpy(np.array(arrays[name], copy=True))
+        out[name] = (t.to(torch.int64) if name == "k" else t).to(device)
+    return cls(**out)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -18,8 +18,8 @@ Spectral bounds come from Gershgorin (``estimate_eigenvalue_range``,
 triplets_matrix.hpp:512-540) or a short power probe; over-estimates only
 weaken the filter, never break correctness.
 
-``mesh=`` (the row-partitioned filter chain) and complexified
-accelerated operands are not ported yet and raise as such.
+``mesh=`` (the row-partitioned filter chain) is not ported yet and
+raises as such.
 """
 
 from __future__ import annotations
@@ -427,9 +427,10 @@ def eigsh_window(
     An :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`
     operand runs the filter over the permuted block container with a
     padding-safe start block and restores eigenvectors to original
-    coordinates.  ``device`` places a host operand (the card unless told
-    otherwise); containers and operators are used where they live.
-    ``mesh=`` is not ported yet."""
+    coordinates (complex Hermitian included: the block is doubled on the
+    real embedding and the doubled window contents deduped).  ``device``
+    places a host operand (the card unless told otherwise); containers and
+    operators are used where they live.  ``mesh=`` is not ported yet."""
     from ..sparse.accelerate import AcceleratedOperator
 
     if mesh is not None:
@@ -448,23 +449,33 @@ def eigsh_window(
 def _window_on_accelerated(acc, window, options, block_size) -> LanczosResult:
     """eigsh_window for an AcceleratedOperator: permuted-space
     filter iteration with a padding-safe start block; eigenvectors
-    restored to original coordinates as a host array.
+    restored to original coordinates as a host array.  A complexified
+    operand (the real embedding of a complex Hermitian operator, which
+    holds every eigenvalue twice) runs a block of ``2 * block_size`` and
+    keeps one pair of each doubled one (by value and vector overlap),
+    normalised.
 
     ``spectral_bounds=None`` lets the solver derive the bounds itself.
     The pads' zero eigenvalue may fall outside them, where |T_k| grows --
     harmless: the padding-safe start block has EXACTLY zero pad
     components and the structurally-zero pad rows keep them zero through
     every filter application."""
-    if acc.complexified:
-        raise not_ported("eigsh_window on a complexified AcceleratedOperator")
+    from ..sparse.accelerate import dedup_embedded_pairs
+
+    b = (2 if acc.complexified else 1) * block_size
     dtype = acc.as_linear_operator().dtype
-    X0 = _padding_safe_block(
-        acc.n_work, acc.shape[0], block_size, dtype, options.seed, acc.device
-    )
+    X0 = _padding_safe_block(acc.n_work, acc.shape[0], b, dtype, options.seed, acc.device)
     res = ChebyshevFilterSolver(
-        acc.matrix, window, options, block_size=block_size, initial_block=X0
+        acc.matrix, window, options, block_size=b, initial_block=X0
     ).compute()
-    res.eigenvalues = np.asarray(res.eigenvalues)
-    if res.eigenvectors is not None:
-        res.eigenvectors = acc.restore(res.eigenvectors)
+    lam = np.asarray(res.eigenvalues)
+    vecs = acc.restore(res.eigenvectors) if res.eigenvectors is not None else None
+    if acc.complexified and lam.size:
+        keep = dedup_embedded_pairs(lam, vecs)
+        lam = lam[keep]
+        if vecs is not None:
+            vecs = vecs[:, keep]
+            vecs = vecs / np.maximum(np.linalg.norm(vecs, axis=0), 1e-300)
+    res.eigenvalues = lam
+    res.eigenvectors = vecs
     return res

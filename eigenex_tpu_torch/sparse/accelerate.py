@@ -39,10 +39,16 @@ carry vectors of the other side, and :meth:`~AcceleratedOperator.adjoint_matrix`
 packs A^H at the same block shape, so both Gram matvecs reach the general
 SpMV kernel.
 
-The host stages use numpy and scipy only (the JAX package's route for
-machines without a C++ toolchain); the native C++ packers are not ported
-yet.  :meth:`AcceleratedOperator.save` / :meth:`~AcceleratedOperator.load`
-read and write the JAX package's ``.npz`` format, so a pack made by either
+The host stages run where the JAX package runs them: in the native C++
+builders (:mod:`eigenex_tpu_torch.native`, the port's copy of the JAX
+package's) whenever the library is available -- the RCM ordering, the CSR
+adjacency of a trusted-symmetric pattern, the one shared block sort, and the
+threaded symmetric and general packers, which emit f32 or bf16 directly (bf16
+rounded to nearest even in C++, through f32; the bits go to the card as they
+are) -- and in numpy and scipy otherwise.  The two routes agree on the pack
+given the same permutation; their RCM orderings differ in tie-breaks.
+:meth:`AcceleratedOperator.save` / :meth:`~AcceleratedOperator.load` read
+and write the JAX package's ``.npz`` format, so a pack made by either
 package loads in the other.
 """
 
@@ -55,6 +61,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import native
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
@@ -190,20 +197,34 @@ def _sampled_hermitian_check(r, c, v, shape, *, sample: int = 2048, seed: int = 
         )
 
 
-def band_permutation(rows, cols, n: int) -> np.ndarray:
+def band_permutation(rows, cols, n: int, *, assume_symmetric: bool = False) -> np.ndarray:
     """Reverse Cuthill-McKee ordering of the SYMMETRISED pattern of the
     triplets -- perm[i] = original index at new position i, so
-    ``A[perm][:, perm]`` is banded (scipy's convention, and scipy's
-    ``reverse_cuthill_mckee``)."""
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    ``A[perm][:, perm]`` is banded (scipy's convention).
 
+    The native BFS (``rcm_permutation`` of the native builders) when the
+    library is available, scipy's ``reverse_cuthill_mckee`` otherwise; the
+    two orderings differ only in tie-breaks.  ``assume_symmetric``: the
+    pattern is already symmetric, so the native CSR adjacency is built from
+    the triplets directly (any order), without scipy's transpose-and-add."""
     rows = np.ascontiguousarray(rows, np.int64)
     cols = np.ascontiguousarray(cols, np.int64)
-    pattern = sp.csr_matrix(
-        (np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n)
-    )
-    pattern = pattern + pattern.T  # symmetrise for the general case
+    if assume_symmetric and len(rows) and native.native_available():
+        rowptr, colidx = native.build_csr(rows, cols, n)
+        return native.rcm_permutation(rowptr, colidx)
+    import scipy.sparse as sp
+
+    pattern = sp.csr_matrix((np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n))
+    return _rcm(pattern + pattern.T)  # symmetrise for the general case
+
+
+def _rcm(pattern) -> np.ndarray:
+    """RCM ordering of a symmetric scipy CSR pattern, native or scipy."""
+    if native.native_available():
+        return native.rcm_permutation(pattern.indptr.astype(np.int64),
+                                      pattern.indices.astype(np.int64))
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
     return reverse_cuthill_mckee(pattern, symmetric_mode=True).astype(np.int64)
 
 
@@ -213,14 +234,12 @@ def bipartite_band_permutation(rows, cols, m: int, n: int):
     each entry (i, j)), its ordering split back into the row and the column
     subsequence, so ``A[row_perm][:, col_perm]`` is banded."""
     import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
 
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     br = np.concatenate([rows, cols + m])
     bc = np.concatenate([cols + m, rows])
-    pattern = sp.csr_matrix((np.ones(len(br), np.int8), (br, bc)), shape=(m + n, m + n))
-    perm_all = reverse_cuthill_mckee(pattern, symmetric_mode=True).astype(np.int64)
+    perm_all = _rcm(sp.csr_matrix((np.ones(len(br), np.int8), (br, bc)), shape=(m + n, m + n)))
     return perm_all[perm_all < m], perm_all[perm_all >= m] - m
 
 
@@ -233,37 +252,78 @@ def _bf16_lossless(values: np.ndarray) -> bool:
     return bool(torch.equal(v32.to(torch.bfloat16).to(torch.float32), v32))
 
 
-def _host_cast(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def _host_cast(a, dtype: torch.dtype, device) -> torch.Tensor:
     """Cast packed block data ON THE HOST before the move to the device:
     uploading f32 and casting there would transiently hold both copies in
     device memory."""
     return torch.as_tensor(a).to(dtype).to(device)
 
 
-def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device) -> SymBSRMatrix:
-    """Permuted triplets -> SymBSRMatrix: pack both triangles into
-    BSR-ELL on the host in f32, then keep the diagonal and the strictly
-    upper blocks."""
+def _no_stage(name, t_start):
+    return time.time()
+
+
+def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device, use_native,
+                    stage=_no_stage):
+    """Permuted triplets -> (SymBSRMatrix, skipped).  Native: one block sort,
+    then the threaded diagonal + strictly-upper packer, straight to bf16
+    when that is the storage; ``skipped`` counts the strictly-lower-block
+    triplets it dropped (their mirrors are the upper blocks).  numpy: pack
+    both triangles into BSR-ELL in f32, keep the diagonal and the strictly
+    upper blocks; ``skipped`` is None."""
+    nbr = n_pad // block
+    ts = time.time()
+    if use_native:
+        order, _kmax, ku, reach = native.blk_widths(r, c, block, block, nbr)
+        ts = stage("blk_sort", ts)
+        v64 = v.astype(np.float64)
+        if dtype == torch.bfloat16:
+            diag, upper, ucols, skipped = native.sym_bsr_pack_bf16(r, c, v64, order, nbr, block, ku)
+        else:
+            diag, upper, ucols, skipped = native.sym_bsr_pack_f32(r, c, v64, order, nbr, block, ku)
+        del order, v64
+        ts = stage("pack_scatter", ts)
+        mat = SymBSRMatrix(_host_cast(diag, dtype, device), _host_cast(upper, dtype, device),
+                           torch.from_numpy(ucols).to(device), (n_pad, n_pad), int(reach))
+        stage("device_put", ts)
+        return mat, skipped
     data, block_cols, _ = _pack_bsr_host(
         r, c, v.astype(np.float32), (n_pad, n_pad), (block, block)
     )
     full = BSRMatrix(torch.as_tensor(data), torch.as_tensor(block_cols), (n_pad, n_pad))
     sym = sym_bsr_from_bsr(full, device="cpu")
-    return SymBSRMatrix(
+    ts = stage("pack_scatter", ts)
+    mat = SymBSRMatrix(
         _host_cast(sym.diag_data, dtype, device),
         _host_cast(sym.upper_data, dtype, device),
         sym.upper_cols.to(device),
         sym.shape,
         sym.band_reach,
     )
+    stage("device_put", ts)
+    return mat, None
 
 
-def _pack_general(r, c, v, m_pad, n_pad, bm, bn, dtype: torch.dtype, device) -> BSRMatrix:
-    """Permuted triplets -> general BSR-ELL with (bm, bn) blocks, packed
-    on the host in f32 and cast there to the storage dtype."""
-    data, block_cols, _ = _pack_bsr_host(r, c, v.astype(np.float32), (m_pad, n_pad), (bm, bn))
-    return BSRMatrix(_host_cast(data, dtype, device), torch.as_tensor(block_cols).to(device),
-                     (m_pad, n_pad))
+def _pack_general(r, c, v, m_pad, n_pad, bm, bn, dtype: torch.dtype, device, use_native,
+                  stage=_no_stage) -> BSRMatrix:
+    """Permuted triplets -> general BSR-ELL with (bm, bn) blocks: the native
+    block sort and threaded packer (f32, or bf16 directly), or the numpy
+    packer in f32; cast on the host to the storage dtype."""
+    nbr, nbc = m_pad // bm, n_pad // bn
+    ts = time.time()
+    if use_native:
+        order, kmax, _ku, _reach = native.blk_widths(r, c, bm, bn, nbc)
+        ts = stage("blk_sort", ts)
+        pack = native.bsr_pack_bf16 if dtype == torch.bfloat16 else native.bsr_pack_f32
+        data, block_cols = pack(r, c, v.astype(np.float64), order, nbr, nbc, bm, bn, kmax)
+        del order
+    else:
+        data, block_cols, _ = _pack_bsr_host(r, c, v.astype(np.float32), (m_pad, n_pad), (bm, bn))
+    ts = stage("pack_scatter", ts)
+    mat = BSRMatrix(_host_cast(data, dtype, device), torch.as_tensor(block_cols).to(device),
+                    (m_pad, n_pad))
+    stage("device_put", ts)
+    return mat
 
 
 def _padding_safe_v0(orig_n: int, padded_n: int, dtype, seed: int, device) -> torch.Tensor:
@@ -442,8 +502,10 @@ class AcceleratedOperator:
             m_pad, n_pad = self.matrix.shape
             # swapped triplets: rows of A^H are columns of A; the pad sizes
             # swap with them, the block shape stays
+            use_native = native.native_available() and np.isrealobj(v)
             adj = _pack_general(c, r, np.conj(v) if np.iscomplexobj(v) else v,
-                                n_pad, m_pad, bm, bn, self.matrix.dtype, self.device)
+                                n_pad, m_pad, bm, bn, self.matrix.dtype, self.device,
+                                use_native)
         object.__setattr__(self, "_adjoint_cache", adj)
         return adj
 
@@ -564,8 +626,8 @@ def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
     mult = int(np.lcm(bm, bn))
     m_pad = -(-m // mult) * mult
     n_pad = -(-n // mult) * mult
-    mat = _pack_general(r, c, v, m_pad, n_pad, bm, bn, target, device)
-    stage("pack_scatter", ts)
+    mat = _pack_general(r, c, v, m_pad, n_pad, bm, bn, target, device,
+                        native.native_available(), stage)
     slots = mat.data.numel()
     # normalised cross bandwidth: how far an entry sits from the matched
     # band diagonal after the two-sided permutation (row positions scaled
@@ -695,7 +757,7 @@ def accelerate(
 
     bw_before = int(np.abs(r - c).max()) if len(r) else 0
     if reorder and len(r):
-        perm = band_permutation(r, c, n_work)
+        perm = band_permutation(r, c, n_work, assume_symmetric=bool(symmetric))
         ts = _stage("rcm", ts)
         ip = np.empty(n_work, np.int64)
         ip[perm] = np.arange(n_work)
@@ -705,6 +767,7 @@ def accelerate(
         perm = np.arange(n_work, dtype=np.int64)
     bw_after = int(np.abs(r - c).max()) if len(r) else 0
 
+    use_native = native.native_available() and np.isrealobj(v)
     nnz = len(v)
     if isinstance(dtype, str) and dtype == "auto":
         target = torch.bfloat16 if _bf16_lossless(v) else torch.float32
@@ -715,7 +778,16 @@ def accelerate(
         # pad to 32 BLOCK rows, as the JAX package does, so that packed
         # operators have the same shape in both packages
         n_pad = -(-n_work // (32 * block)) * (32 * block)
-        mat = _pack_symmetric(r, c, v, n_pad, block, target, device)
+        mat, skipped = _pack_symmetric(r, c, v, n_pad, block, target, device, use_native, _stage)
+        if skipped is not None:
+            # the count of strictly-lower-block triplets the native pack
+            # dropped is fixed by the pattern: a mismatch is a packer defect
+            expect = int(np.count_nonzero(c // block < r // block))
+            if skipped != expect:
+                raise EigenexError(
+                    f"sym pack dropped {skipped} lower-block triplets but the "
+                    f"pattern holds {expect} -- packer inconsistency"
+                )
         slots = mat.diag_data.numel() + mat.upper_data.numel()
         applied = mat.diag_data.numel() + 2 * mat.upper_data.numel()
         widths = dict(ku=int(mat.upper_cols.shape[1]), band_reach=int(mat.band_reach))
@@ -724,10 +796,9 @@ def accelerate(
         # square stays square (eigs needs it): pad both sides to lcm(bm, bn)
         mult = int(np.lcm(bm, bn))
         n_pad = -(-n_work // mult) * mult
-        mat = _pack_general(r, c, v, n_pad, n_pad, bm, bn, target, device)
+        mat = _pack_general(r, c, v, n_pad, n_pad, bm, bn, target, device, use_native, _stage)
         slots = applied = mat.data.numel()
         widths = dict(kmax=mat.k_max)
-    _stage("pack_scatter", ts)
 
     stats = dict(
         nnz=nnz,

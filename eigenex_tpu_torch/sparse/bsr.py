@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import native
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
@@ -281,10 +282,18 @@ def bsr_from_coo_arrays(
     Rows/cols beyond a block-shape multiple are zero-padded (the extra
     rows/cols are structurally zero, harmless for SpMV and Krylov use).
     ``dtype`` is a numpy dtype for the packed values; the tensors land on
-    ``device`` (the card unless told otherwise).
+    ``device`` (the card unless told otherwise).  f32 and f64 values go
+    through the native packer where the library is available, as in the
+    JAX package: it accumulates in f64 and fills a block row's slots in the
+    order its blocks first occur, the numpy packer in column order.
     """
     val = np.asarray(val, dtype)
-    data, block_cols, padded = _pack_bsr_host(row, col, val, shape, block_shape)
+    if val.dtype in (np.float32, np.float64) and native.native_available():
+        data, block_cols, padded = native.bsr_pack(
+            row, col, val.astype(np.float64), shape, block_shape)
+        data = data.astype(val.dtype)
+    else:
+        data, block_cols, padded = _pack_bsr_host(row, col, val, shape, block_shape)
     device = resolve_device(device)
     return BSRMatrix(
         torch.as_tensor(data).to(device), torch.as_tensor(block_cols).to(device), padded

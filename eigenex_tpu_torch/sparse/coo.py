@@ -21,6 +21,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from .. import native
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
@@ -87,11 +88,17 @@ class COOBuilder:
     def build(self, threshold: float = 0.0, device=None) -> "COOMatrix":
         """Sort row-major, merge duplicate entries, drop |v| <= threshold
         (the ``shrink`` pipeline triplets_matrix.hpp:194-296), then freeze
-        to tensors on ``device`` (the card unless told otherwise)."""
+        to tensors on ``device`` (the card unless told otherwise).  f64
+        triplets go through the native ``coo_shrink`` where the library
+        is available, as in the JAX package."""
         r = np.asarray(self._r, np.int32)
         c = np.asarray(self._c, np.int32)
         v = np.asarray(self._v, self.dtype)
-        r, c, v = _shrink(r, c, v, self.rows, self.cols, threshold)
+        if v.dtype == np.float64 and r.size and native.native_available():
+            r64, c64, v = native.coo_shrink(r, c, v, self.cols, threshold)
+            r, c = r64.astype(np.int32), c64.astype(np.int32)
+        else:
+            r, c, v = _shrink(r, c, v, self.rows, self.cols, threshold)
         return _coo_on(r, c, v, (self.rows, self.cols), resolve_device(device))
 
 

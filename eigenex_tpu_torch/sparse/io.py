@@ -2,13 +2,14 @@
 
 Counterpart of ``eigenex_tpu/sparse/io.py``.  The reference has no file
 IO at all: every operator is assembled in user code
-(triplets_matrix.hpp:139-178).  Files go through scipy's reader
-(``scipy.io.mmread``, its bundled ``fast_matrix_market`` C++ parser), the
-JAX package's primary reader too, straight into a
-:class:`~eigenex_tpu_torch.sparse.coo.COOMatrix` on the device.  The JAX
-package's second reader, the native single-pass parser of
-``native/src/builders.cpp``, is what ``expand_symmetry=False`` needs; the
-port has no native library yet, so that option raises.
+(triplets_matrix.hpp:139-178).  Files go through scipy's reader first
+(``scipy.io.mmread``, its bundled ``fast_matrix_market`` C++ parser, which
+the JAX package measured faster than its own), straight into a
+:class:`~eigenex_tpu_torch.sparse.coo.COOMatrix` on the device.  The
+native single-pass parser of the native builders
+(:mod:`eigenex_tpu_torch.native`) serves where scipy cannot, and always for
+``expand_symmetry=False``, which needs the raw stored triangle that
+``scipy.io.mmread`` does not expose.
 
 The file format is the standard's, so a file written by either package
 loads in the other.
@@ -19,11 +20,63 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.device import resolve_device
-from ..utils.exceptions import EigenexError, not_ported
+from ..utils.exceptions import EigenexError
 from .coo import COOMatrix, _coo_on
 
 __all__ = ["load_matrix_market", "save_matrix_market"]
+
+
+def _expand_symmetry(rows, cols, vals, symmetry: str):
+    """Mirror the stored lower triangle per the MM symmetry tag.
+
+    A loader's job is to refuse bad data: the MM spec forbids stored
+    diagonal entries in skew-symmetric files (they would have to equal
+    their own negation), so their presence is a malformed file, not
+    something to pass through unmirrored."""
+    if symmetry == "general":
+        return rows, cols, vals
+    off = rows != cols
+    if symmetry == "symmetric":
+        mirr = vals[off]
+    elif symmetry == "skew-symmetric":
+        if not np.all(off):
+            n_diag = int(np.sum(~off))
+            raise EigenexError(
+                f"malformed skew-symmetric MatrixMarket file: {n_diag} stored "
+                "diagonal entr" + ("y" if n_diag == 1 else "ies")
+                + " (the format forbids them; a_ii = -a_ii forces zero)"
+            )
+        mirr = -vals[off]
+    elif symmetry == "hermitian":
+        mirr = np.conj(vals[off])
+    else:  # the native layer validates the tag
+        raise EigenexError(f"unknown MatrixMarket symmetry {symmetry!r}")
+    rows2 = np.concatenate([rows, cols[off]])
+    cols2 = np.concatenate([cols, rows[off]])
+    vals2 = np.concatenate([vals, mirr])
+    return rows2, cols2, vals2
+
+
+def _native_read(path, allow_dense_fallback: bool = True):
+    """(rows, cols, vals, shape, symmetry) by the native parser; a dense
+    ``array`` file goes to scipy unless the raw stored triangle was asked
+    for, which such a file does not have."""
+    try:
+        return native.mm_read(path)
+    except RuntimeError as e:
+        if "not a coordinate" in str(e):
+            if allow_dense_fallback:
+                return _scipy_mm_read(path)
+            # scipy's dense reader would expand the symmetry and report
+            # "general": a silent breach of the caller's request, so refuse
+            raise EigenexError(
+                "expand_symmetry=False requires a coordinate-format "
+                f"MatrixMarket file; {path!r} uses the dense 'array' "
+                "format (no stored triangle to preserve)"
+            ) from e
+        raise EigenexError(str(e)) from e
 
 
 def load_matrix_market(path, *, dtype=None, expand_symmetry: bool = True,
@@ -33,17 +86,27 @@ def load_matrix_market(path, *, dtype=None, expand_symmetry: bool = True,
 
     Coordinate files in all four fields (real/integer/complex/pattern) and
     all four symmetries, and dense ``array`` files, are handled;
-    symmetric/skew/hermitian storage is expanded to full COO.  ``dtype``
-    overrides the natural dtype (f64, or c128 for complex fields).
-    ``expand_symmetry=False`` (keep the stored triangle) needs the native
-    parser, which is not ported, and raises.
+    symmetric/skew/hermitian storage is expanded to full COO
+    (``expand_symmetry=False`` keeps the stored triangle, e.g. to build a
+    half-storage :class:`~eigenex_tpu_torch.sparse.sym_bsr.SymBSRMatrix`
+    instead; it needs the native parser).  ``dtype`` overrides the natural
+    dtype (f64, or c128 for complex fields).
     """
     if not expand_symmetry:
-        raise not_ported(
-            "load_matrix_market(expand_symmetry=False): keeping the stored triangle "
-            "needs the native Matrix Market parser of the native builders"
-        )
-    rows, cols, vals, shape = _scipy_mm_read(path)
+        if not native.native_available():
+            raise EigenexError(
+                "expand_symmetry=False needs the native parser (raw stored "
+                "triangle); the native library is unavailable on this host"
+            )
+        rows, cols, vals, shape, symmetry = _native_read(path, allow_dense_fallback=False)
+    else:
+        try:
+            rows, cols, vals, shape, symmetry = _scipy_mm_read(path)
+        except (ImportError, EigenexError):
+            if not native.native_available():
+                raise
+            rows, cols, vals, shape, symmetry = _native_read(path)
+        rows, cols, vals = _expand_symmetry(rows, cols, vals, symmetry)
     if dtype is None:
         dtype = np.complex128 if np.iscomplexobj(vals) else np.float64
     return _coo_on(rows, cols, np.asarray(vals, dtype), (int(shape[0]), int(shape[1])),
@@ -51,8 +114,8 @@ def load_matrix_market(path, *, dtype=None, expand_symmetry: bool = True,
 
 
 def _scipy_mm_read(path):
-    """(rows, cols, vals, shape) of a coordinate or dense file, symmetry
-    expanded by scipy."""
+    """(rows, cols, vals, shape, "general") of a coordinate or dense file,
+    symmetry expanded by scipy (hence "general": nothing left to expand)."""
     import scipy.io
 
     try:
@@ -72,10 +135,10 @@ def _scipy_mm_read(path):
                 "diagonal entries (the format forbids them; a_ii = -a_ii "
                 "forces zero)"
             )
-        return c.row, c.col, np.asarray(c.data), c.shape
+        return c.row.astype(np.int64), c.col.astype(np.int64), np.asarray(c.data), c.shape, "general"
     dense = np.asarray(m)
     rows, cols = np.nonzero(dense)
-    return rows, cols, dense[rows, cols], dense.shape
+    return rows.astype(np.int64), cols.astype(np.int64), dense[rows, cols], dense.shape, "general"
 
 
 def _check_mirror_consistency(rows, cols, vals, shape, symmetry, tol):

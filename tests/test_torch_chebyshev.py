@@ -183,3 +183,50 @@ def test_validation_and_unported_routes():
                                  initial_block=torch.ones(N, 3)).compute()
     with pytest.raises(EigenexError, match="not ported yet"):
         ext.eigsh_window(A, (1.0, 2.0), mesh=object())
+
+
+def complex_chain(n=80, seed=12):
+    """A complex Hermitian hopping chain (random phases, next-nearest hops,
+    an on-site potential) with f32-exact values, as triplets, and its dense
+    matrix."""
+    rng = np.random.default_rng(seed)
+    r, c, v = [], [], []
+    for d, t in ((1, 1.0), (2, 0.35)):
+        i = np.arange(n - d)
+        h = t * np.exp(1j * rng.uniform(0, 2 * np.pi, n - d))
+        r += [i, i + d]
+        c += [i + d, i]
+        v += [h, np.conj(h)]
+    r.append(np.arange(n))
+    c.append(np.arange(n))
+    v.append(np.linspace(-1.0, 1.0, n) + 0j)
+    r, c, v = np.concatenate(r), np.concatenate(c), np.concatenate(v)
+    # f32-exact parts: the packers store f32 values even for an f64 pack
+    v = v.real.astype(np.float32).astype(np.float64) + 1j * v.imag.astype(np.float32)
+    dense = np.zeros((n, n), complex)
+    np.add.at(dense, (r, c), v)
+    return (r, c, v, (n, n)), dense
+
+
+def test_eigsh_window_on_complexified_operator_matches_reference():
+    """The real embedding holds every eigenvalue twice: the block is doubled,
+    the window's doubled pairs deduped, the kept vectors normalised -- in both
+    packages, to the same eigenvalues (1e-10) and counts."""
+    trip, dense = complex_chain()
+    w = np.linalg.eigvalsh(dense)
+    window = (w[30] - 0.01, w[34] + 0.01)
+    bounds = (w[0] - 0.5, w[-1] + 0.5)
+    jacc = ex.accelerate(trip, block=4, dtype=jnp.float64, symmetric=True)
+    tacc = ext.accelerate(trip, block=4, dtype=torch.float64, symmetric=True, device="cpu")
+    assert tacc.complexified and tacc.n_work == 160 and np.array_equal(tacc.perm, jacc.perm)
+    kw = dict(block_size=8, degree=80, tol=1e-12, spectral_bounds=bounds)
+    rj = ex.eigsh_window(jacc, window, **kw)
+    rt = ext.eigsh_window(tacc, window, **kw)
+    assert rt.converged and len(rt.eigenvalues) == len(rj.eigenvalues) == 5
+    np.testing.assert_allclose(np.sort(rt.eigenvalues), np.sort(np.asarray(rj.eigenvalues)),
+                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(np.sort(rt.eigenvalues), w[30:35], rtol=0, atol=1e-10)
+    Z = rt.eigenvectors
+    assert Z.shape == (80, 5) and np.iscomplexobj(Z)
+    np.testing.assert_allclose(np.linalg.norm(Z, axis=0), 1.0, rtol=0, atol=1e-12)
+    assert np.abs(dense @ Z - Z * rt.eigenvalues[None, :]).max() < 1e-8

@@ -13,6 +13,7 @@ import scipy.sparse as sp
 import torch
 
 import eigenex_tpu.native as j_native
+import eigenex_tpu_torch.native as t_native
 import eigenex_tpu_torch as ext
 from eigenex_tpu.solvers.api import eigsh as j_eigsh
 from eigenex_tpu.sparse.accelerate import accelerate as j_accelerate
@@ -104,6 +105,7 @@ def test_full_subspace_takes_plain_lanczos_like_the_reference():
 @pytest.mark.parametrize("route", ["flag", "operator"])
 def test_accelerated_eigsh_matches_reference(monkeypatch, route):
     monkeypatch.setattr(j_native, "native_available", lambda: False)
+    monkeypatch.setattr(t_native, "native_available", lambda: False)
     A = matrix(seed=6)
     relabel = np.random.default_rng(7).permutation(N)
     A = A[np.ix_(relabel, relabel)]  # scatter the band: RCM has to find it again

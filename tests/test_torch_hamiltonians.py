@@ -106,3 +106,47 @@ def test_config3_L14_against_reference_and_direct_route():
     e, e_direct, e_ref = (float(r.eigenvalues[0]) for r in (res, direct, jres))
     assert abs(e - e_direct) <= 1e-10, (e, e_direct)
     assert abs(e - e_ref) <= 1e-10, (e, e_ref)
+
+
+def test_config3_L14_native_accelerated_route_against_reference():
+    """The route of the config-3 benchmark at L = 14: the native sector
+    enumerator, lexsorted -> accelerate(symmetric=True) (native RCM, bf16
+    pack) -> eigsh in f32 -> f64 Rayleigh refinement, in both packages;
+    refined energies within 1e-10 of each other and of the sector's dense
+    ground state."""
+    from eigenex_tpu import native as j_native
+    from eigenex_tpu.solvers.api import eigsh as j_eigsh
+    from eigenex_tpu.solvers.refine import rayleigh_refine as j_refine
+    from eigenex_tpu.sparse.accelerate import accelerate as j_accelerate
+    from eigenex_tpu.sparse.coo import COOMatrix as JCOO
+    from eigenex_tpu_torch import accelerate, eigsh, native, rayleigh_refine
+    from eigenex_tpu_torch.convert import coo_from_numpy
+
+    L = 14
+    native.reset_native_calls()
+    r, c, v, dim = native.heisenberg_sector(L, L // 2, 1.0, 1.0, False)
+    order = np.lexsort((c, r))
+    r, c, v = r[order], c[order], v[order]
+    acc = accelerate((r, c, v, (dim, dim)), symmetric=True, device="cpu")
+    assert acc.stats["dtype"] == "bfloat16" and acc.matrix.upper_cols.shape[1] == acc.stats["ku"]
+    calls = native.native_calls()
+    assert all(calls.get(k) == 1 for k in ("heisenberg_sector", "build_csr", "rcm_permutation",
+                                           "blk_widths", "sym_bsr_pack_sorted_bf16")), calls
+    res = eigsh(acc, k=1, which="SA", tol=1e-8, max_subspace=160)
+    lam, resid = rayleigh_refine(coo_from_numpy(r, c, v, (dim, dim), device="cpu"), res.eigenvectors)
+
+    jr, jc, jv, _ = j_native.heisenberg_sector(L, L // 2, 1.0, 1.0, False)
+    jorder = np.lexsort((jc, jr))
+    jr, jc, jv = jr[jorder], jc[jorder], jv[jorder]
+    assert np.array_equal(jr, r) and np.array_equal(jv, v)
+    jacc = j_accelerate((jr, jc, jv, (dim, dim)), symmetric=True)
+    assert np.array_equal(acc.perm, jacc.perm)
+    jres = j_eigsh(jacc, k=1, which="SA", tol=1e-8, max_subspace=160)
+    jlam, _ = j_refine(JCOO(jr.astype(np.int32), jc.astype(np.int32), jv, (dim, dim)),
+                       np.asarray(jres.eigenvectors))
+    H = np.zeros((dim, dim))
+    H[r, c] = v
+    exact = float(np.linalg.eigvalsh(H)[0])
+    assert res.converged and lam.shape == (1,) and resid[0] <= 1e-4
+    assert abs(lam[0] - jlam[0]) <= 1e-10, (lam[0], jlam[0])
+    assert abs(lam[0] - exact) <= 1e-10, (lam[0], exact)

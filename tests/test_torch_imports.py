@@ -1,6 +1,8 @@
 """The port stands alone: no source of ``eigenex_tpu_torch`` nor
 ``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or the JAX package, and
-importing the port needs neither CUDA nor ``triton`` nor ``nvcc``.
+importing the port needs neither CUDA nor ``triton`` nor ``nvcc``, and
+compiles nothing (the native host builders are built at their first use,
+into the port's own build directory).
 """
 
 import ast
@@ -25,7 +27,8 @@ EXPECTED_MODULES = [
     "solvers/functions.py", "ops/tensor_util.py", "ops/tensor_svd.py", "ops/sparse_svd.py",
     "core/indices.py", "core/dtensor.py", "ops/einsum.py", "ops/kron.py", "ops/rotations.py",
     "sparse/csr.py", "sparse/io.py", "block/block_tensor.py", "block/operator.py",
-    "block/hamiltonians.py",
+    "block/hamiltonians.py", "native/__init__.py", "utils/checkpoint.py",
+    "utils/profiling.py", "utils/benchtime.py",
 ]
 
 
@@ -47,6 +50,7 @@ def test_the_slice_has_its_modules():
     assert {p.name for p in (PACKAGE / "csrc").iterdir()} >= {
         "bsr_spmv.cu", "sym_bsr_spmv.cu", "spmv_common.cuh",
         "bsr_spmm.cu", "sym_bsr_spmm.cu", "spmm_common.cuh", "tridiag_solve.cu"}
+    assert (PACKAGE / "native" / "src" / "builders.cpp").is_file()
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -107,6 +111,10 @@ def test_importing_the_port_is_light():
         "from eigenex_tpu_torch.ops import einsum, kron, rotations\n"
         "from eigenex_tpu_torch.sparse import csr, io\n"
         "from eigenex_tpu_torch.block import block_tensor, operator, hamiltonians\n"
+        "from eigenex_tpu_torch import native\n"
+        "from eigenex_tpu_torch.utils import benchtime, checkpoint, profiling\n"
+        "assert 'NATIVE' not in vars(native) and not native.native_calls()\n"
+        "assert native.BUILD_DIR == native.BUILD_DIR.parent.parent / 'eigenex_tpu_torch' / 'build'\n"
         "import torch\n"
         "bad = [m for m in ('jax', 'jaxlib', 'ml_dtypes', 'triton', 'eigenex_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"

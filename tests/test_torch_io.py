@@ -2,13 +2,15 @@
 package's: the same files load to the same triplets (exactly), files
 written by either package load in the other, the writer's mirror checks
 raise where the reference's do, and ``expand_symmetry=False`` (the
-native parser's route) raises "not ported yet"."""
+native parser's route) keeps the stored triangle as the reference does."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import eigenex_tpu.native as j_native
+import eigenex_tpu_torch.native as t_native
 from eigenex_tpu.sparse.coo import coo_from_dense as j_coo_from_dense
 from eigenex_tpu.sparse.io import load_matrix_market as j_load
 from eigenex_tpu.sparse.io import save_matrix_market as j_save
@@ -127,8 +129,22 @@ def test_loader_errors(tmp_path):
         load_matrix_market(skew, device="cpu")
     sym = tmp_path / "s.mtx"
     sym.write_text(FILES["symmetric"])
-    with pytest.raises(EigenexError, match="not ported yet"):
-        load_matrix_market(sym, expand_symmetry=False, device="cpu")
+    # the stored triangle needs the native parser: without it the loader
+    # says so, as the reference's does
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_native, "native_available", lambda: False)
+        mp.setattr(j_native, "native_available", lambda: False)
+        with pytest.raises(EigenexError, match="native parser") as got:
+            load_matrix_market(sym, expand_symmetry=False, device="cpu")
+        with pytest.raises(Exception) as want:
+            j_load(sym, expand_symmetry=False)
+        assert str(got.value) == str(want.value)
+    raw = load_matrix_market(sym, expand_symmetry=False, device="cpu")
+    assert raw.nnz == 4 and bool((raw.row >= raw.col).all())
+    dense = tmp_path / "d.mtx"
+    dense.write_text(FILES["array"])
+    with pytest.raises(EigenexError, match="coordinate-format"):
+        load_matrix_market(dense, expand_symmetry=False, device="cpu")
 
 
 def test_large_chunked_writer_round_trips(tmp_path):
@@ -156,3 +172,37 @@ def test_load_feeds_eigsh(tmp_path):
     save_matrix_market(p, coo_from_dense(D, device="cpu"), symmetry="symmetric")
     res = eigsh(load_matrix_market(p, device="cpu"), k=2, which="SA", tol=1e-12)
     np.testing.assert_allclose(np.asarray(res.eigenvalues), np.linalg.eigvalsh(D)[:2], atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["general", "symmetric", "hermitian", "pattern", "skew"])
+def test_stored_triangle_matches_reference(tmp_path, name):
+    """``expand_symmetry=False``: the native parser's raw triplets, in file
+    order, exactly as the reference returns them."""
+    p = tmp_path / f"{name}.mtx"
+    p.write_text(FILES[name])
+    got = load_matrix_market(p, expand_symmetry=False, device="cpu")
+    want = j_load(str(p), expand_symmetry=False)
+    assert got.shape == want.shape
+    for g, w in ((got.row, want.row), (got.col, want.col), (got.val, want.val)):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_sector_file_stored_triangle_expands_to_the_sector(tmp_path):
+    """What the card's ``mtx_raw`` phase checks, at L = 10: the S_z = 0
+    sector saved symmetric, read back raw, holds (nnz + diag) / 2 entries,
+    and mirroring its off-diagonal entries gives the sector bit for bit."""
+    from eigenex_tpu_torch import heisenberg_sector_coo
+
+    sector = heisenberg_sector_coo(10, 5, device="cpu")
+    p = tmp_path / "sector.mtx"
+    save_matrix_market(p, sector, symmetry="symmetric")
+    raw = load_matrix_market(p, expand_symmetry=False, device="cpu")
+    n_diag = int((sector.row == sector.col).sum())
+    assert raw.nnz == (sector.nnz + n_diag) // 2 and bool((raw.row >= raw.col).all())
+    r, c, v = raw.row.numpy(), raw.col.numpy(), raw.val.numpy()
+    off = r != c
+    full = (np.concatenate([r, c[off]]), np.concatenate([c, r[off]]), np.concatenate([v, v[off]]))
+    order = np.lexsort((full[1], full[0]))
+    for g, w in zip(full, (sector.row, sector.col, sector.val)):
+        assert np.array_equal(g[order], w.numpy())

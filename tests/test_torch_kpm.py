@@ -148,3 +148,27 @@ def test_validation_and_unported_routes():
                  lambda: ext.spectral_density(A, 8, mesh=object())):
         with pytest.raises(EigenexError, match="not ported yet"):
             call()
+
+
+def test_eigsh_range_on_complexified_operator_matches_reference():
+    """Raw KPM counts over the real embedding are twice the true ones: the
+    slices are sized on the halved total, the bisection runs on raw counts,
+    and each slice dedups its doubled pairs -- every eigenvalue in the
+    interval once, as the reference finds them (1e-10, counts equal)."""
+    from test_torch_chebyshev import complex_chain
+
+    trip, dense = complex_chain(n=80, seed=13)
+    w = np.linalg.eigvalsh(dense)
+    interval = (w[20] - 0.01, w[31] + 0.01)
+    bounds = (w[0] - 0.5, w[-1] + 0.5)
+    jacc = ex.accelerate(trip, block=4, dtype=jnp.float64, symmetric=True)
+    tacc = ext.accelerate(trip, block=4, dtype=torch.float64, symmetric=True, device="cpu")
+    assert tacc.complexified
+    kw = dict(block_size=12, slack=4, degree=80, tol=1e-12, spectral_bounds=bounds)
+    rt = ext.eigsh_range(tacc, interval, **kw)
+    rj = ex.eigsh_range(jacc, interval, **kw)
+    assert rt.converged and len(rt.eigenvalues) == len(rj.eigenvalues) == 12
+    np.testing.assert_allclose(rt.eigenvalues, np.asarray(rj.eigenvalues), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(rt.eigenvalues, w[20:32], rtol=0, atol=1e-10)
+    Z = rt.eigenvectors
+    assert Z.shape == (80, 12) and np.abs(dense @ Z - Z * rt.eigenvalues[None, :]).max() < 1e-8

@@ -3,7 +3,7 @@ same numpy-seeded operands: the plain front end (the cases of
 ``tests/test_api.py::TestSvds``), the rectangular ``accelerate()`` pack
 and its pipeline (the cases of ``tests/test_accelerate.py``'s
 ``TestRectangularAcceleration``), and ``AcceleratedOperator.save``/``load``
-across the two packages.  The reference runs its numpy/scipy pack (native
+across the two packages.  Both packages run their numpy/scipy pack (native
 packers off), so both run the same bipartite RCM and the same packer.
 
 Tolerances:
@@ -24,6 +24,7 @@ import scipy.sparse as sp
 import torch
 
 import eigenex_tpu.native as j_native
+import eigenex_tpu_torch.native as t_native
 from eigenex_tpu import coo_from_dense as j_coo_from_dense
 from eigenex_tpu.solvers.api import svds as j_svds
 from eigenex_tpu.sparse.accelerate import AcceleratedOperator as JAcceleratedOperator
@@ -42,8 +43,9 @@ torch.set_num_threads(1)
 
 @pytest.fixture
 def numpy_route(monkeypatch):
-    """The reference without its native packers: scipy RCM + numpy packer."""
+    """Both packages without their native packers: scipy RCM + numpy packer."""
     monkeypatch.setattr(j_native, "native_available", lambda: False)
+    monkeypatch.setattr(t_native, "native_available", lambda: False)
 
 
 def host(x):
