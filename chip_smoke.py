@@ -77,6 +77,29 @@ filter) through the SpMM kernels -- at full size:
                          (native RCM, native bf16 packer, 8.4 GiB) -> ``sym_bsr_spmv`` in its
                          far-reach regime -> f32 Lanczos -> f64 Rayleigh refinement, held to
                          the published E0; the SpMV time by ``utils.benchtime.chain_slope``.
+25. ``mesh_kernels``     the distributed layer on shards of the one card: every matvec mode
+                         (allgather, colsplit, halo, sym_halo) split at 4 shards, and the 2x2
+                         panel grid, of the f32 banded operator, its bf16 twin and the bf16 pack
+                         of phase 5: every shard-local product (matvec and matmat) against its
+                         plain version (the SpMM also against its split model), the mesh product
+                         against the one-device product, sym_halo re-runs bit-equal, launches
+                         per shard and matvec.
+26. ``mesh_modes``       ``eigsh(k=4, which="LA", mesh=...)`` on the banded operator over 4
+                         shards in each mode and over a 2x2 grid, against the single device:
+                         launches = matvecs x shards x parts.
+27. ``heisenberg_l24_mesh``  config 3 at L = 24 through the config-5b composition
+                         ``eigsh(acc, mesh=4 shards)``: the pack of phase 24 (not rebuilt) on the
+                         sym_halo ring, E0 after the same f64 Rayleigh step against phase 24's and
+                         the published one to 1e-10 (runs phase 24 first).
+28. ``mesh_general``     ``eigs(mesh=...)`` (Krylov-Schur) on the general pack of the nx = 128
+                         stencil in allgather and colsplit and on a 2x4 grid, held as phase 11
+                         holds its pairs; ``svds(mesh=...)`` on config 4's matrix.
+29. ``mesh_filters``     ``eigsh_window`` and ``eigsh_range`` with ``mesh=`` on the bf16 pack of
+                         phase 5 (one ``sym_bsr_spmm`` a shard a product), and
+                         ``DistributedLOBPCGSolver`` on the banded operator, each beside its
+                         single-device run.
+30. ``config5``          BASELINE configs 5a (halo shift-invert Lanczos, n = 512) and 5b (the
+                         accelerate x mesh composition, n = 1200) on 8 shards, f64.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -93,7 +116,9 @@ Phases 18-20 build their operator once, on the host, and move it to the card thr
 block shape on a small chain built on the card.  ``kernels`` adds ``bsr_spmv`` at the S_z = 0
 sector pack of phase 19, which the result line lists as a second ``bsr_spmv`` entry carrying
 that phase's launches; phase 24 adds ``sym_bsr_spmv`` at the L = 24 pack, a third
-``sym_bsr_spmv`` entry carrying that phase's launches.
+``sym_bsr_spmv`` entry carrying that phase's launches; phase 27's launches join that entry.
+The mesh phases' solves (26-30) are main paths driven like the others, their launches
+counted from 0 for each solve; the products of phase 25 are comparisons, as phase 3's are.
 
 The host stages run on the native builders (``eigenex_tpu_torch.native``, built with
 ``g++``).  Every phase whose host stages they serve -- 5, 11, 13, 16, 18, 19 and 24 --
@@ -129,6 +154,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -165,6 +191,21 @@ from eigenex_tpu_torch import (
     truncated_svd_via_lanczos,
 )
 from eigenex_tpu_torch.block.operator import block_operator
+from eigenex_tpu_torch.parallel import (
+    DistributedLOBPCGSolver,
+    Mesh,
+    distributed_lanczos_steps,
+    make_mesh,
+    mesh_operator,
+    mesh_operator_2d,
+    pad_bsr_for_mesh,
+    place_on_mesh,
+)
+from eigenex_tpu_torch.parallel.distributed import distributed_arnoldi_steps
+from eigenex_tpu_torch.parallel.shard_map import P, shard_map
+from eigenex_tpu_torch.solvers.arnoldi import arnoldi_steps, init_arnoldi_state
+from eigenex_tpu_torch.solvers.lanczos import init_lanczos_state, tridiagonal_eigh
+from eigenex_tpu_torch.solvers.lobpcg import LOBPCGOptions, LOBPCGSolver
 from eigenex_tpu_torch.convert import bsr_from_numpy, coo_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.solvers import direct
@@ -327,22 +368,52 @@ ALSO_REPLACES = {
 }
 #: the cases whose times stand for a kernel in the result line: the shapes and
 #: storages its main paths give it, one entry of the line each, found by the words
-#: of its case name.  bsr_spmv has two: the (3124, 5, 32, 128) f32 pack of phase
-#: eigs_accelerated, and the S_z = 0 sector pack of phase block_heisenberg_bsr, which
-#: carries that phase's launches ("phases").  sym_bsr_spmv has three: f32 blocks
-#: (eigsh_banded) and bf16 blocks (eigsh_accelerated), both reach 1, and the L = 24
-#: sector pack of phase heisenberg_l24 (bf16, far reach), which carries that phase's
-#: launches; sym_bsr_spmm two: the f32
-#: 12-column panel of LOBPCG, and the bf16 8-column block of the window filter, which
-#: carries most of its launches.
+#: of its case name.  An entry with "phases" carries those phases' launches, times
+#: its share of each (a phase whose every product launches a kernel once on each of
+#: two or three containers gives each container's entry 1/2 or 1/3: the phases
+#: check their launch counts exactly); the other entries of a kernel carry the
+#: rest, split by block storage where there are several.  bsr_spmv: the (3124, 5,
+#: 32, 128) f32 pack of phase eigs_accelerated (the 32x128 f32 packs of the general
+#: path, on one device and on a mesh), the S_z = 0 sector pack of phase
+#: block_heisenberg_bsr, and the shard-local containers of each mesh_modes run and of
+#: heisenberg_l24_mesh.  sym_bsr_spmv: f32 and bf16 blocks of reach 1
+#: (eigsh_banded, eigsh_accelerated), the L = 24 sector pack (heisenberg_l24) and the
+#: in-panel packs of the mesh phases.  bsr_spmm and sym_bsr_spmm: the f32 12-column
+#: panel of LOBPCG, the bf16 8-column block of the window filter (sym_bsr_spmm),
+#: and the mesh_filters phases' shard-local containers at those widths.
+#: Mesh cases are timed on shard TIMED_SHARD_1D (TIMED_SHARD on the grid).
+_HALF, _THIRD = Fraction(1, 2), Fraction(1, 3)
+_L24M = f"mesh: L={L24} sym_halo"
+_F32M = "mesh: f32 full"
+_BF16M = "mesh: bf16 pack sym_halo"
 MAIN_CASES = {
     "bsr_spmv": [dict(match=("config-2 pack", " f32")),
-                 dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr"})],
+                 dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr": 1}),
+                 dict(match=(f"{_F32M} allgather main ",), phases={"mesh_modes_allgather": 1}),
+                 dict(match=(f"{_F32M} colsplit main ",), phases={"mesh_modes_colsplit": 1}),
+                 *(dict(match=(f"{_F32M} halo {role} ",), phases={"mesh_modes_halo": _THIRD})
+                   for role in ("main", "left", "right")),
+                 *(dict(match=(f"{_F32M} sym_halo {role} ",), phases={"mesh_modes_sym_halo": _HALF})
+                   for role in ("right", "right_adj")),
+                 dict(match=(f"{_F32M} grid main ",), phases={"mesh_modes_grid": 1}),
+                 *(dict(match=(f"{_L24M} {role} ",), phases={"heisenberg_l24_mesh": _HALF})
+                   for role in ("right", "right_adj"))],
     "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16")),
-                     dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24"})],
-    "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} "))],
+                     dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1}),
+                     dict(match=(f"{_F32M} sym_halo main ",), phases={"mesh_modes_sym_halo": 1}),
+                     dict(match=(f"{_L24M} main ",), phases={"heisenberg_l24_mesh": 1})],
+    "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
+                 *(dict(match=(f"{_F32M} sym_halo {role} ", f"p={MAIN_WIDTH} "),
+                        phases={"mesh_filters_lobpcg": _HALF}) for role in ("right", "right_adj")),
+                 *(dict(match=(f"{_BF16M} {role} ", f"p={WINDOW_WIDTH} "),
+                        phases={"mesh_filters_window": _HALF, "mesh_filters_range": _HALF})
+                   for role in ("right", "right_adj"))],
     "sym_bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
-                     dict(match=("banded", " bf16", f"p={WINDOW_WIDTH} "))],
+                     dict(match=("banded", " bf16", f"p={WINDOW_WIDTH} ")),
+                     dict(match=(f"{_F32M} sym_halo main ", f"p={MAIN_WIDTH} "),
+                          phases={"mesh_filters_lobpcg": 1}),
+                     dict(match=(f"{_BF16M} main ", f"p={WINDOW_WIDTH} "),
+                          phases={"mesh_filters_window": 1, "mesh_filters_range": 1})],
 }
 
 
@@ -591,8 +662,9 @@ def time_ms(fn, count: int = TIMED_LAUNCHES, batch: int = 8, warm: int = 3) -> f
     """Time of one call: median over ``count`` samples, each the CUDA-event
     time of ``batch`` back-to-back calls divided by ``batch``, warm.  Queuing a
     batch keeps the device fed, so a sample is the device's time per call and
-    not the host's time to issue one.  The operators are far larger than the
-    L2 cache, so every call streams its blocks from device memory."""
+    not the host's time to issue one.  The operators but a mesh's boundary
+    pieces are far larger than the L2 cache, so every call streams its blocks
+    from device memory; a boundary piece of a few blocks stays in L2."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -747,8 +819,10 @@ def library_sym_ms(sym, x):
     return out
 
 
-def check_kernel(name: str, case: str, op, x, peaks) -> dict:
-    """One kernel on one operator: against its plain version, timed, bounded."""
+def check_kernel(name: str, case: str, op, x, peaks, plain_samples=(TIMED_LAUNCHES, 8)) -> dict:
+    """One kernel on one operator: against its plain version, timed, bounded
+    (``plain_samples``: samples and calls a sample of the plain version's
+    time, fewer on the largest operators)."""
     is_sym = name == "sym_bsr_spmv"
     wrapper = cuda_spmv.sym_bsr_spmv if is_sym else cuda_spmv.bsr_spmv
     plain = cuda_spmv.sym_bsr_spmv_plain if is_sym else cuda_spmv.bsr_spmv_plain
@@ -774,7 +848,7 @@ def check_kernel(name: str, case: str, op, x, peaks) -> dict:
         out["bit_equal_rerun"] = True
     out["kernel_ms"] = time_ms(lambda: wrapper(op, x))
     out["host_us_per_call"] = host_us_per_call(lambda: wrapper(op, x))
-    out["plain_ms"] = time_ms(lambda: plain(op, x))
+    out["plain_ms"] = time_ms(lambda: plain(op, x), count=plain_samples[0], batch=plain_samples[1])
     nbytes, flops = sym_work(op) if is_sym else bsr_work(op)
     out["ops_unit"] = OPS_UNIT[name, out["storage"]]
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
@@ -957,6 +1031,565 @@ def check_ritz_below(phase: str, ritz, eigenvalues, gap: float) -> None:
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the distributed layer: shards of one card
+# ---------------------------------------------------------------------------
+MESH_SHARDS = 4            # the 1-D mesh of the mesh phases: four shards of cuda:0
+MESH_GRID = (2, 2)         # ... and the 2-D mesh of the panel grid
+MESH_PANEL = 8             # panel width of the shard-local SpMM checks
+MESH_EIG_REL = 1e-5        # mesh_modes: eigenvalues against the single-device eigsh, relative
+L24_MESH_E0_LIMIT = 1e-10  # heisenberg_l24_mesh: E0 (same f64 Rayleigh step) against phase
+                           # heisenberg_l24's and against the published value
+MESH_FILTER_REL = 1e-4     # mesh_filters: window/range eigenvalues against the single device
+MESH_RANGE_MOMENTS = 320   # ... and the KPM moments of its eigsh_range
+LOBPCG_MESH_ITERS = 600    # ... and the cap of its LOBPCG pair, both run to tol 1e-5 (the CPU
+                           # at this size: 230 and 225 iterations)
+LOBPCG_MESH_REL = 1e-5     # ... their eigenvalues against each other, relative (CPU: 8.9e-7)
+CONFIG5_LIMIT = 1e-9       # config5: 5a against the closed form, 5b against eigvalsh (f64)
+CONFIG5_SHARDS = 8
+CONFIG5A_STEPS = 8         # outer shift-invert Lanczos steps of 5a; the CI test runs 32, and 8
+                           # already reach 2e-16 on the CPU: each step is a whole inner CG solve
+                           # (about 600 iterations, 4 collectives each, of 8 shard threads), and
+                           # 32 took 151 s on an H100
+
+
+def card_mesh(dev, shards: int = MESH_SHARDS) -> Mesh:
+    """A 1-D mesh of ``shards`` shards, all on the card ``dev``."""
+    return make_mesh(devices=[dev] * shards)
+
+
+def card_grid(dev, shape=MESH_GRID) -> Mesh:
+    return Mesh(np.array([dev] * (shape[0] * shape[1]), dtype=object).reshape(shape),
+                ("rows", "cols"))
+
+
+def shard_pieces(mesh_op):
+    """The per-shard containers behind a mesh operator (1-D or grid)."""
+    held = mesh_op._params
+    return (held.parts if hasattr(held, "parts") else held).pieces
+
+
+def time_shard_parts(tag: str, mode: str, shard: int, parts, peaks, kernel_cases: list,
+                     widths=(), spmv: bool = True, plain_samples=(TIMED_LAUNCHES, 8)) -> None:
+    """Every container of one shard, timed and bounded as the kernels of phase
+    kernels are (``check_kernel``, and ``check_spmm`` at each of ``widths``),
+    into ``kernel_cases`` under "mesh: <tag> <mode> <role> shard <s> ...": the
+    shapes and storages a mesh phase gives the kernels, which MAIN_CASES
+    matches to the phases it claims."""
+    for role, c in parts.roles().items():
+        sym = isinstance(c, SymBSRMatrix)
+        storage = "bf16" if c.dtype == torch.bfloat16 else "f32"
+        shape = "x".join(map(str, (c.diag_data if sym else c.data).shape))
+        case = f"mesh: {tag} {mode} {role} shard {shard} {shape} {storage}"
+        if spmv:
+            x = torch.randn(c.shape[1], device=c.device)
+            kernel_cases.append(check_kernel("sym_bsr_spmv" if sym else "bsr_spmv", case, c, x,
+                                             peaks, plain_samples))
+        for w in widths:
+            X = torch.randn((c.shape[1], w), device=c.device)
+            kernel_cases.append(check_spmm("sym_bsr_spmm" if sym else "bsr_spmm",
+                                           f"{case} p={w} ", c, X, peaks))
+
+
+def rel_to(y, ref) -> float:
+    """||y - ref|| / ||ref||, 0 when both are zero (an empty halo part)."""
+    d = float(torch.linalg.vector_norm((y - ref).double()))
+    r = float(torch.linalg.vector_norm(ref.double()))
+    return d / r if r > 0 else (0.0 if d == 0 else float("inf"))
+
+
+def col_rel_to(Y, ref) -> float:
+    d = torch.linalg.vector_norm((Y - ref).double(), dim=0)
+    r = torch.linalg.vector_norm(ref.double(), dim=0)
+    ok = r > 0
+    if not bool(ok.all()) and bool((d[~ok] != 0).any()):
+        return float("inf")
+    return float((d[ok] / r[ok]).max()) if bool(ok.any()) else 0.0
+
+
+#: the shard whose containers are timed: one with both neighbours on the 1-D mesh
+#: (its left and right parts hold blocks), a diagonal panel on the grid
+TIMED_SHARD = {"grid": 0}
+TIMED_SHARD_1D = 1
+
+
+def mesh_kernels_phase(bsr32, pack, dev, gen, peaks, kernel_cases) -> None:
+    """Every mode's split at 4 shards (and the 2x2 grid) of the f32 banded
+    operator, its bf16 twin and the bf16 accelerated pack: every shard-local
+    container's product (matvec and matmat) against its plain version, the
+    SpMM also against the split model; the mesh product against the
+    single-device one; sym_halo products re-run bit-equal; launches per
+    shard and matvec.  One shard's containers of the operands the main
+    path's mesh phases run (the f32 operator in every mode: mesh_modes, and
+    its sym_halo matmat at 12 columns: LOBPCG; the bf16 pack's sym_halo
+    matmat at 8: the window and range filters) are timed as the result
+    line's cases of those phases."""
+    mesh, grid = card_mesh(dev), card_grid(dev)
+    operands = [("f32 full", bsr32, ("allgather", "colsplit", "halo", "sym_halo", "grid")),
+                ("bf16 full", bsr32.astype(torch.bfloat16), ("allgather", "colsplit", "halo", "grid")),
+                ("bf16 pack", pack, ("sym_halo",))]
+    cases = []
+    for tag, op, modes in operands:
+        for mode in modes:
+            before = torch.cuda.memory_allocated()
+            t0 = time.time()
+            mop = (mesh_operator_2d(op, grid) if mode == "grid"
+                   else mesh_operator(op, mesh, matvec_mode=mode))
+            torch.cuda.synchronize()
+            split_s = time.time() - t0
+            placed = torch.cuda.memory_allocated() - before
+            worst_mv = worst_mm = worst_model = 0.0
+            kinds = []
+            for s, parts in enumerate(shard_pieces(mop)):
+                for c in parts.roles().values():
+                    kinds.append(type(c).__name__)
+                    xs = torch.randn(c.shape[1], generator=gen, device=dev)
+                    y, yp = c.matvec(xs), c._plain_matvec(xs)
+                    worst_mv = max(worst_mv, rel_to(y, yp))
+                    Xs = torch.randn((c.shape[1], MESH_PANEL), generator=gen, device=dev)
+                    Y, Yp = c.matmat(Xs), c._plain_matmat(Xs)
+                    worst_mm = max(worst_mm, col_rel_to(Y, Yp))
+                    worst_model = max(worst_model, col_rel_to(Y.double(),
+                                                              cuda_spmv.spmm_split_model(c, Xs)))
+                    if isinstance(c, SymBSRMatrix) or mode == "sym_halo":
+                        if not (torch.equal(y, c.matvec(xs)) and torch.equal(Y, c.matmat(Xs))):
+                            fail(f"mesh_kernels [{tag} {mode}] shard {s}: re-run not bit-equal")
+            if not worst_mv <= KERNEL_REL_TOL or not worst_mm <= KERNEL_REL_TOL:
+                fail(f"mesh_kernels [{tag} {mode}]: shard products differ from the plain versions "
+                     f"by {worst_mv:.3e} (SpMV) / {worst_mm:.3e} (SpMM, worst column)")
+            if not worst_model <= MODEL_REL_TOL:
+                fail(f"mesh_kernels [{tag} {mode}]: SpMM against the split model {worst_model:.3e}")
+            timed = {"f32 full": (MAIN_WIDTH,) if mode == "sym_halo" else (),
+                     "bf16 pack": (WINDOW_WIDTH,)}.get(tag)
+            if timed is not None:
+                shard = TIMED_SHARD.get(mode, TIMED_SHARD_1D)
+                time_shard_parts(tag, mode, shard, shard_pieces(mop)[shard], peaks, kernel_cases,
+                                 widths=timed, spmv=tag == "f32 full")
+            # the mesh product against the one-device product of the same container
+            n = op.shape[0]
+            x = torch.randn(n, generator=gen, device=dev)
+            X = torch.randn((n, MESH_PANEL), generator=gen, device=dev)
+            cuda_spmv.reset_launch_counts()
+            y = mop.matvec(x)
+            torch.cuda.synchronize()
+            per_matvec = cuda_spmv.launch_counts()
+            cuda_spmv.reset_launch_counts()
+            Y = mop.matmat(X)
+            torch.cuda.synchronize()
+            per_matmat = cuda_spmv.launch_counts()
+            rel_mv, rel_mm = rel_to(y, op.matvec(x)), col_rel_to(Y, op.matmat(X))
+            if not rel_mv <= KERNEL_REL_TOL or not rel_mm <= KERNEL_REL_TOL:
+                fail(f"mesh_kernels [{tag} {mode}]: mesh product against one device {rel_mv:.3e} / "
+                     f"{rel_mm:.3e}")
+            bit_equal = None
+            if mode == "sym_halo":
+                bit_equal = bool(torch.equal(y, mop.matvec(x)) and torch.equal(Y, mop.matmat(X)))
+                if not bit_equal:
+                    fail(f"mesh_kernels [{tag} {mode}]: two mesh products are not bit-equal")
+            shards = mesh.size if mode != "grid" else grid.size
+            cases.append(dict(
+                operand=tag, mode=mode, shards=shards, storage=str(op.dtype).replace("torch.", ""),
+                split_seconds=split_s, placed_bytes=placed, containers_per_shard=len(kinds) // shards,
+                container_kinds=sorted(set(kinds)), worst_spmv_rel_err=worst_mv,
+                worst_spmm_col_rel_err=worst_mm, worst_spmm_col_rel_err_model=worst_model,
+                mesh_vs_one_device_matvec=rel_mv, mesh_vs_one_device_matmat=rel_mm,
+                launches_per_matvec={k: v for k, v in per_matvec.items() if v},
+                launches_per_matmat={k: v for k, v in per_matmat.items() if v},
+                launches_per_shard_per_matvec={k: v / shards for k, v in per_matvec.items() if v},
+                bit_equal_rerun=bit_equal))
+            del mop
+            torch.cuda.empty_cache()
+    emit("mesh_kernels", devices=f"{MESH_SHARDS} shards of {dev} (grid {MESH_GRID})",
+         spmv_rel_tol=KERNEL_REL_TOL, spmm_col_rel_tol=KERNEL_REL_TOL, model_rel_tol=MODEL_REL_TOL,
+         cases=cases)
+
+
+def mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev) -> None:
+    """eigsh(k=4, which="LA") on the n = 262,144 banded operator over a
+    4-shard mesh of the card in each mode, and over a 2x2 mesh (the panel
+    grid): eigenvalues against the single-device eigsh, true residuals, and
+    launches = matvecs x shards x parts."""
+    if banded_eigenvalues is None:
+        res = eigsh(sym32, k=4, which="LA", tol=BANDED_TOL, max_restarts=400)
+        banded_eigenvalues = np.asarray(res.eigenvalues, np.float64)
+    mesh, grid = card_mesh(dev), card_grid(dev)
+    runs = []
+    # (mode, operand, mesh, launches a shard a matvec)
+    plan = (("allgather", bsr32, mesh, {"bsr_spmv": 1}), ("colsplit", bsr32, mesh, {"bsr_spmv": 1}),
+            ("halo", bsr32, mesh, {"bsr_spmv": 3}),
+            ("sym_halo", sym32, mesh, {"sym_bsr_spmv": 1, "bsr_spmv": 2}),
+            ("grid", bsr32, grid, {"bsr_spmv": 1}))
+    for mode, op, m, per in plan:
+        # the split and placement alone; the solve places its own, as a user's call
+        # does, and its seconds include that
+        t0 = time.time()
+        placed = mesh_operator_2d(op, m) if mode == "grid" else place_on_mesh(op, m, matvec_mode=mode)
+        torch.cuda.synchronize()
+        place_s = time.time() - t0
+        del placed
+        res, seconds, counts = drive(
+            f"mesh_modes_{mode}", op,
+            lambda: eigsh(op, k=4, which="LA", tol=BANDED_TOL, max_restarts=400, mesh=m,
+                          matvec_mode="allgather" if mode == "grid" else mode))
+        lam = np.asarray(res.eigenvalues, np.float64)
+        rr = residuals(sym32._plain_matvec, res.eigenvalues, res.eigenvectors)
+        rel = float(np.max(np.abs(lam - banded_eigenvalues) / np.abs(banded_eigenvalues)))
+        want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+        want.update({k: res.iterations * m.size * v for k, v in per.items()})
+        runs.append(dict(mode=mode, shards=m.size, storage=str(op.dtype).replace("torch.", ""),
+                         converged=res.converged, matvecs=res.iterations, eigenvalues=lam.tolist(),
+                         max_rel_err_vs_one_device=rel, rel_residuals=rr, launches=counts,
+                         launches_expected=want, seconds=seconds, place_seconds=place_s,
+                         ms_per_matvec=seconds * 1e3 / max(res.iterations, 1)))
+        if not res.converged:
+            fail(f"mesh_modes [{mode}]: not converged ({res.termination})")
+        if not rel <= MESH_EIG_REL:
+            fail(f"mesh_modes [{mode}]: eigenvalues {lam} against one device {banded_eigenvalues}")
+        if not max(rr) <= BANDED_RESID_LIMIT:
+            fail(f"mesh_modes [{mode}]: residual {max(rr):.3e} exceeds {BANDED_RESID_LIMIT}")
+        if counts != want:
+            fail(f"mesh_modes [{mode}]: launches {counts}, expected {want}")
+    emit("mesh_modes", n=sym32.shape[0], k=4, which="LA", tol=BANDED_TOL,
+         eig_rel_limit=MESH_EIG_REL, resid_limit=BANDED_RESID_LIMIT,
+         one_device_eigenvalues=banded_eigenvalues.tolist(), one_device_ms_per_matvec=banded_ms,
+         runs=runs, by_shard_count=mesh_host_costs(sym32, dev))
+
+
+def mesh_host_costs(sym, dev, steps: int = 64) -> dict:
+    """What a step costs by shard count on one card: wall ms of a distributed
+    Arnoldi step (sym_halo, ``steps`` steps from a fresh state, synchronised
+    at the end) beside the one-device step, and the wall µs of a psum of 4 KB
+    and of an empty shard_map call.  At this size a step is host-bound."""
+    op = sym.as_linear_operator()
+    out = {}
+    arnoldi_steps(op, init_arnoldi_state(op, steps, seed=0), 8)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    arnoldi_steps(op, init_arnoldi_state(op, steps, seed=0), steps)
+    torch.cuda.synchronize()
+    out["one_device_ms_per_step"] = (time.time() - t0) / steps * 1e3
+    for shards in (1, 2, 4, 8):
+        mesh = card_mesh(dev, shards)
+        placed = place_on_mesh(sym, mesh, matvec_mode="sym_halo")
+        distributed_arnoldi_steps(sym, init_arnoldi_state(op, steps, seed=0), 8, mesh,
+                                  matvec_mode="sym_halo", halo_parts=placed)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        distributed_arnoldi_steps(sym, init_arnoldi_state(op, steps, seed=0), steps, mesh,
+                                  matvec_mode="sym_halo", halo_parts=placed)
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) / steps * 1e3
+        x = torch.ones(shards * 1024, device=dev)
+
+        def psums(c, v, count=200):
+            for _ in range(count):
+                v = c.psum(v, "rows")
+            return v
+
+        run = shard_map(psums, mesh, (P("rows"),), P("rows"))
+        run(x)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run(x)
+        torch.cuda.synchronize()
+        psum_us = (time.time() - t0) / 200 * 1e6
+        empty = shard_map(lambda c, v: v, mesh, (P("rows"),), P("rows"))
+        empty(x)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(100):
+            empty(x)
+        torch.cuda.synchronize()
+        out[f"shards_{shards}"] = dict(ms_per_step=step_ms, psum_us=psum_us,
+                                       empty_shard_map_us=(time.time() - t0) / 100 * 1e6)
+        del placed
+    return out
+
+
+def heisenberg_l24_mesh_phase(acc24, triplets, e0_one, solve_one, drive, dev, peaks,
+                              kernel_cases) -> None:
+    """BASELINE config 3 at L = 24 through the config-5b composition: the
+    pack of phase heisenberg_l24 (not rebuilt) row-partitioned over four
+    shards of the card on the sym_halo ring, the same f64 Rayleigh step,
+    E0 held to phase heisenberg_l24's and to the published value.  Before
+    the solve, the split it runs: every shard's containers (the in-panel
+    half-stored pack, the boundary blocks and their adjoint) against their
+    plain versions and re-run bit-equal, and one shard's timed as the
+    result line's cases of this phase."""
+    r, c, v, dim = triplets
+    sym24 = acc24.matrix
+    mesh = card_mesh(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mop = mesh_operator(sym24, mesh, matvec_mode="sym_halo")
+    torch.cuda.synchronize()
+    split_s = time.time() - t0
+    split_bytes = torch.cuda.memory_allocated() - before
+    split_peak = torch.cuda.max_memory_allocated() - before
+    gen = torch.Generator(device=dev).manual_seed(SEED + L24)
+    pieces = []
+    for s, parts in enumerate(shard_pieces(mop)):
+        for role, piece in parts.roles().items():
+            xs = torch.randn(piece.shape[1], generator=gen, device=dev)
+            y = piece.matvec(xs)
+            err = rel_to(y, piece._plain_matvec(xs))
+            bit_equal = bool(torch.equal(y, piece.matvec(xs)))
+            pieces.append(dict(shard=s, role=role, kind=type(piece).__name__,
+                               shape=list(piece.shape), rel_err=err, bit_equal_rerun=bit_equal))
+            if not (err <= KERNEL_REL_TOL and bit_equal):
+                fail(f"heisenberg_l24_mesh: shard {s} {role} against its plain version {err:.3e} "
+                     f"(limit {KERNEL_REL_TOL}), re-run bit-equal {bit_equal}")
+    time_shard_parts(f"L={L24}", "sym_halo", TIMED_SHARD_1D, shard_pieces(mop)[TIMED_SHARD_1D],
+                     peaks, kernel_cases, plain_samples=(5, 4))
+    del mop, y, xs
+    torch.cuda.empty_cache()
+    # the solve places its own split, as a user's call does: its seconds include it
+    res, seconds, counts = drive("heisenberg_l24_mesh", sym24,
+                                 lambda: eigsh(acc24, mesh=mesh, **L24_SOLVE))
+    peak = torch.cuda.max_memory_allocated()
+    # the same call again, outside the counted run: the caching allocator now holds
+    # the blocks the first call's split took from the device
+    t0 = time.time()
+    eigsh(acc24, mesh=mesh, **L24_SOLVE)
+    torch.cuda.synchronize()
+    seconds_again = time.time() - t0
+    t0 = time.time()
+    lam, resid = rayleigh_refine(coo_from_numpy(r, c, v, (dim, dim), device="cpu"),
+                                 res.eigenvectors)
+    refine_s = time.time() - t0
+    e0, rel_resid = float(lam[0]), float(resid[0] / abs(lam[0]))
+    matvecs = res.iterations
+    want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    want.update(sym_bsr_spmv=matvecs * mesh.size, bsr_spmv=2 * matvecs * mesh.size)
+    emit("heisenberg_l24_mesh", L=L24, sector_dim=dim, shards=mesh.size, mode="sym_halo",
+         options=L24_SOLVE, converged=res.converged, termination=res.termination, matvecs=matvecs,
+         e0_f32=float(res.eigenvalues[0]), seconds=seconds,
+         ms_per_matvec=seconds * 1e3 / max(matvecs, 1), seconds_second_call=seconds_again,
+         one_device_seconds=solve_one["seconds"], one_device_ms_per_matvec=solve_one["ms_per_matvec"],
+         one_device_matvecs=solve_one["matvecs"], split_seconds=split_s,
+         split_gib=split_bytes / 2 ** 30, split_peak_gib=split_peak / 2 ** 30,
+         pack_gib=acc24.stats["bytes"] / 2 ** 30, peak_device_gib=peak / 2 ** 30,
+         shard_pieces=pieces, piece_rel_tol=KERNEL_REL_TOL,
+         launches=counts, sym_bsr_spmv_launches=counts["sym_bsr_spmv"],
+         boundary_bsr_spmv_launches=counts["bsr_spmv"], launches_expected=want,
+         refine_seconds=refine_s, e0_f64=e0, e0_one_device=e0_one, e0_published=L24_E0,
+         e0_diff_one_device=abs(e0 - e0_one), e0_abs_err=abs(e0 - L24_E0),
+         e0_limit=L24_MESH_E0_LIMIT, rel_residual_f64=rel_resid, resid_limit=L24_RESID_LIMIT)
+    if not res.converged:
+        fail(f"heisenberg_l24_mesh: not converged ({res.termination})")
+    if counts != want:
+        fail(f"heisenberg_l24_mesh: launches {counts}, expected {want}")
+    if not (abs(e0 - e0_one) <= L24_MESH_E0_LIMIT and abs(e0 - L24_E0) <= L24_MESH_E0_LIMIT):
+        fail(f"heisenberg_l24_mesh: E0 {e0!r} against one device {e0_one!r} and the published "
+             f"{L24_E0}: beyond {L24_MESH_E0_LIMIT}")
+    if not rel_resid <= L24_RESID_LIMIT:
+        fail(f"heisenberg_l24_mesh: residual {rel_resid:.3e} exceeds {L24_RESID_LIMIT}")
+
+
+def mesh_general_phase(drive, dev) -> None:
+    """eigs(mesh=) (Krylov-Schur) on the f32 general pack of the nx = 128
+    stencil in allgather and colsplit, and on a 2x4 mesh (the panel grid),
+    each held as the single-device eigs is held, beside it; svds(mesh=) on
+    config 4's matrix against numpy."""
+    r, c, v, n = convection_diffusion_coo(SIGMA_NX)
+    acc_s = accelerate(coo_on(r, c, v, n, dev))
+    A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    kw = dict(k=SIGMA_K, which="LM", tol=SIGMA_TOL, max_restarts=EIGS_MAX_RESTARTS)
+    one, seconds_one, _ = drive("mesh_general_one_device", acc_s.matrix, lambda: eigs(acc_s, **kw))
+    lam_one = np.asarray(one.eigenvalues, np.complex128)
+    top = convection_diffusion_top(SIGMA_NX, SIGMA_K)
+    re_max, im_max = convection_diffusion_range(SIGMA_NX)
+    runs = []
+
+    def held(tag, res, seconds, counts, restore):
+        # the top of this operator's spectrum is ill-posed in f32 (PERF.md, phase
+        # eigs_accelerated): two backward-stable solves part there by ~1e-3, so each
+        # run is held as the single-device phase is -- converged, backward error,
+        # inside the dominant strip -- and its distance from one device is reported
+        lam = np.asarray(res.eigenvalues, np.complex128)
+        X = np.asarray(restore(res.eigenvectors), np.complex128)
+        rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+        key = lambda z: np.sort_complex(z.real + 1j * np.abs(z.imag))
+        rel = float(np.max(np.abs(key(lam) - key(lam_one))) / np.abs(lam_one).max())
+        in_strip = bool(np.all(lam.real >= top[0] - EIGS_BELOW_TOP) and np.all(lam.real <= re_max)
+                        and np.all(np.abs(lam.imag) <= im_max))
+        runs.append(dict(run=tag, converged=res.converged, matvecs=res.iterations,
+                         eigenvalues_re=lam.real.tolist(), eigenvalues_im=lam.imag.tolist(),
+                         rel_diff_from_one_device=rel, rel_residuals_f64_host=rr,
+                         in_dominant_strip=in_strip, launches=counts, seconds=seconds,
+                         ms_per_matvec=seconds * 1e3 / max(res.iterations, 1)))
+        if not res.converged:
+            fail(f"mesh_general [{tag}]: not converged ({res.termination})")
+        if not max(rr) <= SIGMA_RESID_LIMIT or not in_strip:
+            fail(f"mesh_general [{tag}]: eigenvalues {lam} (one device {lam_one}), residuals {rr}, "
+                 f"in the dominant strip {in_strip}")
+
+    for mode in ("allgather", "colsplit"):
+        res, seconds, counts = drive(f"mesh_general_{mode}", acc_s.matrix,
+                                     lambda: eigs(acc_s, mesh=card_mesh(dev), matvec_mode=mode, **kw))
+        held(mode, res, seconds, counts, lambda V: V)
+        if counts["bsr_spmv"] != res.iterations * MESH_SHARDS:
+            fail(f"mesh_general [{mode}]: launches {counts} for {res.iterations} matvecs")
+    # the 2x4 mesh: the single-controller Krylov-Schur over the panel-grid operator
+    pack = acc_s.matrix
+    grid = card_grid(dev, (2, 4))
+    res, seconds, counts = drive("mesh_general_grid", pack, lambda: eigs(pack, mesh=grid, **kw))
+    held("grid 2x4", res, seconds, counts, lambda V: acc_s.restore(V))
+    # svds(mesh=) on config 4's operator (f64: the plain route, as on one device)
+    t4 = np.random.default_rng(SEED).standard_normal((6, 8, 7, 5)).reshape(48, 35)
+    rows, cols = np.nonzero(t4)
+    coo4 = COOMatrix(torch.as_tensor(rows.astype(np.int32)).to(dev),
+                     torch.as_tensor(cols.astype(np.int32)).to(dev),
+                     torch.as_tensor(t4[rows, cols]).to(dev), (48, 35))
+    U, s4, Vh = svds(coo4, k=3, tol=1e-14, mesh=card_mesh(dev))
+    s_np = np.linalg.svd(t4, compute_uv=False)[:3]
+    err4 = float(np.max(np.abs(s4 - s_np)))
+    emit("mesh_general", n=n, nx=SIGMA_NX, pack=list(pack.data.shape), storage="float32",
+         shards=MESH_SHARDS, grid=[2, 4], k=SIGMA_K, which="LM", tol=SIGMA_TOL,
+         one_device=dict(eigenvalues_re=lam_one.real.tolist(), eigenvalues_im=lam_one.imag.tolist(),
+                         matvecs=one.iterations, seconds=seconds_one),
+         resid_limit=SIGMA_RESID_LIMIT, below_top_limit=EIGS_BELOW_TOP, closed_form_top=top.tolist(),
+         runs=runs, svds_config4=dict(
+             singular_values=s4.tolist(), numpy=s_np.tolist(), max_abs_err=err4,
+             limit=CONFIG4_ERR_LIMIT, device=str(U.device)))
+    if not err4 <= CONFIG4_ERR_LIMIT:
+        fail(f"mesh_general: svds(mesh=) error {err4:.3e} exceeds {CONFIG4_ERR_LIMIT}")
+
+
+def mesh_filters_phase(acc, trip, sym32, window_ref, drive, dev) -> None:
+    """eigsh_window(mesh=) and eigsh_range(mesh=) on the bf16 accelerated
+    pack (sym_halo matmat: one sym_bsr_spmm a shard a product), held to the
+    single-device window; DistributedLOBPCGSolver on the banded operator,
+    held to LOBPCGSolver with the same start."""
+    mesh = card_mesh(dev)
+    A64 = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3]).tocsr()
+    if window_ref is None:
+        lam2 = eigsh(acc, k=2, which="LA", tol=ACCEL_TOL, seed=3, max_restarts=400).eigenvalues
+        l1, l2 = float(lam2[0]), float(lam2[1])
+        window = (l1 - 0.5 * (l2 - l1), l2 + 0.5 * (l2 - l1))
+        one = eigsh_window(acc, window, block_size=8, degree=WINDOW_DEGREE, tol=WINDOW_TOL,
+                           max_iterations=40, seed=4)
+        window_ref = (window, np.asarray(one.eigenvalues, np.float64), None, one.iterations)
+    window, lam_one, seconds_one, rounds_one = window_ref
+    res, seconds, counts = drive("mesh_filters_window", acc.matrix, lambda: eigsh_window(
+        acc, window, block_size=8, degree=WINDOW_DEGREE, tol=WINDOW_TOL, max_iterations=40,
+        seed=4, mesh=mesh))
+    lam_w = np.asarray(res.eigenvalues, np.float64)
+    Xw = np.asarray(res.eigenvectors, np.float64)
+    rr_w = (np.linalg.norm(A64 @ Xw - Xw * lam_w[None, :], axis=0) / np.abs(lam_w)).tolist()
+    rel_w = float(np.max(np.abs(np.sort(lam_w) - np.sort(lam_one)) / np.abs(lam_one)))
+    # KPM counts over this narrow top window need many moments: at 80 the count of its 3
+    # eigenvalues comes out at 68 (11 slices), at 320 at 5 (one slice) on the CPU
+    res_r, seconds_r, counts_r = drive("mesh_filters_range", acc.matrix, lambda: eigsh_range(
+        acc, window, block_size=8, slack=2, degree=WINDOW_DEGREE, tol=WINDOW_TOL,
+        max_iterations=40, n_moments=MESH_RANGE_MOMENTS, seed=4, mesh=mesh))
+    lam_r = np.asarray(res_r.eigenvalues, np.float64)
+    found = [bool(np.any(np.abs(lam_r - l) <= MESH_FILTER_REL * abs(l))) for l in lam_one]
+    # LOBPCG: the same solver and start on one device and on the mesh, each run to
+    # convergence: before it, two roundings of one iteration part where the Ritz
+    # values still move (6.3e-5 at 60 iterations on an H100, 1.2e-3 at 20 on the CPU)
+    opts = LOBPCGOptions(largest=True, tolerance=BANDED_TOL, max_iterations=LOBPCG_MESH_ITERS,
+                         seed=SEED + 2)
+    t0 = time.time()
+    one_l = LOBPCGSolver(sym32.as_linear_operator(), opts, block_size=4).compute()
+    torch.cuda.synchronize()
+    seconds_one_l = time.time() - t0
+    res_l, seconds_l, counts_l = drive("mesh_filters_lobpcg", sym32, lambda: DistributedLOBPCGSolver(
+        sym32, mesh, opts, block_size=4).compute())
+    rel_l = float(np.max(np.abs(np.asarray(res_l.eigenvalues) - np.asarray(one_l.eigenvalues))
+                         / np.abs(np.asarray(one_l.eigenvalues))))
+    rr_l = block_residuals(sym32._plain_matmat, res_l.eigenvalues, res_l.eigenvectors)
+    emit("mesh_filters", shards=MESH_SHARDS, window=window, degree=WINDOW_DEGREE, tol=WINDOW_TOL,
+         window_mesh=dict(eigenvalues=lam_w.tolist(), converged=res.converged, rounds=res.iterations,
+                          rel_residuals_f64_host=rr_w, launches=counts, seconds=seconds),
+         window_one_device=dict(eigenvalues=lam_one.tolist(), rounds=rounds_one, seconds=seconds_one),
+         window_rel_err=rel_w, range_mesh=dict(eigenvalues=lam_r.tolist(), converged=res_r.converged,
+                                               found_one_device=found, launches=counts_r,
+                                               seconds=seconds_r),
+         lobpcg=dict(eigenvalues_mesh=np.asarray(res_l.eigenvalues).tolist(),
+                     eigenvalues_one_device=np.asarray(one_l.eigenvalues).tolist(),
+                     converged=[res_l.converged, one_l.converged],
+                     iterations=[res_l.iterations, one_l.iterations],
+                     rel_diff_from_one_device=rel_l, rel_residuals=rr_l,
+                     resid_limit=BANDED_RESID_LIMIT, launches=counts_l,
+                     seconds=[seconds_l, seconds_one_l]), rel_limit=MESH_FILTER_REL,
+         lobpcg_rel_limit=LOBPCG_MESH_REL)
+    if not res.converged or not rel_w <= MESH_FILTER_REL or not max(rr_w) <= WINDOW_RESID_LIMIT:
+        fail(f"mesh_filters: window {lam_w} against one device {lam_one} ({rel_w:.3e}), "
+             f"residuals {rr_w}")
+    if not all(found) or not res_r.converged:
+        fail(f"mesh_filters: eigsh_range found {lam_r} (converged {res_r.converged}), "
+             f"one device {lam_one}")
+    if not (res_l.converged and one_l.converged):
+        fail(f"mesh_filters: LOBPCG not converged in {LOBPCG_MESH_ITERS} iterations "
+             f"(mesh {res_l.iterations}, one device {one_l.iterations})")
+    if not rel_l <= LOBPCG_MESH_REL or not max(rr_l) <= BANDED_RESID_LIMIT:
+        fail(f"mesh_filters: LOBPCG eigenvalues {res_l.eigenvalues} ({rel_l:.3e} from one device, "
+             f"limit {LOBPCG_MESH_REL}), residuals {rr_l}")
+    for tag, cnt in (("window", counts), ("range", counts_r)):
+        if cnt["sym_bsr_spmm"] <= 0 or cnt["sym_bsr_spmm"] % MESH_SHARDS:
+            fail(f"mesh_filters [{tag}]: launches {cnt}: one sym_bsr_spmm a shard a product")
+
+
+def config5_phase(drive, dev) -> None:
+    """BASELINE configs 5a and 5b at their CI sizes on an 8-shard mesh of
+    the card, in f64 (the plain route, as on one device): 5a the halo
+    shift-invert Lanczos of the n = 512 Laplacian against the closed form
+    (``CONFIG5A_STEPS`` outer steps), 5b eigsh over the RCM + half-storage
+    pack against eigvalsh."""
+    mesh = card_mesh(dev, CONFIG5_SHARDS)
+    n = 512
+    ar = np.arange(n)
+    rows = np.concatenate([ar, ar[:-1], ar[1:]])
+    cols = np.concatenate([ar, ar[1:], ar[:-1]])
+    vals = np.concatenate([2 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)])
+    bsr = pad_bsr_for_mesh(bsr_from_coo_arrays(rows, cols, vals, (n, n), (4, 4), device=dev),
+                           CONFIG5_SHARDS)
+    sigma = -1e-4
+    t0 = time.time()
+    state = init_lanczos_state(bsr.as_linear_operator(), CONFIG5A_STEPS, seed=0)
+    state = distributed_lanczos_steps(bsr, state, CONFIG5A_STEPS, mesh, matvec_mode="halo",
+                                      shift_invert_sigma=sigma, cg_tol=1e-13, cg_max_iters=3000)
+    k = int(state.k)
+    seconds_a = time.time() - t0
+    theta = tridiagonal_eigh(state.alpha[:k].cpu().numpy(), state.beta[:k].cpu().numpy(),
+                             eigvals_only=True)
+    err_a = abs(sigma + 1.0 / theta[-1] - (2 - 2 * np.cos(np.pi / (n + 1))))
+    # 5b: the packed operator row-partitioned in one call
+    rng = np.random.default_rng(53)
+    nb, bw = 1200, 64
+    r = np.repeat(np.arange(nb), 4)
+    c = r + rng.integers(1, bw, size=len(r))
+    keep = c < nb
+    r, c = r[keep], c[keep]
+    v = np.round(rng.standard_normal(len(r)) * 8) / 8
+    rr = np.concatenate([r, c, np.arange(nb)])
+    cc = np.concatenate([c, r, np.arange(nb)])
+    vv = np.concatenate([v, v, np.full(nb, 4.0)])
+    shuf = rng.permutation(nb)
+    trip = (shuf[rr], shuf[cc], vv, (nb, nb))
+    acc = accelerate(trip, block=8, dtype=np.float64)
+    res, seconds_b, counts = drive("config5b", acc.matrix,
+                                   lambda: eigsh(acc, k=3, which="SA", tol=1e-10, mesh=mesh))
+    dense = sp.coo_matrix((vv, (trip[0], trip[1])), shape=(nb, nb)).toarray()
+    ev = np.sort(np.linalg.eigvalsh(dense))
+    err_b = float(np.abs(np.asarray(res.eigenvalues) - ev[:3]).max())
+    emit("config5", shards=CONFIG5_SHARDS, device=str(dev), limit=CONFIG5_LIMIT,
+         config5a=dict(n=n, mode="halo", sigma=sigma, steps=k, cg_tol=1e-13, abs_err=err_a,
+                       seconds=seconds_a, reduced="8 outer steps of the CI test's 32"),
+         config5b=dict(n=nb, eigenvalues=np.asarray(res.eigenvalues).tolist(),
+                       eigvalsh=ev[:3].tolist(), abs_err=err_b, matvecs=res.iterations,
+                       seconds=seconds_b, launches=counts))
+    if not err_a <= CONFIG5_LIMIT:
+        fail(f"config5: 5a error {err_a:.3e} exceeds {CONFIG5_LIMIT}")
+    if not err_b <= CONFIG5_LIMIT * max(np.abs(ev).max(), 1.0):
+        fail(f"config5: 5b error {err_b:.3e} exceeds {CONFIG5_LIMIT}")
+    if any(counts.values()):
+        fail(f"config5: launches {counts}: f64 blocks take the plain route")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="", help="comma-separated subset of phases to run")
@@ -1160,6 +1793,7 @@ def main() -> None:
         del panels, cd_pack, x_cd
 
     main_launches = {name: 0 for name in cuda_spmv.KERNEL_SOURCES}
+    window_ref = None  # (window, eigenvalues, seconds, rounds) of phase window_accelerated
     per_phase: dict[str, dict] = {}
     phase_storage: dict[str, str] = {}
 
@@ -1186,6 +1820,7 @@ def main() -> None:
     # -- 4. eigsh_banded: the main path at full width --------------------------
     lam_max = None
     banded_eigenvalues = None
+    banded_ms = None  # ms per matvec of the single-device eigsh_banded
     if wanted("eigsh_banded"):
         res, seconds, counts = drive(
             "eigsh_banded", sym32,
@@ -1210,14 +1845,20 @@ def main() -> None:
         if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_banded: launches {counts} for {res.iterations} matvecs")
         banded_eigenvalues = np.asarray(res.eigenvalues, np.float64)
+        banded_ms = report["ms_per_matvec"]
         lam_max = float(res.eigenvalues[-1])
         if args.profile:
             emit("profile", solve="eigsh_banded", **profile_solve(
                 lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
                               max_restarts=400)))
 
+    # -- 26. mesh_modes: eigsh on the banded operator over a 4-shard mesh, each mode --
+    if wanted("mesh_modes"):
+        mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev)
+
     # -- 5. eigsh_accelerated --------------------------------------------------
-    if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated"):
+    if (wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated")
+            or wanted("mesh_kernels") or wanted("mesh_filters")):
         n_a = nbr * BLOCK
         rng = np.random.default_rng(SEED + 7)
         r_a = np.repeat(np.arange(n_a), 2)
@@ -1273,6 +1914,7 @@ def main() -> None:
 
             res, seconds, counts = drive("window_accelerated", acc.matrix, solve_window)
             lam_w = np.asarray(res.eigenvalues, np.float64)
+            window_ref = (window, lam_w, seconds, res.iterations)
             report = dict(n=n_a, storage="bfloat16", window=window, block_size=8,
                           degree=WINDOW_DEGREE, tol=WINDOW_TOL, converged=res.converged,
                           termination=res.termination, outer_iterations=res.iterations,
@@ -1345,7 +1987,16 @@ def main() -> None:
             fail(f"expm_accelerated: launches {counts} for {applied['matvec']} applications")
         del acc_e, v_exp, out, y_l, y_t
 
-    if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated"):
+    # -- 25. mesh_kernels: every shard-local product of every mode against its plain version --
+    if wanted("mesh_kernels"):
+        mesh_kernels_phase(bsr32, acc.matrix, dev, gen, peaks, kernel_cases)
+
+    # -- 29. mesh_filters: the block filters and LOBPCG over a 4-shard mesh -------------
+    if wanted("mesh_filters"):
+        mesh_filters_phase(acc, trip, sym32, window_ref, drive, dev)
+
+    if (wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated")
+            or wanted("mesh_kernels") or wanted("mesh_filters")):
         del acc
 
     # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
@@ -1818,6 +2469,14 @@ def main() -> None:
         if any(counts.values()):
             fail(f"svds_config4: launches {counts}: the dense Gram route launches no kernel")
 
+    # -- 28. mesh_general: eigs and svds over meshes ----------------------------------
+    if wanted("mesh_general"):
+        mesh_general_phase(drive, dev)
+
+    # -- 30. config5: BASELINE configs 5a and 5b on an 8-shard mesh of the card --------
+    if wanted("config5"):
+        config5_phase(drive, dev)
+
     # -- 18-20. the block layer: BASELINE config 3 and its kernel and dense routes -----
     def staged_block_hamiltonian(L: int, **kw):
         """``heisenberg_block_hamiltonian(L, **kw)`` built once on the host (BSR packs at
@@ -2181,7 +2840,7 @@ def main() -> None:
             fail(f"native_parity: the native route differs from the numpy route: {equal}")
 
     # -- 24. heisenberg_l24: BASELINE config 3 at L = 24 on the native route -------------------
-    if wanted("heisenberg_l24"):
+    if wanted("heisenberg_l24") or wanted("heisenberg_l24_mesh"):
         torch.cuda.reset_peak_memory_stats()
         native.reset_native_calls()
         host = {}
@@ -2223,7 +2882,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         case = check_kernel("sym_bsr_spmv", f"L={L24} S_z=0 sector pack {sym24.n_block_rows} block rows "
                             f"reach={sym24.band_reach} ku={st['ku']} bf16 (far-reach regime, main path)",
-                            sym24, x24, peaks)
+                            sym24, x24, peaks, plain_samples=(5, 4))
         kernel_cases.append(case)
         emit("heisenberg_l24", L=L24, sector_dim=dim, nnz=len(v), host_seconds=host,
              pack_seconds=st["pack_seconds"], pack_stages=st["pack_stages"], native_calls=calls,
@@ -2240,6 +2899,10 @@ def main() -> None:
              spmv_library_ms=case["library_ms"],
              peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              peak_host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
+        # -- 27. heisenberg_l24_mesh: the same pack over a 4-shard mesh of the card ----------
+        if wanted("heisenberg_l24_mesh"):
+            heisenberg_l24_mesh_phase(acc24, (r, c, v, dim), e0, solve, drive, dev, peaks,
+                                      kernel_cases)
         del acc24, sym24, x24, r, c, v
         torch.cuda.empty_cache()
         native_total("heisenberg_l24", calls)
@@ -2266,23 +2929,33 @@ def main() -> None:
         if main_launches[name] <= 0:
             fail(f"{name}: not launched on the main path")
         entries = MAIN_CASES[name]
-        claimed = set().union(*(e.get("phases", set()) for e in entries))
+        claimed = set().union(*(e.get("phases", {}) for e in entries))
         rest = [e for e in entries if "phases" not in e]
         for e in entries:
             # the case measured at a shape and storage the main path gives the kernel
             c = next(c for c in kernel_cases
                      if c["kernel"] == name and all(k in c["case"] for k in e["match"]))
-            # an entry with its own phases carries their launches; of the others, a
-            # kernel's only one carries all the rest, and one entry per storage carries
-            # the launches of the phases on that storage
+            # an entry with its own phases carries its share of their launches; of the
+            # others, a kernel's only one carries all the rest, and one entry per
+            # storage carries the launches of the phases on that storage
             if "phases" in e:
-                by_phase = {p: v[name] for p, v in per_phase.items() if p in e["phases"]}
+                by_phase = {}
+                for p, share in e["phases"].items():
+                    part = per_phase[p][name] * share
+                    if Fraction(part).denominator != 1:
+                        fail(f"{name}: {per_phase[p][name]} launches of phase {p} do not split "
+                             f"into shares of {share}")
+                    by_phase[p] = int(part)
             else:
                 by_phase = {p: v[name] for p, v in per_phase.items() if p not in claimed
                             and (len(rest) == 1 or phase_storage[p] == c["storage"])}
             launches = sum(by_phase.values())
             if launches <= 0:
                 fail(f"{name} [{c['case'].strip()}]: not launched on the main path")
+            mixed = sorted(p for p, k in by_phase.items() if k and phase_storage[p] != c["storage"])
+            if mixed:
+                fail(f"{name} [{c['case'].strip()}]: launches of phases {mixed} on another "
+                     f"block storage than the case's {c['storage']}")
             worst = [k for k in kernel_cases if k["kernel"] == name]
             entry = dict(
                 name=name, route="cuda", source=f"eigenex_tpu_torch/csrc/{src}",

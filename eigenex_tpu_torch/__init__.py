@@ -10,7 +10,9 @@ labeled tensors (``DTensor``), block-sparse symmetry-sector tensors
 (``BlockTensor``) with their operator bridge and spin-chain builders,
 CSR storage and Matrix Market IO; the native C++ host builders
 (sector enumeration, RCM, block packing, the Matrix Market parser); and
-solver-state checkpoints, profiling hooks and the timing protocol.
+solver-state checkpoints, profiling hooks and the timing protocol; and the
+distributed layer (device meshes, ``shard_map``, the row-partitioned SpMV
+modes and the distributed drivers, ``mesh=`` on every front end).
 The JAX package ``eigenex_tpu`` is the reference; a module here sits at
 the same subpath as its counterpart there.
 
@@ -105,6 +107,14 @@ from .utils.exceptions import (
     LanczosError,
     OperatorError,
 )
+from .parallel import (
+    DistributedLanczosEigenSolver,
+    DistributedThickRestartLanczosEigenSolver,
+    distributed_lanczos_steps,
+    initialize_multihost,
+    make_mesh,
+    pad_bsr_for_mesh,
+)
 from .utils.checkpoint import load_state, save_state, shard_state
 from .utils.prng import (
     random_hermitian,
@@ -119,6 +129,12 @@ from .utils.tolerance import default_tolerance
 from .utils.trace import ConvergenceTrace
 
 __all__ = [
+    "DistributedLanczosEigenSolver",
+    "DistributedThickRestartLanczosEigenSolver",
+    "distributed_lanczos_steps",
+    "initialize_multihost",
+    "make_mesh",
+    "pad_bsr_for_mesh",
     "AcceleratedOperator",
     "AddIndices",
     "ArnoldiEigenSolver",

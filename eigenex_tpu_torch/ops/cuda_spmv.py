@@ -48,11 +48,13 @@ move.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -113,6 +115,8 @@ SPMV_TILE_ROWS = 128
 _MAX_COLS = 32
 
 _launches = {name: 0 for name in KERNEL_SOURCES}
+#: the counts are bumped from the shard threads of a mesh, so under a lock
+_launch_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -122,13 +126,21 @@ def kernel_storage(dtype) -> bool:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each kernel's wrapper since the last reset."""
-    return dict(_launches)
+    """Launches of each kernel's wrapper since the last reset, from every
+    thread."""
+    with _launch_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _launch_lock:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        _launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -218,17 +230,36 @@ _ARGTYPES = {
 }
 
 
+_load_lock = threading.Lock()
+
+
 def _entry(name: str):
-    """The C entry point of a kernel, building and loading on first use."""
+    """The C entry point of a kernel, building and loading on first use
+    (once, whichever shard thread asks first)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_kernels([name])[name]))
-        symbol, argtypes = _ARGTYPES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_kernels([name])[name]))
+                symbol, argtypes = _ARGTYPES[name]
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
     return getattr(lib, _ARGTYPES[name][0])
+
+
+@contextlib.contextmanager
+def _on_device(device):
+    """The raw handle of ``device``'s current stream, with ``device`` made
+    current for the launch; the switch (and its cost on the host) only when
+    it is not current already, as in the shard threads of a mesh."""
+    if device.index == torch.cuda.current_device():
+        yield torch._C._cuda_getCurrentRawStream(device.index)
+    else:
+        with torch.cuda.device(device):
+            yield torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check_launch(name: str, code: int) -> None:
@@ -407,14 +438,13 @@ def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
     x = _kernel_vector(x, bsr.shape[1], bsr.device, "bsr_spmv")
     y = torch.empty(bsr.shape[0], dtype=torch.float32, device=bsr.device)
     entry = _entry("bsr_spmv")
-    with torch.cuda.device(bsr.device):
+    with _on_device(bsr.device) as stream:
         code = entry(
             bsr.data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-            nbr, kmax, bm, bn, _STORAGE[bsr.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            nbr, kmax, bm, bn, _STORAGE[bsr.dtype], stream,
         )
     _check_launch("bsr_spmv", code)
-    _launches["bsr_spmv"] += 1
+    _count_launch("bsr_spmv")
     return y
 
 
@@ -480,21 +510,14 @@ def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     if not sym.upper_data.is_cuda:
         return sym_bsr_spmv_plain(sym, x)
     device = sym.device
-    # the handle torch.cuda.current_stream(device).cuda_stream gives, without
-    # making a Stream object
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    head, tail, _ = sym.kernel_workspace(("sym_bsr_spmv", stream),
-                                         lambda: _sym_spmv_workspace(sym))
-    x = _kernel_vector(x, sym.shape[1], device, "sym_bsr_spmv")
-    y = torch.empty(sym.shape[0], dtype=torch.float32, device=device)
-    entry = _entry("sym_bsr_spmv")
-    if device.index == torch.cuda.current_device():
-        code = entry(*head, x.data_ptr(), y.data_ptr(), *tail, stream)
-    else:
-        with torch.cuda.device(device):
-            code = entry(*head, x.data_ptr(), y.data_ptr(), *tail, stream)
+    with _on_device(device) as stream:
+        head, tail, _ = sym.kernel_workspace(("sym_bsr_spmv", stream),
+                                             lambda: _sym_spmv_workspace(sym))
+        x = _kernel_vector(x, sym.shape[1], device, "sym_bsr_spmv")
+        y = torch.empty(sym.shape[0], dtype=torch.float32, device=device)
+        code = _entry("sym_bsr_spmv")(*head, x.data_ptr(), y.data_ptr(), *tail, stream)
     _check_launch("sym_bsr_spmv", code)
-    _launches["sym_bsr_spmv"] += 1
+    _count_launch("sym_bsr_spmv")
     return y
 
 
@@ -528,14 +551,13 @@ def bsr_spmm(bsr, X: torch.Tensor) -> torch.Tensor:
     p = X.shape[1]
     Y = torch.empty((bsr.shape[0], p), dtype=torch.float32, device=bsr.device)
     entry = _entry("bsr_spmm")
-    with torch.cuda.device(bsr.device):
+    with _on_device(bsr.device) as stream:
         code = entry(
             bsr.data.data_ptr(), bsr.block_cols.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            nbr, kmax, bm, bn, p, _STORAGE[bsr.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            nbr, kmax, bm, bn, p, _STORAGE[bsr.dtype], stream,
         )
     _check_launch("bsr_spmm", code)
-    _launches["bsr_spmm"] += 1
+    _count_launch("bsr_spmm")
     return Y
 
 
@@ -578,13 +600,12 @@ def sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
     Y = torch.empty((sym.shape[0], p), dtype=torch.float32, device=sym.device)
     tbuf = torch.empty((nbr * ku, b, min(p, _MAX_COLS)), dtype=torch.float32, device=sym.device)
     entry = _entry("sym_bsr_spmm")
-    with torch.cuda.device(sym.device):
+    with _on_device(sym.device) as stream:
         code = entry(
             sym.diag_data.data_ptr(), sym.upper_data.data_ptr(), sym.upper_cols.data_ptr(),
             col_ptr.data_ptr(), slot_ids.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            tbuf.data_ptr(), nbr, ku, b, p, _STORAGE[sym.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            tbuf.data_ptr(), nbr, ku, b, p, _STORAGE[sym.dtype], stream,
         )
     _check_launch("sym_bsr_spmm", code)
-    _launches["sym_bsr_spmm"] += 1
+    _count_launch("sym_bsr_spmm")
     return Y

@@ -16,8 +16,12 @@ and every solver's ``compute()`` runs under
 ``"highest"`` for the solve and gives the caller's setting back after it,
 as the JAX package pins ``precision="highest"`` on these products.  A
 caller who uses these primitives outside a solver gets its own setting.
-The mesh-axis hook
-of the JAX version (``axis_name``) comes with the distributed layer.
+
+Where the JAX version takes ``axis_name`` (the same code inside
+``shard_map`` with the basis row-sharded), these take ``comm``: an
+:class:`~eigenex_tpu_torch.parallel.shard_map.AxisComm` whose ``psum``
+completes the local partial inner products over the mesh axis.  With
+``comm=None`` they compute exactly what they compute on one device.
 """
 
 from __future__ import annotations
@@ -38,14 +42,20 @@ __all__ = [
 ]
 
 
-def norm_psum(v: torch.Tensor) -> torch.Tensor:
-    """2-norm of a vector, as a 0-d tensor of the real dtype."""
+def _psum_if(x: torch.Tensor, comm) -> torch.Tensor:
+    return comm.psum(x) if comm is not None else x
+
+
+def norm_psum(v: torch.Tensor, comm=None) -> torch.Tensor:
+    """2-norm of a (possibly row-sharded) vector, as a 0-d tensor of the
+    real dtype."""
     if v.is_complex():
-        return torch.sqrt(torch.sum(v.real**2 + v.imag**2))
-    return torch.sqrt(torch.sum(v**2))
+        return torch.sqrt(_psum_if(torch.sum(v.real**2 + v.imag**2), comm))
+    return torch.sqrt(_psum_if(torch.sum(v**2), comm))
 
 
-def project_coefficients(V: torch.Tensor, v: torch.Tensor, mask=None) -> torch.Tensor:
+def project_coefficients(V: torch.Tensor, v: torch.Tensor, mask=None, *,
+                         comm=None) -> torch.Tensor:
     """Inner products ``c_j = <V_j, v>`` for all basis rows at once.
 
     V: (k, n) basis rows; v: (n,).  One matrix-vector product instead of
@@ -53,19 +63,19 @@ def project_coefficients(V: torch.Tensor, v: torch.Tensor, mask=None) -> torch.T
     zeroes the coefficients of inactive basis rows -- by selection, not
     multiplication -- for fixed-shape solver loops where only rows <= k
     are valid."""
-    c = torch.mv(V.conj(), v)
+    c = _psum_if(torch.mv(V.conj(), v), comm)
     if mask is not None:
         c = torch.where(mask, c, torch.zeros_like(c))
     return c
 
 
-def project_out(V: torch.Tensor, v: torch.Tensor, mask=None) -> torch.Tensor:
+def project_out(V: torch.Tensor, v: torch.Tensor, mask=None, *, comm=None) -> torch.Tensor:
     """One classical-GS pass: ``v - sum_j <V_j, v> V_j``."""
-    c = project_coefficients(V, v, mask)
+    c = project_coefficients(V, v, mask, comm=comm)
     return v - c @ V
 
 
-def cgs2(V: torch.Tensor, v: torch.Tensor, mask=None):
+def cgs2(V: torch.Tensor, v: torch.Tensor, mask=None, *, comm=None):
     """Two classical-GS passes -- the stable blocked replacement for the
     reference's selective reorthogonalisation (lanczos.hpp:411-426) and
     Arnoldi's full MGS (arnoldi.hpp:380-383).
@@ -73,9 +83,9 @@ def cgs2(V: torch.Tensor, v: torch.Tensor, mask=None):
     Returns ``(v_orth, c)`` where ``c`` is the **total** projection
     coefficient vector (sum of both passes) -- Arnoldi consumes it as the
     Hessenberg column, Lanczos reads alpha from it."""
-    c1 = project_coefficients(V, v, mask)
+    c1 = project_coefficients(V, v, mask, comm=comm)
     v = v - c1 @ V
-    c2 = project_coefficients(V, v, mask)
+    c2 = project_coefficients(V, v, mask, comm=comm)
     v = v - c2 @ V
     return v, c1 + c2
 

@@ -25,8 +25,11 @@ the host in float64.
   the smaller-side Gram operator; on an accelerated (rectangular) operand
   both Gram matvecs run on packed general blocks.
 
-``mesh=`` (the distributed solvers) is not ported yet and raises
-``EigenexError("not ported yet: ...")``.
+``mesh=`` (a :class:`~eigenex_tpu_torch.parallel.mesh.Mesh`) routes each
+of them to the distributed layer (:mod:`eigenex_tpu_torch.parallel`): the
+operator's block rows split over the mesh, ``matvec_mode`` picks the
+exchange ("allgather", "colsplit", "halo", "sym_halo"), and a 2-axis mesh
+takes the panel grid.  Sparse operands only.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
-from ..utils.exceptions import EigenexError, not_ported
+from ..utils.exceptions import EigenexError
 from ..utils.precision import highest_f32_matmul
 from .gmres import shift_invert_operator_general
 from .krylov_schur import KrylovSchurArnoldiSolver, KrylovSchurOptions, _which_key
@@ -88,6 +91,57 @@ def _default_inner_tol(inner_tol, tol, dtype) -> float:
     return max(outer * 1e-2, 1e-14)
 
 
+def _mesh_container(op, block_shape):
+    """The block container the distributed drivers split: a BSRMatrix or
+    SymBSRMatrix operand as it is (on the solve's device), a COOMatrix
+    packed in square blocks -- (128, 128) where f32/bf16 blocks reach the
+    kernels on the card, (4, 4) elsewhere, as the JAX package packs off the
+    TPU -- so the padded operator stays square."""
+    from ..ops.cuda_spmv import kernel_storage
+    from ..sparse.bsr import BSRMatrix, bsr_from_coo_arrays
+    from ..sparse.coo import COOMatrix
+    from ..sparse.sym_bsr import SymBSRMatrix
+
+    held = op._params
+    if isinstance(held, (BSRMatrix, SymBSRMatrix)):
+        return held
+    if isinstance(held, COOMatrix):
+        if block_shape is None:
+            on_card = held.device.type == "cuda" and kernel_storage(held.dtype)
+            block_shape = (128, 128) if on_card else (4, 4)
+        return bsr_from_coo_arrays(
+            _host(held.row), _host(held.col), _host(held.val), held.shape, block_shape,
+            device=held.device,
+        )
+    raise EigenexError(
+        "mesh= requires a sparse operand (COOMatrix or BSRMatrix) so the "
+        "operator's rows can be partitioned over the device mesh"
+    )
+
+
+def _grid_operator(bsr_op, mesh):
+    """(padded container, panel-grid operator) of a 2-axis mesh."""
+    from ..parallel.distributed import mesh_operator_2d, pad_bsr_for_mesh
+
+    nrc = mesh.shape[mesh.axis_names[0]] * mesh.shape[mesh.axis_names[1]]
+    padded = pad_bsr_for_mesh(bsr_op, nrc)
+    return padded, mesh_operator_2d(padded, mesh)
+
+
+def _safe_start(solver, n: int, padded_n: int, dtype, seed: int, device):
+    """Give ``solver`` a padding-safe start when the mesh padded the operand."""
+    from ..parallel.distributed import _padding_safe_v0
+
+    if padded_n != n:
+        solver.set_initial_vector(_padding_safe_v0(n, padded_n, dtype, seed, device))
+
+
+def _truncate(res, n: int):
+    if res.eigenvectors is not None and res.eigenvectors.shape[0] != n:
+        res.eigenvectors = res.eigenvectors[:n]
+    return res
+
+
 @highest_f32_matmul()
 def eigsh(
     A,
@@ -104,9 +158,12 @@ def eigsh(
     seed: int = 0,
     inner_tol: float | None = None,
     mesh=None,
+    matvec_mode: str = "allgather",
+    block_shape: tuple[int, int] | None = None,
     refine: bool | int = False,
     v0=None,
     accelerate: bool = False,
+    use_pallas: bool | str = False,
     device=None,
 ) -> LanczosResult:
     """k extremal (or sigma-targeted) eigenpairs of a Hermitian operator.
@@ -145,14 +202,20 @@ def eigsh(
     real embedding) and solve in permuted space, restoring eigenvectors to
     original coordinates.  An ``AcceleratedOperator`` operand takes this
     route implicitly.
+    mesh: a :class:`~eigenex_tpu_torch.parallel.mesh.Mesh` routes the
+    iteration to the distributed thick-restart driver (shift-invert with
+    ``sigma``; a 2-axis mesh takes the panel-grid operator; an accelerated
+    operand rides the sym_halo ring).  Sparse operands only; no ``v0``.
+    matvec_mode: the mesh exchange (see :mod:`eigenex_tpu_torch.parallel`).
+    block_shape: blocks of a COOMatrix operand packed for the mesh.
+    use_pallas: accepted for the JAX package's signature; the card runs the
+    kernels whatever it says.
     device: where the solve runs.  None means: where the operand's
     tensors already live, and the card for host operands (numpy, scipy,
     triplets).  Pass ``device="cpu"`` to run on the CPU.
     """
     from ..sparse.accelerate import AcceleratedOperator
 
-    if mesh is not None:
-        raise not_ported("eigsh(mesh=) (the distributed solvers)")
     if which not in ("SA", "LA", "BE", "LM", "SM"):
         raise EigenexError(
             f"which must be one of 'SA', 'LA', 'BE', 'LM', 'SM', got {which!r}"
@@ -170,6 +233,12 @@ def eigsh(
 
         A = _accelerate_fn(A, symmetric=True, device=device)
     if isinstance(A, AcceleratedOperator):
+        if mesh is not None:
+            return _eigsh_accelerated_mesh(
+                A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
+                max_restarts=max_restarts, seed=seed, inner_tol=inner_tol, refine=refine,
+                v0=v0, coo=coo, mesh=mesh, matvec_mode=matvec_mode,
+            )
         return _eigsh_accelerated(
             A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
             max_restarts=max_restarts, max_iterations=max_iterations, seed=seed,
@@ -188,7 +257,7 @@ def eigsh(
     if lobpcg_route:
         if v0 is not None:
             raise EigenexError("v0= is not supported on the LOBPCG (M=/preconditioner=) route")
-        if sigma is not None:
+        if sigma is not None or mesh is not None:
             raise EigenexError(
                 "M=/preconditioner= (the LOBPCG route) cannot be combined "
                 "with sigma= or mesh="
@@ -210,6 +279,16 @@ def eigsh(
         res.eigenvalues = np.asarray(res.eigenvalues)[order]  # Lanczos routes
         if res.eigenvectors is not None:
             res.eigenvectors = res.eigenvectors[:, order.tolist()]
+        return _maybe_refine_hermitian(res, coo, refine)
+
+    if mesh is not None:
+        if v0 is not None:
+            raise EigenexError(
+                "v0= is not supported with mesh= (the drivers build padding-safe starts)")
+        res = _eigsh_mesh(op, k, which=which, sigma=sigma, tol=tol,
+                          max_subspace=max_subspace, max_restarts=max_restarts, seed=seed,
+                          inner_tol=inner_tol, mesh=mesh, matvec_mode=matvec_mode,
+                          block_shape=block_shape)
         return _maybe_refine_hermitian(res, coo, refine)
 
     if sigma is not None:
@@ -271,6 +350,77 @@ def eigsh(
     if lm_post:
         res = _postselect_lm(res, k)
     return _maybe_refine_hermitian(res, coo, refine)
+
+
+def _eigsh_mesh(op, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
+                mesh, matvec_mode, block_shape) -> LanczosResult:
+    """eigsh over a device mesh: the distributed thick-restart driver, the
+    distributed shift-invert driver (CG with a MINRES rescue) with
+    ``sigma``, and on a 2-axis mesh the single-controller solvers over the
+    panel-grid operator."""
+    from ..parallel.distributed import (
+        DistributedShiftInvertLanczosEigenSolver,
+        DistributedThickRestartLanczosEigenSolver,
+    )
+    from ..sparse.sym_bsr import SymBSRMatrix
+
+    n = op.shape[0]
+    bsr_op = _mesh_container(op, block_shape)
+    two_axis = len(mesh.axis_names) >= 2
+    if sigma is not None:
+        inner_tol = _default_inner_tol(inner_tol, tol, op.dtype)
+        m = min(max_subspace or max(4 * k + 16, 32), n)
+        kk = min(k, m // 2 - 1) if m // 2 - 1 > 0 else k
+        both_ends = tuple(range(kk)) + tuple(range(-kk, 0))
+        options = LanczosOptions(max_eigenvalues=2 * kk, eigenvalue_indices=both_ends,
+                                 tolerance=tol, max_subspace=m, seed=seed)
+        if two_axis:
+            # MINRES shift-invert over the R x C panel-grid operator under
+            # the single-controller Lanczos
+            from .cg import shift_invert_operator
+
+            padded, op2 = _grid_operator(bsr_op, mesh)
+            si2 = shift_invert_operator(op2, sigma, tol=inner_tol, solver="minres",
+                                        max_iters=min(4 * n, 10000))
+            solver = LanczosEigenSolver(si2, options)
+            _safe_start(solver, n, padded.shape[0], op2.dtype, seed, op2.device)
+            res = _truncate(solver.compute(), n)
+            theta = np.asarray(res.eigenvalues)
+            nz = np.abs(theta) > 0
+            lam_all = np.where(nz, float(np.real(sigma)) + 1.0 / np.where(nz, theta, 1.0),
+                               np.inf)
+            label = "eigsh sigma+mesh 2d (MINRES shift-invert)"
+        else:
+            res = DistributedShiftInvertLanczosEigenSolver(
+                bsr_op, mesh, options, axis_name=mesh.axis_names[0],
+                matvec_mode=matvec_mode, sigma=float(np.real(sigma)), cg_tol=inner_tol,
+            ).compute()
+            res = _truncate(res, n)
+            lam_all = np.asarray(res.eigenvalues)
+            label = "eigsh sigma+mesh (CG/MINRES shift-invert)"
+        res = _select_nearest_sigma(res, lam_all, sigma, k)
+        return _check_true_residuals(res, op, label, tol)
+    if isinstance(bsr_op, SymBSRMatrix):
+        if matvec_mode == "allgather":
+            matvec_mode = "sym_halo"  # half storage has exactly one mesh mode
+        elif matvec_mode != "sym_halo":
+            raise EigenexError("a SymBSRMatrix operand supports matvec_mode='sym_halo' only")
+    indices, n_track, lm_post = _which_indices(which, k)
+    m = min(max_subspace or max(6 * n_track + 32, 64), n)
+    options = ThickRestartOptions(max_eigenvalues=n_track, eigenvalue_indices=indices,
+                                  tolerance=tol, max_subspace=m, max_restarts=max_restarts,
+                                  seed=seed)
+    if two_axis:
+        padded, op2 = _grid_operator(bsr_op, mesh)
+        solver = ThickRestartLanczosEigenSolver(op2, options)
+        _safe_start(solver, n, padded.shape[0], op2.dtype, seed, op2.device)
+        res = solver.compute()
+    else:
+        res = DistributedThickRestartLanczosEigenSolver(
+            bsr_op, mesh, options, axis_name=mesh.axis_names[0], matvec_mode=matvec_mode,
+        ).compute()
+    res = _truncate(res, n)
+    return _postselect_lm(res, k) if lm_post else res
 
 
 def _which_indices(which: str, k: int):
@@ -372,6 +522,78 @@ def _eigsh_accelerated(
     return _restore_accelerated(res, acc, k, refine, coo)
 
 
+def _eigsh_accelerated_mesh(
+    acc, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
+    refine, v0, coo, mesh, matvec_mode,
+) -> LanczosResult:
+    """eigsh for an :class:`AcceleratedOperator` UNDER a device mesh -- the
+    composition of the RCM + half-storage pack (``accelerate=``) and the
+    row-partitioned iteration (``mesh=``), the route for operators past one
+    card's memory (BASELINE config 5b).  The packed SymBSRMatrix rides the
+    sym_halo ring; a multi-axis mesh is flattened.  The start vector is zero
+    on both padding kinds (accelerate's block pad and the mesh row pad), and
+    eigenvectors restore through the permutation as on one device."""
+    from ..parallel.distributed import (
+        DistributedShiftInvertLanczosEigenSolver,
+        DistributedThickRestartLanczosEigenSolver,
+        _padding_safe_v0,
+        prepare_packed_mesh,
+    )
+
+    mat = acc.matrix
+    mesh, matvec_mode = prepare_packed_mesh(mat, mesh, matvec_mode)
+    axis = mesh.axis_names[0]
+    if which == "SM" and sigma is None:
+        sigma = 0.0
+    mult = 2 if acc.complexified else 1
+    n_work = acc.n_work
+    dtype = acc.as_linear_operator().dtype
+
+    def start_vector(padded_n: int):
+        if v0 is not None:
+            v0e = acc.embed(v0)
+            if padded_n != v0e.shape[0]:
+                out = torch.zeros((padded_n,), dtype=v0e.dtype, device=v0e.device)
+                out[: v0e.shape[0]] = v0e
+                v0e = out
+            return v0e
+        return _padding_safe_v0(n_work, padded_n, dtype, seed, acc.device)
+
+    if sigma is not None:
+        inner_tol = _default_inner_tol(inner_tol, tol, dtype)
+        m = min(max_subspace or max(4 * mult * k + 16, 32), n_work)
+        kk = min(mult * k, m // 2 - 1) if m // 2 - 1 > 0 else mult * k
+        both_ends = tuple(range(kk)) + tuple(range(-kk, 0))
+        solver = DistributedShiftInvertLanczosEigenSolver(
+            mat, mesh,
+            LanczosOptions(max_eigenvalues=2 * kk, eigenvalue_indices=both_ends,
+                           tolerance=tol, max_subspace=m, seed=seed),
+            axis_name=axis, matvec_mode=matvec_mode, sigma=float(np.real(sigma)),
+            cg_tol=inner_tol,
+        )
+        solver.set_initial_vector(start_vector(solver.bsr.shape[0]))
+        res = _truncate(solver.compute(), acc.shape[0])
+        res = _select_nearest_sigma(res, np.asarray(res.eigenvalues), sigma, mult * k)
+        res = _check_true_residuals(res, acc.as_linear_operator(),
+                                    "eigsh accelerate+mesh sigma", tol)
+        return _restore_accelerated(res, acc, k, refine, coo)
+
+    indices, n_track, lm_post = _which_indices(which, mult * k)
+    m = min(max_subspace or max(6 * n_track + 32, 64), n_work)
+    solver = DistributedThickRestartLanczosEigenSolver(
+        mat, mesh,
+        ThickRestartOptions(max_eigenvalues=n_track, eigenvalue_indices=indices,
+                            tolerance=tol, max_subspace=m, max_restarts=max_restarts,
+                            seed=seed),
+        axis_name=axis, matvec_mode=matvec_mode,
+    )
+    solver.set_initial_vector(start_vector(solver.bsr.shape[0]))
+    res = _truncate(solver.compute(), acc.shape[0])
+    if lm_post:
+        res = _postselect_lm(res, mult * k)
+    return _restore_accelerated(res, acc, k, refine, coo)
+
+
 def _restore_accelerated(res: LanczosResult, acc, k, refine, coo) -> LanczosResult:
     """Shared tail of the accelerated eigsh routes: eigenvectors back
     through the permutation, as a host array in original coordinates; the
@@ -419,6 +641,8 @@ def eigs(
     seed: int = 0,
     inner_tol: float | None = None,
     mesh=None,
+    matvec_mode: str = "allgather",
+    block_shape: tuple[int, int] | None = None,
     refine: bool | int = False,
     v0=None,
     accelerate: bool = False,
@@ -446,6 +670,10 @@ def eigs(
     is reconstructed and deduped on restore, as in
     :func:`eigenex_tpu_torch.sparse.realify.eigs_realified`; ``sigma``
     must be real on that route (the embedding is real).
+    mesh: a :class:`~eigenex_tpu_torch.parallel.mesh.Mesh` routes the
+    iteration to the distributed Krylov-Schur driver (``sigma``: GMRES
+    shift-invert over the mesh operator; a 2-axis mesh takes the panel
+    grid); ``matvec_mode`` and ``block_shape`` as for :func:`eigsh`.
     device: as for :func:`eigsh`.
 
     Returns an :class:`~eigenex_tpu_torch.solvers.arnoldi.ArnoldiResult`:
@@ -454,19 +682,28 @@ def eigs(
     """
     from ..sparse.accelerate import AcceleratedOperator
 
-    if mesh is not None:
-        raise not_ported("eigs(mesh=) (the distributed Krylov-Schur solvers)")
     coo = _coo_operand(A)
     if accelerate and not isinstance(A, AcceleratedOperator):
         from ..sparse.accelerate import accelerate as _accelerate_fn
 
         A = _accelerate_fn(A, device=device)
     if isinstance(A, AcceleratedOperator):
-        route = _eigs_accelerated_complex if A.complexified else _eigs_accelerated
-        return route(
+        if A.complexified:
+            if mesh is not None:
+                raise EigenexError(
+                    "eigs: a complexified accelerated operand cannot combine "
+                    "with mesh= yet — run the real-embedding reconstruction "
+                    "single-device, or shard the packed container manually"
+                )
+            return _eigs_accelerated_complex(
+                A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
+                max_restarts=max_restarts, seed=seed, inner_tol=inner_tol, refine=refine,
+                v0=v0, coo=coo,
+            )
+        return _eigs_accelerated(
             A, k, which=which, sigma=sigma, tol=tol, max_subspace=max_subspace,
             max_restarts=max_restarts, seed=seed, inner_tol=inner_tol, refine=refine,
-            v0=v0, coo=coo,
+            v0=v0, coo=coo, mesh=mesh, matvec_mode=matvec_mode,
         )
 
     op = _resolve_operand(A, device)
@@ -482,6 +719,16 @@ def eigs(
         max_eigenvalues=k, tolerance=tol, max_subspace=m, max_restarts=max_restarts,
         seed=seed, which=which,
     )
+    if mesh is not None:
+        if v0 is not None:
+            raise EigenexError(
+                "v0= is not supported with mesh= (the drivers build "
+                "padding-safe starts)"
+            )
+        return _eigs_mesh(op, k, options, which=which, sigma=sigma, tol=tol,
+                          inner_tol=inner_tol, seed=seed, mesh=mesh,
+                          matvec_mode=matvec_mode, block_shape=block_shape, coo=coo,
+                          refine=refine)
     if sigma is not None:
         si = shift_invert_operator_general(
             op, sigma, tol=_default_inner_tol(inner_tol, tol, op.dtype))
@@ -500,6 +747,50 @@ def eigs(
         ks.set_initial_vector(v0)
     res = ks.compute()
     return _maybe_refine_general(res, coo, refine, which)
+
+
+def _eigs_mesh(op, k, options, *, which, sigma, tol, inner_tol, seed, mesh, matvec_mode,
+               block_shape, coo, refine):
+    """eigs over a device mesh: the distributed Krylov-Schur driver; with
+    ``sigma`` a GMRES shift-invert whose every inner matvec runs over the
+    mesh operator; on a 2-axis mesh the single-controller Krylov-Schur over
+    the panel-grid operator."""
+    from ..parallel.distributed import DistributedKrylovSchurArnoldiSolver, mesh_operator
+    from ..parallel.distributed import pad_bsr_for_mesh
+
+    n = op.shape[0]
+    bsr_op = _mesh_container(op, block_shape)
+    two_axis = len(mesh.axis_names) >= 2
+    if sigma is not None:
+        axis = mesh.axis_names[0]
+        if two_axis:
+            padded, mop = _grid_operator(bsr_op, mesh)
+        else:
+            padded = pad_bsr_for_mesh(bsr_op, mesh.shape[axis])
+            mop = mesh_operator(padded, mesh, axis_name=axis, matvec_mode=matvec_mode)
+        si = shift_invert_operator_general(
+            mop, sigma, tol=_default_inner_tol(inner_tol, tol, op.dtype))
+        solver = KrylovSchurArnoldiSolver(si, options)
+        # padding adds eigenvalue -1/sigma to the shift-inverted operator; a
+        # padding-supported start would chase that ghost
+        _safe_start(solver, n, padded.shape[0], mop.dtype, seed, mop.device)
+        res = solver.compute()
+        res.inner_stats = si.stats
+        res.eigenvalues = complex(sigma) + 1.0 / res.eigenvalues
+        if res.eigenvectors is not None:
+            res.eigenvectors = res.eigenvectors[:n]
+        res = _check_true_residuals(res, op, "eigs sigma+mesh (GMRES shift-invert)", tol)
+        return _maybe_refine_general(res, coo, refine, which, sigma)
+    if two_axis:
+        padded, op2 = _grid_operator(bsr_op, mesh)
+        solver = KrylovSchurArnoldiSolver(op2, options)
+        _safe_start(solver, n, padded.shape[0], op2.dtype, seed, op2.device)
+        res = solver.compute()
+    else:
+        res = DistributedKrylovSchurArnoldiSolver(
+            bsr_op, mesh, options, axis_name=mesh.axis_names[0], matvec_mode=matvec_mode,
+        ).compute()
+    return _maybe_refine_general(_truncate(res, n), coo, refine, which)
 
 
 def _maybe_refine_general(res, coo, refine, which: str | None = None, sigma=None):
@@ -531,11 +822,51 @@ def _maybe_refine_general(res, coo, refine, which: str | None = None, sigma=None
 
 def _eigs_accelerated(
     acc, k, *, which, sigma, tol, max_subspace, max_restarts, seed, inner_tol,
-    refine, v0, coo,
+    refine, v0, coo, mesh=None, matvec_mode="allgather",
 ):
     """eigs route for a (real) :class:`AcceleratedOperator`: solve over the
     permuted+padded block container with a padding-safe start, restore
-    eigenvectors to original coordinates (host array)."""
+    eigenvectors to original coordinates (host array).
+
+    ``mesh``: the packed GENERAL container rides the distributed
+    Krylov-Schur driver (allgather/halo/colsplit row partitions); a packed
+    SYMMETRIC container uses the sym_halo ring.  Multi-axis meshes flatten."""
+    if mesh is not None:
+        from ..parallel.distributed import (
+            DistributedKrylovSchurArnoldiSolver,
+            _padding_safe_v0,
+            prepare_packed_mesh,
+        )
+
+        if sigma is not None:
+            raise EigenexError(
+                "eigs: accelerate= with mesh= supports sigma=None for now "
+                "(shift-invert over the packed mesh container: use eigsh "
+                "for Hermitian operators, or the manual mesh_operator route)"
+            )
+        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+        m = min(max_subspace or max(4 * k + 24, 48), acc.n_work)
+        solver = DistributedKrylovSchurArnoldiSolver(
+            acc.matrix, mesh,
+            KrylovSchurOptions(max_eigenvalues=k, tolerance=tol, max_subspace=m,
+                               max_restarts=max_restarts, seed=seed, which=which),
+            axis_name=mesh.axis_names[0], matvec_mode=matvec_mode,
+        )
+        padded_n = solver.bsr.shape[0]
+        if v0 is not None:
+            v0e = acc.embed(v0)
+            if padded_n != v0e.shape[0]:
+                out = torch.zeros((padded_n,), dtype=v0e.dtype, device=v0e.device)
+                out[: v0e.shape[0]] = v0e
+                v0e = out
+        else:
+            v0e = _padding_safe_v0(acc.n_work, padded_n, acc.as_linear_operator().dtype,
+                                   seed, acc.device)
+        solver.set_initial_vector(v0e)
+        res = solver.compute()
+        if res.eigenvectors is not None:
+            res.eigenvectors = acc.restore(res.eigenvectors[: acc.shape[0]])
+        return _maybe_refine_general(res, coo, refine, which, sigma)
     res = eigs(
         acc.matrix, k, which=which, sigma=sigma, tol=tol,
         max_subspace=max_subspace, max_restarts=max_restarts, seed=seed,
@@ -661,6 +992,8 @@ def svds(
     seed: int = 0,
     return_singular_vectors: bool = True,
     mesh=None,
+    matvec_mode: str = "allgather",
+    block_shape: tuple[int, int] | None = None,
     accelerate: bool = False,
     device=None,
 ):
@@ -687,13 +1020,14 @@ def svds(
     :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`
     operand takes this route implicitly.  A complex square operand rides
     the real embedding, where every sigma appears twice.
-    device: as for :func:`eigsh`.  ``mesh=`` (and with it the reference's
-    ``matvec_mode`` and ``block_shape``, which only the mesh route reads) is
-    not ported yet."""
+    mesh: run both Gram matvecs (A, then A^H, each a row-partitioned mesh
+    operator) over a :class:`~eigenex_tpu_torch.parallel.mesh.Mesh` --
+    sparse operands only; rows and columns pad independently to the mesh,
+    and a multi-axis mesh is flattened (``matvec_mode``, ``block_shape`` as
+    for :func:`eigsh`).
+    device: as for :func:`eigsh`."""
     from ..sparse.accelerate import AcceleratedOperator
 
-    if mesh is not None:
-        raise not_ported("svds(mesh=) (the distributed Gram pipeline)")
     if accelerate and not isinstance(A, AcceleratedOperator):
         from ..sparse.accelerate import accelerate as _accelerate_fn
 
@@ -702,9 +1036,15 @@ def svds(
         return _svds_accelerated(
             A, k, tol=tol, max_subspace=max_subspace, max_restarts=max_restarts,
             seed=seed, return_singular_vectors=return_singular_vectors,
+            mesh=mesh, matvec_mode=matvec_mode,
         )
 
     op = _resolve_operand(A, device)
+    if mesh is not None:
+        return _svds_mesh(op, k, tol=tol, max_subspace=max_subspace,
+                          max_restarts=max_restarts, seed=seed,
+                          return_singular_vectors=return_singular_vectors, mesh=mesh,
+                          matvec_mode=matvec_mode, block_shape=block_shape)
     if not op.has_adjoint:
         raise EigenexError(
             "svds requires an operator with an adjoint (rmatvec); dense "
@@ -735,13 +1075,59 @@ def svds(
     return U, s, V.conj().T
 
 
+def _svds_mesh(op, k, *, tol, max_subspace, max_restarts, seed, return_singular_vectors,
+               mesh, matvec_mode, block_shape):
+    """svds with both Gram matvecs over a device mesh: A and A^H padded
+    independently on both sides (``pad_bsr_rect``), each a row-partitioned
+    mesh operator; a multi-axis mesh is flattened (the Gram pipeline is two
+    RECTANGULAR 1-D row-partitioned products)."""
+    from ..parallel.distributed import mesh_operator, pad_bsr_rect
+
+    bsr_op = _mesh_container(op, block_shape)
+    if len(mesh.axis_names) >= 2:
+        mesh = mesh.flattened()
+    axis = mesh.axis_names[0]
+    padded = pad_bsr_rect(bsr_op, mesh.shape[axis])
+    padH = padded.adjoint()
+    opA = mesh_operator(padded, mesh, axis_name=axis, matvec_mode=matvec_mode)
+    opH = mesh_operator(padH, mesh, axis_name=axis, matvec_mode=matvec_mode)
+    nrows, ncols = op.shape  # the ORIGINAL (unpadded) problem
+    small = min(nrows, ncols)
+    if k > small:
+        raise EigenexError(f"k={k} exceeds min(shape)={small}")
+    use_right = ncols <= nrows
+    dim = ncols if use_right else nrows
+    dim_pad = padded.shape[1] if use_right else padded.shape[0]
+    g = LinearOperator(_pair_gram_right_mv if use_right else _pair_gram_left_mv, (opA, opH),
+                       (dim_pad, dim_pad), opA.dtype, opA.device)
+    solver = _gram_solver(g, k, dim, dim_pad, tol=tol, max_subspace=max_subspace,
+                          max_restarts=max_restarts, seed=seed,
+                          vectors=return_singular_vectors)
+    _safe_start(solver, dim, dim_pad, g.dtype, seed, g.device)
+    s, W = _descending(solver.compute())
+    if not return_singular_vectors:
+        return s
+    safe = _safe(s, W)
+    if use_right:
+        V = W
+        U = opA.matmat(V) / safe[None, :]
+    else:
+        U = W
+        V = opH.matmat(U) / safe.conj()[None, :]
+    return U[:nrows], s, V[:ncols].conj().T
+
+
 def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
-                      return_singular_vectors):
+                      return_singular_vectors, mesh=None, matvec_mode="allgather"):
     """svds on an :class:`AcceleratedOperator`: Hermitian Lanczos on the
     smaller-side Gram operator of the PACKED container (two block matvecs an
     application, A and its adjoint pack), a padding-safe start, and a
     two-sided restore: left singular vectors through the row permutation,
-    right ones through the column permutation."""
+    right ones through the column permutation.
+
+    ``mesh``: both Gram matvecs (A and A^H, each its own pack) run
+    row-partitioned over the mesh, padded to a common lcm(bm, bn) * shards
+    grid so that the two chain exactly."""
     from ..sparse.accelerate import _padding_safe_v0, dedup_embedded_pairs
     from ..sparse.sym_bsr import SymBSRMatrix
 
@@ -750,8 +1136,18 @@ def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
             "svds on a complexified HERMITIAN operator is redundant -- its "
             "singular values are |eigenvalues|; use eigsh"
         )
+    if acc.complexified and mesh is not None:
+        raise EigenexError(
+            "svds: a complexified accelerated operand cannot combine with "
+            "mesh= (the doubled-spectrum reconstruction is host-side)"
+        )
     mult = 2 if acc.complexified else 1  # sigma(A) appears twice in the embedding
     mat = acc.matrix
+    if mesh is not None:
+        return _svds_accelerated_mesh(acc, k, tol=tol, max_subspace=max_subspace,
+                                      max_restarts=max_restarts, seed=seed,
+                                      return_singular_vectors=return_singular_vectors,
+                                      mesh=mesh, matvec_mode=matvec_mode)
     opA = mat.as_linear_operator()
     # A^H packed at the same block shape, so both matvecs reach the kernel
     opH = opA if isinstance(mat, SymBSRMatrix) else acc.adjoint_matrix().as_linear_operator()
@@ -796,6 +1192,71 @@ def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
     else:
         U = acc.restore(W)
         V = acc.restore_right(opH.matmat(W) / safe[None, :])
+    return U, s, np.conj(V).T
+
+
+def _svds_accelerated_mesh(acc, k, *, tol, max_subspace, max_restarts, seed,
+                           return_singular_vectors, mesh, matvec_mode):
+    """The mesh form of :func:`_svds_accelerated` (a real general pack)."""
+    from ..parallel.distributed import _padding_safe_v0, mesh_operator, prepare_packed_mesh
+    from ..sparse.bsr import BSRMatrix
+    from ..sparse.sym_bsr import SymBSRMatrix
+
+    mat = acc.matrix
+    if isinstance(mat, SymBSRMatrix):
+        raise EigenexError(
+            "svds(mesh=) on a SYMMETRIC accelerated operand is "
+            "redundant — use eigsh(acc, mesh=...); the mesh Gram "
+            "pipeline consumes general packs"
+        )
+    mesh, matvec_mode = prepare_packed_mesh(mat, mesh, matvec_mode)
+    axis = mesh.axis_names[0]
+    nd = mesh.shape[axis]
+    # A and A^H must chain exactly under the mesh: pad BOTH sides to the
+    # common lcm(bm, bn) * nd grid (A's rows and A^H's cols are the same
+    # dimension tiled by different block dims)
+    bm, bn = mat.block_shape
+    unit = int(np.lcm(bm, bn)) * nd
+
+    def pad_to(b, M2, N2):
+        add = (M2 - b.shape[0]) // b.block_shape[0]
+        data, cols = b.data, b.block_cols
+        if add:
+            data = torch.cat([data, data.new_zeros((add,) + tuple(data.shape[1:]))])
+            cols = torch.cat([cols, cols.new_zeros((add, cols.shape[1]))])
+        return BSRMatrix(data, cols, (M2, N2))
+
+    M2 = -(-mat.shape[0] // unit) * unit
+    N2 = -(-mat.shape[1] // unit) * unit
+    opA = mesh_operator(pad_to(mat, M2, N2), mesh, axis_name=axis, matvec_mode=matvec_mode)
+    opH = mesh_operator(pad_to(acc.adjoint_matrix(), N2, M2), mesh, axis_name=axis,
+                        matvec_mode=matvec_mode)
+    nrows, ncols = acc.orig_shape
+    small = min(nrows, ncols)
+    if k > small:
+        raise EigenexError(f"k={k} exceeds min(shape)={small}")
+    use_right = ncols <= nrows
+    dim_work = acc.n_work if use_right else acc.m_work
+    dim_pad = N2 if use_right else M2
+    g = LinearOperator(_pair_gram_right_mv if use_right else _pair_gram_left_mv, (opA, opH),
+                       (dim_pad, dim_pad), opA.dtype, opA.device)
+    m = min(max_subspace or max(4 * k + 16, 32), dim_work)
+    solver = ThickRestartLanczosEigenSolver(g, ThickRestartOptions(
+        max_eigenvalues=k, eigenvalue_indices=tuple(range(-k, 0)), tolerance=tol,
+        max_subspace=m, max_restarts=max_restarts, seed=seed,
+        compute_eigenvectors=return_singular_vectors))
+    if dim_pad != dim_work:
+        solver.set_initial_vector(_padding_safe_v0(dim_work, dim_pad, g.dtype, seed, g.device))
+    s, W = _descending(solver.compute())
+    if not return_singular_vectors:
+        return s
+    safe = _safe(s, W)
+    if use_right:
+        V = acc.restore_right(W[: mat.shape[1]])
+        U = acc.restore((opA.matmat(W) / safe[None, :])[: mat.shape[0]])
+    else:
+        U = acc.restore(W[: mat.shape[0]])
+        V = acc.restore_right((opH.matmat(W) / safe[None, :])[: mat.shape[1]])
     return U, s, np.conj(V).T
 
 

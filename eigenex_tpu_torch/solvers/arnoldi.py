@@ -143,6 +143,7 @@ def _arnoldi_chunk(
     *,
     k_start: int,
     num_steps: int,
+    comm=None,
 ) -> ArnoldiState:
     """The hot loop of updateArnoldiSteps (arnoldi.hpp:312-396): matvec +
     shift (:369-372), deflation (:373-375), full GS Hessenberg column
@@ -150,7 +151,8 @@ def _arnoldi_chunk(
 
     ``k_start`` and the bound on ``num_steps`` come from the caller, as
     in the Lanczos chunk: step ``j`` works on row ``k_start + j`` for as
-    long as neither device flag is set, and is a no-op afterwards."""
+    long as neither device flag is set, and is a no-op afterwards.
+    ``comm``: as for the Lanczos chunk (the JAX body's ``axis_name``)."""
     V, H = state.V, state.H
     k, breakdown, failed, residue_prev = state.k, state.breakdown, state.failed, state.residue
     m = H.shape[1]
@@ -170,15 +172,15 @@ def _arnoldi_chunk(
         if has_shift:
             w = w + shift * vk
         if deflate is not None:
-            w = project_out(deflate, w)
-        w, h_col = cgs2(V, w, mask=row_ids <= kh)
+            w = project_out(deflate, w, comm=comm)
+        w, h_col = cgs2(V, w, mask=row_ids <= kh, comm=comm)
         if deflate is not None:
             # re-deflate after the O(1)-coefficient projection: it
             # reintroduces a deflate component proportional to the basis'
             # accumulated deflate drift, which otherwise grows
             # geometrically (cf. arnoldi.hpp:373-375)
-            w = project_out(deflate, w)
-        residue = norm_psum(w).to(rdt)
+            w = project_out(deflate, w, comm=comm)
+        residue = norm_psum(w, comm).to(rdt)
         # NaN/Inf guard (cf. the reference's residue-breakdown exits,
         # arnoldi.hpp:277-288): non-finite Hessenberg column or residue
         # means the matvec overflowed -- terminate, don't iterate garbage.
@@ -260,7 +262,10 @@ def _lift_ritz(V: torch.Tensor, Y, k: int) -> torch.Tensor:
     cdt = V.dtype if V.is_complex() else (
         torch.complex128 if V.dtype == torch.float64 else torch.complex64)
     Yt = torch.as_tensor(np.asarray(Y)).to(device=V.device, dtype=cdt)
-    X = V[:k].T.to(cdt) @ Yt
+    if isinstance(V, torch.Tensor):
+        X = V[:k].T.to(cdt) @ Yt
+    else:  # a basis in per-shard column panels: each panel's rows, joined
+        X = V.combine(lambda piece: piece[:k].T.to(cdt) @ Yt.to(piece.device), dim=0)
     X = X / torch.linalg.vector_norm(X, dim=0, keepdim=True)
     return _phase_fix(X)
 

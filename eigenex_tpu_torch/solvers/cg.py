@@ -17,9 +17,11 @@ its update only while it holds (``torch.where``, a selection, so NaNs of
 a step past the stop cannot leak); a step past the stop is a masked
 no-op that still applies the operator.  So the iterate and the iteration
 count equal the reference's, and a solve costs at most
-``CHECK_EVERY - 1`` operator applications more than it uses.  The
-mesh-axis hook of the JAX loops (``axis_name``) comes with the
-distributed layer.
+``CHECK_EVERY - 1`` operator applications more than it uses.  Where the
+JAX loops take ``axis_name``, the loops here take ``comm`` (an
+:class:`~eigenex_tpu_torch.parallel.shard_map.AxisComm`): every inner
+product is completed with ``comm.psum``, so the stop condition the host
+reads is the same on every shard.
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ def _real(x: torch.Tensor) -> torch.Tensor:
     return x.real if x.is_complex() else x
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.vdot(a, b)
+def _vdot(a: torch.Tensor, b: torch.Tensor, comm=None) -> torch.Tensor:
+    d = torch.vdot(a, b)
+    return comm.psum(d) if comm is not None else d
 
 
 def _masked_loop(cond, step, carry):
@@ -64,11 +67,11 @@ def _masked_loop(cond, step, carry):
 
 
 @torch.no_grad()
-def _cg_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
+def _cg_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int, comm=None):
     rdt = real_dtype_of(b.dtype)
-    target2 = torch.as_tensor(tol**2, dtype=rdt, device=b.device) * _real(_vdot(b, b))
+    target2 = torch.as_tensor(tol**2, dtype=rdt, device=b.device) * _real(_vdot(b, b, comm))
     r0 = b - op.matvec(x0)
-    rs0 = _vdot(r0, r0)
+    rs0 = _vdot(r0, r0, comm)
     i0 = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def cond(c):
@@ -80,10 +83,10 @@ def _cg_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     def step(c):
         i, x, r, p, rs = c
         ap = op.matvec(p)
-        alpha = rs / _vdot(p, ap)
+        alpha = rs / _vdot(p, ap, comm)
         x = x + alpha * p
         r = r - alpha * ap
-        rs_new = _vdot(r, r)
+        rs_new = _vdot(r, r, comm)
         p = r + (rs_new / rs) * p
         return i + 1, x, r, p, rs_new
 
@@ -195,7 +198,7 @@ def shift_invert_operator(
 
 
 @torch.no_grad()
-def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
+def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int, comm=None):
     """CGLS (CG on the normal equations A^H A x = A^H b, Bjorck's stable
     recurrence): the least-squares/indefinite fallback where plain CG
     (indefinite A) or restarted GMRES (stagnation) fail.  The adjoint comes
@@ -203,10 +206,10 @@ def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     rdt = real_dtype_of(b.dtype)
     dev = b.device
     tol_t = torch.as_tensor(tol**2, dtype=rdt, device=dev)
-    target2 = tol_t * _real(_vdot(b, b))
+    target2 = tol_t * _real(_vdot(b, b, comm))
     r0 = b - op.matvec(x0)
     s0 = op.rmatvec(r0)
-    gamma0 = _real(_vdot(s0, s0))
+    gamma0 = _real(_vdot(s0, s0, comm))
     # two-sided stop: true residual (consistent systems) OR normal-equation
     # residual ||A^H r|| (least-squares optimum of inconsistent systems,
     # where ||r|| never gets small -- iterating past it makes
@@ -221,19 +224,19 @@ def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     def step(c):
         i, x, r, p, gamma, _ = c
         q = op.matvec(p)
-        qq = _real(_vdot(q, q))
+        qq = _real(_vdot(q, q, comm))
         alpha = (gamma / torch.where(qq > 0, qq, one)).to(x.dtype)
         x = x + alpha * p
         r = r - alpha * q
         s = op.rmatvec(r)
-        gamma_new = _real(_vdot(s, s))
+        gamma_new = _real(_vdot(s, s, comm))
         beta = (gamma_new / torch.where(gamma > 0, gamma, one)).to(x.dtype)
         p = s + beta * p
-        return i + 1, x, r, p, gamma_new, _real(_vdot(r, r))
+        return i + 1, x, r, p, gamma_new, _real(_vdot(r, r, comm))
 
     i0 = torch.zeros((), dtype=torch.int64, device=dev)
     i, x, r, p, gamma, rn2 = _masked_loop(
-        cond, step, (i0, x0, r0, s0, gamma0, _real(_vdot(r0, r0))))
+        cond, step, (i0, x0, r0, s0, gamma0, _real(_vdot(r0, r0, comm))))
     return x, torch.sqrt(rn2.abs()), i
 
 
@@ -256,7 +259,7 @@ def cgls_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 200
 
 
 @torch.no_grad()
-def _minres_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
+def _minres_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int, comm=None):
     """MINRES (Paige & Saunders 1975): minimum-residual Krylov solve for
     HERMITIAN (possibly indefinite) systems -- the inner solver for
     interior shift-invert, converging like kappa where CGLS pays kappa^2.
@@ -265,12 +268,12 @@ def _minres_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     dt = b.dtype
     rdt = real_dtype_of(dt)
     dev = b.device
-    target = torch.as_tensor(tol, dtype=rdt, device=dev) * torch.sqrt(_real(_vdot(b, b)))
+    target = torch.as_tensor(tol, dtype=rdt, device=dev) * torch.sqrt(_real(_vdot(b, b, comm)))
     one = torch.ones((), dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=rdt, device=dev)
 
     r0 = b - op.matvec(x0)
-    beta1 = torch.sqrt(_real(_vdot(r0, r0)))
+    beta1 = torch.sqrt(_real(_vdot(r0, r0, comm)))
     v = r0 / torch.where(beta1 > 0, beta1, one).to(dt)
     zeros = torch.zeros_like(b)
 
@@ -282,9 +285,9 @@ def _minres_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int):
     def step(c):
         i, x, v_old, v, w_old, w, beta, eta, c_old, cc, s_old, s, _ = c
         av = op.matvec(v)
-        alpha = _real(_vdot(v, av))  # Hermitian: real diagonal
+        alpha = _real(_vdot(v, av, comm))  # Hermitian: real diagonal
         r_next = av - alpha.to(dt) * v - beta.to(dt) * v_old
-        beta_next = torch.sqrt(_real(_vdot(r_next, r_next)))
+        beta_next = torch.sqrt(_real(_vdot(r_next, r_next, comm)))
         v_next = r_next / torch.where(beta_next > 0, beta_next, one).to(dt)
         # previous two rotations applied to the new tridiagonal column
         delta = cc * alpha - c_old * s * beta

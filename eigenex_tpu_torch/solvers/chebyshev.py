@@ -18,8 +18,9 @@ Spectral bounds come from Gershgorin (``estimate_eigenvalue_range``,
 triplets_matrix.hpp:512-540) or a short power probe; over-estimates only
 weaken the filter, never break correctness.
 
-``mesh=`` (the row-partitioned filter chain) is not ported yet and
-raises as such.
+``mesh=`` runs every SpMM of the filter chain row-partitioned over a
+device mesh (:func:`mesh_filter_operand`, block-sparse operands), with
+CholeskyQR2 for the panel orthonormalisation.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
-from ..utils.exceptions import LanczosError, not_ported
+from ..utils.exceptions import LanczosError
 from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import default_tolerance, real_dtype_of
@@ -404,6 +405,44 @@ def _padding_safe_block(orig_n, padded_n, b, dtype, seed, device):
     return out
 
 
+def mesh_filter_operand(A, mesh, matvec_mode, spectral_bounds, seed, use_pallas=False):
+    """(mesh LinearOperator, orig_n, padded_n, bounds) shared by the
+    mesh-aware Chebyshev/KPM front ends: pad the container for the mesh,
+    take spectral bounds from the ORIGINAL operator (its Gershgorin -- the
+    padding's eigenvalue 0 is never reached by a padding-supported start
+    block), and build the global-array mesh operator for the SpMM chains."""
+    from ..parallel.distributed import mesh_operator, mesh_operator_2d, pad_bsr_for_mesh
+    from ..sparse.bsr import BSRMatrix
+    from ..sparse.sym_bsr import SymBSRMatrix
+
+    if not isinstance(A, (BSRMatrix, SymBSRMatrix)):
+        raise LanczosError(
+            "mesh= requires a block-sparse operand (BSRMatrix or "
+            "SymBSRMatrix) so the operator's rows can be partitioned"
+        )
+    orig_n = A.shape[0]
+    if spectral_bounds is not None:
+        bounds = (float(spectral_bounds[0]), float(spectral_bounds[1]))
+    else:
+        lo, hi = A.estimate_eigenvalue_range()
+        bounds = (float(lo), float(hi))
+    axis = mesh.axis_names[0]
+    if len(mesh.axis_names) >= 2:
+        # 2-axis mesh: panel-grid operator (full-storage BSR only)
+        if isinstance(A, SymBSRMatrix):
+            raise LanczosError(
+                "2-axis meshes use the panel-grid operator, which needs "
+                "full-storage BSR — convert the SymBSRMatrix, or use a "
+                "1-axis mesh with matvec_mode='sym_halo'"
+            )
+        nrc = mesh.shape[axis] * mesh.shape[mesh.axis_names[1]]
+        padded = pad_bsr_for_mesh(A, nrc)
+        return mesh_operator_2d(padded, mesh), orig_n, padded.shape[0], bounds
+    padded = pad_bsr_for_mesh(A, mesh.shape[axis])
+    op = mesh_operator(padded, mesh, axis_name=axis, matvec_mode=matvec_mode)
+    return op, orig_n, padded.shape[0], bounds
+
+
 @highest_f32_matmul()
 def eigsh_window(
     A,
@@ -416,6 +455,8 @@ def eigsh_window(
     spectral_bounds: tuple[float, float] | None = None,
     seed: int = 0,
     mesh=None,
+    matvec_mode: str = "allgather",
+    use_pallas: bool | str = False,
     device=None,
 ) -> LanczosResult:
     """All eigenpairs of a Hermitian operator inside ``window`` (up to
@@ -430,23 +471,39 @@ def eigsh_window(
     coordinates (complex Hermitian included: the block is doubled on the
     real embedding and the doubled window contents deduped).  ``device``
     places a host operand (the card unless told otherwise); containers and
-    operators are used where they live.  ``mesh=`` is not ported yet."""
+    operators are used where they live.
+
+    ``mesh``: a :class:`~eigenex_tpu_torch.parallel.mesh.Mesh` runs every
+    SpMM of the filter chain row-partitioned over the mesh (block-sparse
+    operands; ``matvec_mode`` as in the distributed Lanczos drivers) with
+    CholeskyQR2 panel orthonormalisation.  ``use_pallas`` is accepted for
+    the JAX package's signature."""
     from ..sparse.accelerate import AcceleratedOperator
 
-    if mesh is not None:
-        raise not_ported("eigsh_window(mesh=) (the row-partitioned filter chain)")
     options = ChebyshevFilterOptions(
         degree=degree, tolerance=tol, max_iterations=max_iterations, seed=seed,
         spectral_bounds=spectral_bounds,
     )
     if isinstance(A, AcceleratedOperator):
-        return _window_on_accelerated(A, window, options, block_size)
-    return ChebyshevFilterSolver(
-        as_filter_operator(A, device), window, options, block_size=block_size
+        return _window_on_accelerated(A, window, options, block_size, mesh, matvec_mode)
+    if mesh is None:
+        return ChebyshevFilterSolver(
+            as_filter_operator(A, device), window, options, block_size=block_size
+        ).compute()
+    op, orig_n, padded_n, bounds = mesh_filter_operand(A, mesh, matvec_mode, spectral_bounds,
+                                                       seed)
+    X0 = _padding_safe_block(orig_n, padded_n, block_size, op.dtype, seed, op.device)
+    res = ChebyshevFilterSolver(
+        op, window, dataclasses.replace(options, spectral_bounds=bounds),
+        block_size=block_size, initial_block=X0, orthonormalize=cholesky_qr2,
     ).compute()
+    if res.eigenvectors is not None and res.eigenvectors.shape[0] != orig_n:
+        res.eigenvectors = res.eigenvectors[:orig_n]
+    return res
 
 
-def _window_on_accelerated(acc, window, options, block_size) -> LanczosResult:
+def _window_on_accelerated(acc, window, options, block_size, mesh=None,
+                           matvec_mode="allgather") -> LanczosResult:
     """eigsh_window for an AcceleratedOperator: permuted-space
     filter iteration with a padding-safe start block; eigenvectors
     restored to original coordinates as a host array.  A complexified
@@ -459,15 +516,31 @@ def _window_on_accelerated(acc, window, options, block_size) -> LanczosResult:
     The pads' zero eigenvalue may fall outside them, where |T_k| grows --
     harmless: the padding-safe start block has EXACTLY zero pad
     components and the structurally-zero pad rows keep them zero through
-    every filter application."""
+    every filter application.
+
+    ``mesh``: the packed container is row-partitioned over the mesh
+    (sym_halo ring for SymBSR storage; multi-axis meshes flatten), with
+    CholeskyQR2 panel orthonormalisation."""
     from ..sparse.accelerate import dedup_embedded_pairs
 
     b = (2 if acc.complexified else 1) * block_size
     dtype = acc.as_linear_operator().dtype
-    X0 = _padding_safe_block(acc.n_work, acc.shape[0], b, dtype, options.seed, acc.device)
+    operand, padded_n, kwargs = acc.matrix, acc.shape[0], {}
+    if mesh is not None:
+        from ..parallel.distributed import prepare_packed_mesh
+
+        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+        operand, _, padded_n, bounds = mesh_filter_operand(
+            acc.matrix, mesh, matvec_mode, options.spectral_bounds, options.seed)
+        options = dataclasses.replace(options, spectral_bounds=bounds)
+        kwargs = dict(orthonormalize=cholesky_qr2)
+    X0 = _padding_safe_block(acc.n_work, padded_n, b, dtype, options.seed, acc.device)
     res = ChebyshevFilterSolver(
-        acc.matrix, window, options, block_size=b, initial_block=X0
+        operand, window, options, block_size=b, initial_block=X0, **kwargs
     ).compute()
+    if res.eigenvectors is not None and res.eigenvectors.shape[0] != acc.shape[0]:
+        # mesh padding rows beyond the accelerate pad
+        res.eigenvectors = res.eigenvectors[: acc.shape[0]]
     lam = np.asarray(res.eigenvalues)
     vecs = acc.restore(res.eigenvectors) if res.eigenvectors is not None else None
     if acc.complexified and lam.size:

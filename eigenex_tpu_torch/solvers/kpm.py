@@ -18,7 +18,9 @@ spectral structure of a Hermitian operator from products alone:
 Probes are drawn from a ``torch.Generator``, so the moments of the two
 packages agree in distribution, not in value; :func:`_moment_recurrence`
 takes the probe block and is what the parity test compares.  ``mesh=``
-is not ported yet and raises as such.
+runs the moment recurrence and every slice's filter row-partitioned over
+a device mesh (block-sparse operands), with probes supported on the
+original rows.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.operators import LinearOperator
-from ..utils.exceptions import LanczosError, not_ported
+from ..utils.exceptions import LanczosError
 from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
 from ..utils.tolerance import real_dtype_of
@@ -103,6 +105,7 @@ def chebyshev_moments(
     spectral_bounds: tuple[float, float] | None = None,
     seed: int = 0,
     mesh=None,
+    matvec_mode: str = "allgather",
     probe_rows: int | None = None,
     device=None,
 ):
@@ -113,23 +116,32 @@ def chebyshev_moments(
     ``probe_rows``: caller-declared probe support (e.g. an
     AcceleratedOperator's unpadded working rows), so that pad rows stay
     out of the trace.  ``device`` places a host operand (the card unless
-    told otherwise)."""
+    told otherwise).  ``mesh``: run the moment SpMM recurrence
+    row-partitioned over a device mesh (block-sparse operands;
+    ``matvec_mode`` as in the distributed drivers); probes are supported
+    on the ORIGINAL rows, so padding added for the mesh never enters the
+    trace estimate."""
+    n_true = None
     if mesh is not None:
-        raise not_ported("chebyshev_moments(mesh=) (the row-partitioned moment recurrence)")
-    op = as_filter_operator(A, device)
+        from .chebyshev import mesh_filter_operand
+
+        op, n_true, _, spectral_bounds = mesh_filter_operand(
+            A, mesh, matvec_mode, spectral_bounds, seed)
+    else:
+        op = as_filter_operator(A, device)
     if op.shape[0] != op.shape[1]:
         raise LanczosError("KPM requires a square operator")
     lo, hi = _bounds_of(op, A, spectral_bounds, seed)
     span = hi - lo
     lo_m, hi_m = lo - 0.005 * span, hi + 0.005 * span
-    n_rows = op.shape[0]
+    n_rows = op.shape[0] if n_true is None else n_true
     if probe_rows is not None:
         n_rows = min(n_rows, int(probe_rows))
     Z = random_matrix(make_generator(seed), n_probes, n_rows, op.dtype, device=op.device).T
     # Rademacher probes have lower Hutchinson variance than Gaussian for
     # real dtypes; keep Gaussian phases for complex (already uniform)
     Z = Z / Z.abs() if Z.is_complex() else torch.sign(Z)
-    if n_rows != op.shape[0]:  # zero probe rows on the padding
+    if n_rows != op.shape[0]:  # zero probe rows on the (mesh) padding
         padded = torch.zeros((op.shape[0], n_probes), dtype=Z.dtype, device=op.device)
         padded[:n_rows] = Z
         Z = padded
@@ -147,13 +159,14 @@ def spectral_density(
     spectral_bounds: tuple[float, float] | None = None,
     seed: int = 0,
     mesh=None,
+    matvec_mode: str = "allgather",
     device=None,
 ):
     """(lambda grid, DOS estimate rho(lambda)) with integral ~ n -- the
     Jackson-damped KPM density of states."""
     mu, (lo, hi) = chebyshev_moments(
         A, n_moments, n_probes=n_probes, spectral_bounds=spectral_bounds, seed=seed,
-        mesh=mesh, device=device,
+        mesh=mesh, matvec_mode=matvec_mode, device=device,
     )
     n = A.shape[0] if hasattr(A, "shape") else as_filter_operator(A, device).shape[0]
     g = _jackson(n_moments)
@@ -176,6 +189,7 @@ def eigenvalue_count(
     spectral_bounds: tuple[float, float] | None = None,
     seed: int = 0,
     mesh=None,
+    matvec_mode: str = "allgather",
     device=None,
     _moments=None,
 ) -> float:
@@ -188,7 +202,7 @@ def eigenvalue_count(
     else:
         mu, (lo, hi) = chebyshev_moments(
             A, n_moments, n_probes=n_probes, spectral_bounds=spectral_bounds, seed=seed,
-            mesh=mesh, device=device,
+            mesh=mesh, matvec_mode=matvec_mode, device=device,
         )
     n_moments = mu.shape[0]
     ctr, ext = (hi + lo) / 2.0, (hi - lo) / 2.0
@@ -218,6 +232,7 @@ def eigsh_range(
     spectral_bounds: tuple[float, float] | None = None,
     seed: int = 0,
     mesh=None,
+    matvec_mode: str = "allgather",
     device=None,
 ):
     """ALL eigenpairs of a Hermitian operator inside ``interval`` by KPM
@@ -229,14 +244,19 @@ def eigsh_range(
     vectors (the slack absorbs count-estimate error).  Returns a
     :class:`~eigenex_tpu_torch.solvers.lanczos.LanczosResult` with all
     found pairs sorted ascending and the eigenvectors as a host array;
-    ``converged`` is the AND over slices.  ``mesh=`` is not ported yet.
+    ``converged`` is the AND over slices.  ``mesh``: every stage (moment
+    SpMMs, per-slice bandpass filtering) runs row-partitioned over the
+    device mesh (block-sparse operands; an accelerated operand's pack rides
+    the sym_halo ring, multi-axis meshes flatten).
     """
     from ..sparse.accelerate import AcceleratedOperator
 
-    if mesh is not None:
-        raise not_ported("eigsh_range(mesh=) (the row-partitioned filter chain)")
     acc = A if isinstance(A, AcceleratedOperator) else None
-    if acc is None:
+    if acc is not None and mesh is not None:
+        from ..parallel.distributed import prepare_packed_mesh
+
+        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+    if acc is None and mesh is None:
         A = as_filter_operator(A, device)  # validates the operand type early
     a, b_hi = float(interval[0]), float(interval[1])
     if not a < b_hi:
@@ -248,11 +268,13 @@ def eigsh_range(
         mu_pack = chebyshev_moments(
             acc.matrix, n_moments, n_probes=n_probes,
             spectral_bounds=spectral_bounds, seed=seed, probe_rows=acc.n_work,
+            mesh=mesh, matvec_mode=matvec_mode,
         )
         count_operand = types.SimpleNamespace(shape=(acc.n_work, acc.n_work))
     else:
         mu_pack = chebyshev_moments(
             A, n_moments, n_probes=n_probes, spectral_bounds=spectral_bounds, seed=seed,
+            mesh=mesh, matvec_mode=matvec_mode,
         )
         count_operand = A
     lo, hi = mu_pack[1]
@@ -297,6 +319,8 @@ def eigsh_range(
             max_iterations=max_iterations,
             seed=seed + s,
             spectral_bounds=(lo, hi),
+            mesh=mesh,
+            matvec_mode=matvec_mode,
         )
         conv &= bool(res.converged)
         iters += res.iterations

@@ -163,9 +163,7 @@ class KrylovSchurArnoldiSolver:
 
         for restart in range(o.max_restarts + 1):
             k0 = k
-            state = arnoldi_steps(
-                op, state, m - k0, shift=o.eigenvalue_shift, breakdown_threshold=bd
-            )
+            state = self._run_arnoldi_chunk(op, state, m - k0, bd)
             # the host/device synchronisation point, once per restart
             k, has_broken, has_failed = state.host_flags()
             total += k - k0
@@ -252,6 +250,13 @@ class KrylovSchurArnoldiSolver:
             trace=self.trace,
         )
         return self._result
+
+    def _run_arnoldi_chunk(self, op, state, num_steps, breakdown_threshold):
+        """One Arnoldi chunk (the distributed solver runs it over a mesh)."""
+        return arnoldi_steps(
+            op, state, num_steps, shift=self.options.eigenvalue_shift,
+            breakdown_threshold=breakdown_threshold,
+        )
 
     @property
     def eigenvalues(self):

@@ -245,6 +245,7 @@ def _lanczos_chunk(
     k_start: int,
     num_steps: int,
     reorthogonalize_interval: int,
+    comm=None,
 ) -> LanczosState:
     """Run up to ``num_steps`` Lanczos three-term-recurrence steps.
 
@@ -260,6 +261,11 @@ def _lanczos_chunk(
     integers; once ``breakdown`` or ``failed`` is set on the device,
     every later step of the chunk is masked into a no-op, whatever row it
     was aimed at.
+
+    ``comm`` (the JAX chunk's ``axis_name``): inside ``shard_map`` the
+    basis rows and vectors are this shard's column panel, the operator is
+    the shard-local one, and every inner product is completed with
+    ``comm.psum`` -- the single-device chunk with collectives injected.
     """
     V, alpha, beta = state.V, state.alpha, state.beta
     k, breakdown, failed = state.k, state.breakdown, state.failed
@@ -286,27 +292,28 @@ def _lanczos_chunk(
             # and no explicit three-term subtraction (it is the k, k-1 part
             # of the projection).  Numerically this is exactly Arnoldi's
             # Hessenberg-column CGS2 specialised to a Hermitian operator.
-            w, c = cgs2(V, w, mask=row_ids <= kh)
+            w, c = cgs2(V, w, mask=row_ids <= kh, comm=comm)
             alpha_k = _real(c[kh]).to(rdt)
             if deflate is not None:
                 # deflate AFTER the projection: the CGS coefficients are
                 # O(1) here, so projecting against V re-introduces a
                 # deflate component that would otherwise amplify
                 # geometrically step over step (lanczos.hpp:421-425)
-                w = project_out(deflate, w)
+                w = project_out(deflate, w, comm=comm)
         else:
             if deflate is not None:
                 # keep iterates out of the user-supplied deflation space
                 # (lanczos.hpp:421-425)
-                w = project_out(deflate, w)
-            alpha_k = _real(torch.vdot(vk, w)).to(rdt)
+                w = project_out(deflate, w, comm=comm)
+            dot = torch.vdot(vk, w)
+            alpha_k = _real(comm.psum(dot) if comm is not None else dot).to(rdt)
             # three-term recurrence (no beta[k-1] term at k == 0)
             w = w - alpha_k.to(dtype) * vk
             if kh > 0:
                 w = w - beta[kh - 1].to(dtype) * V[kh - 1]
             if reorthogonalize_interval > 0 and (kh + 1) % reorthogonalize_interval == 0:
-                w, _c = cgs2(V, w, mask=row_ids <= kh)
-        beta_k = norm_psum(w).to(rdt)
+                w, _c = cgs2(V, w, mask=row_ids <= kh, comm=comm)
+        beta_k = norm_psum(w, comm).to(rdt)
         # NaN/Inf guard (cf. the reference's failure-first design,
         # lanczos.hpp:316-347,433-437): a non-finite alpha/beta means the
         # matvec overflowed or produced NaN -- stop, don't iterate garbage.
@@ -413,7 +420,10 @@ def _ritz_vectors(V: torch.Tensor, Y, k: int) -> torch.Tensor:
     """x_j = sum_m Y[m, j] V[m]  (lanczos.hpp:798-804), one matmul; then
     normalise + phase-fix (:806-816)."""
     Y = torch.as_tensor(np.asarray(Y)).to(device=V.device, dtype=V.dtype)
-    X = V[:k].T @ Y  # (n, p)
+    if isinstance(V, torch.Tensor):
+        X = V[:k].T @ Y  # (n, p)
+    else:  # a basis in per-shard column panels: each panel's rows, joined
+        X = V.combine(lambda piece: piece[:k].T @ Y.to(piece.device), dim=0)
     X = X / torch.linalg.vector_norm(X, dim=0, keepdim=True)
     return _phase_fix(X)
 

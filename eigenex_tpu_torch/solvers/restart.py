@@ -53,7 +53,10 @@ class ThickRestartOptions(LanczosOptions):
 
 @torch.no_grad()
 def _compress_basis(V: torch.Tensor, Yk, r: torch.Tensor) -> torch.Tensor:
-    """V_new[0:p] = Yk^T V[:m];  V_new[p] = r;  rest zero -- one matmul."""
+    """V_new[0:p] = Yk^T V[:m];  V_new[p] = r;  rest zero -- one matmul
+    (one a panel for a basis in per-shard column panels)."""
+    if not isinstance(V, torch.Tensor):
+        return V.map(lambda piece, r_piece: _compress_basis(piece, Yk, r_piece), r)
     Yk = torch.as_tensor(np.asarray(Yk)).to(device=V.device, dtype=V.dtype)
     m, p = Yk.shape
     out = torch.zeros_like(V)

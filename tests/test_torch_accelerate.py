@@ -187,22 +187,39 @@ def test_non_hermitian_input_raises(how):
 @pytest.mark.parametrize(
     "build",
     [
-        # the rectangular pack and svds on it are ported; svds(mesh=) is not
-        lambda: ext.svds(accelerate((np.array([0]), np.array([1]), np.array([1.0]), (2, 3)),
-                                    device="cpu"), k=1, mesh=object()),
-        # complex operands and their filter routes are ported; eigsh_range(mesh=) is not
-        lambda: ext.eigsh_range(
-            accelerate((np.array([0, 1]), np.array([1, 0]), np.array([1j, -1j]), (2, 2)),
-                       block=8, device="cpu"), (-0.5, 0.5), mesh=object()),
-        # the general pack and its svds pieces are ported; eigs(mesh=) is not
-        lambda: ext.eigs(accelerate((np.array([0]), np.array([1]), np.array([1.0]), (2, 2)),
-                                    device="cpu"), k=1, mesh=object()),
+        # svds(mesh=) on a rectangular pack
+        lambda pkg, acc, mesh: pkg.svds(
+            acc((np.array([0, 1]), np.array([1, 2]), np.array([1.0, 2.0]), (2, 3))),
+            k=1, mesh=mesh, return_singular_vectors=False),
+        # eigsh_range(mesh=) on a complexified pack
+        lambda pkg, acc, mesh: pkg.eigsh_range(
+            acc((np.array([0, 1]), np.array([1, 0]), np.array([1j, -1j]), (2, 2)), block=8),
+            (0.5, 1.5), mesh=mesh).eigenvalues,
+        # eigs(mesh=) on a general pack
+        lambda pkg, acc, mesh: pkg.eigs(
+            acc((np.array([0]), np.array([1]), np.array([1.0]), (2, 2))), k=1,
+            mesh=mesh).eigenvalues,
     ],
     ids=["rectangular", "complex", "general"],
 )
 def test_unported_routes_say_so(build):
-    with pytest.raises(EigenexError, match="not ported yet"):
-        build()
+    """The mesh routes of the accelerated operands are ported: each gives the
+    reference's mesh result, or raises the reference's own error."""
+    import jax
+    import eigenex_tpu as jpkg
+    from jax.sharding import Mesh as JMesh
+
+    jmesh = JMesh(np.array(jax.devices("cpu")[:2]), ("rows",))
+    tmesh = ext.make_mesh(devices=["cpu"] * 2)
+    try:
+        want = build(jpkg, j_accelerate, jmesh)
+    except Exception as e:  # the reference refuses: the port must say the same
+        with pytest.raises(EigenexError) as got:
+            build(ext, lambda *a, **k: accelerate(*a, device="cpu", **k), tmesh)
+        assert str(got.value) == str(e)
+        return
+    have = build(ext, lambda *a, **k: accelerate(*a, device="cpu", **k), tmesh)
+    np.testing.assert_allclose(np.asarray(have), np.asarray(want), atol=1e-6)
 
 
 def test_bad_operand_raises():

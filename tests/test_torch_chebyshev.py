@@ -181,8 +181,10 @@ def test_validation_and_unported_routes():
     with pytest.raises(LanczosError, match="initial_block"):
         tc.ChebyshevFilterSolver(A, (1.0, 2.0), block_size=4,
                                  initial_block=torch.ones(N, 3)).compute()
-    with pytest.raises(EigenexError, match="not ported yet"):
-        ext.eigsh_window(A, (1.0, 2.0), mesh=object())
+    # mesh= is ported for block-sparse operands; a dense one is refused as
+    # the reference refuses it
+    with pytest.raises(LanczosError, match="mesh= requires a block-sparse operand"):
+        ext.eigsh_window(A, (1.0, 2.0), mesh=ext.make_mesh(devices=["cpu"] * 2))
 
 
 def complex_chain(n=80, seed=12):

@@ -4,7 +4,8 @@ step count as the reference's int32 on disk, the port's int64 in memory),
 a solve resumed by the port from the reference's mid-run checkpoint ends at
 the reference's uninterrupted eigenvalues (1e-10), and the reverse.  Also:
 the reference's tolerance of a checkpoint without the ``failed`` flag, and
-the distributed layout, which is not ported yet.
+the distributed layout of ``load_state(mesh=)`` / ``shard_state`` (the
+basis in per-shard column panels, as the reference shards it).
 """
 
 import jax.numpy as jnp
@@ -137,11 +138,29 @@ def test_missing_failed_flag_and_bad_files(tmp_path):
 
 
 def test_distributed_layout_is_not_ported(tmp_path):
-    op = ext.aslinearoperator(torch.as_tensor(hermitian(6)))
+    """The distributed layout is ported: ``load_state(mesh=)`` and
+    ``shard_state`` split the basis by columns into one panel a shard, the
+    shapes and values of the reference's ``P(None, rows)`` shards, the rest
+    whole; the reference's rejection of a width the mesh does not divide."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+
+    op = ext.aslinearoperator(torch.as_tensor(hermitian()))
     s = ext.lanczos_steps(op, ext.init_lanczos_state(op, 6, seed=0), 2)
+    odd = next(d for d in (3, 5, 7, 11, 13) if N % d)
     p = str(tmp_path / "s.npz")
     tck.save_state(p, s)
-    with pytest.raises(EigenexError, match="not ported yet"):
-        tck.load_state(p, mesh=object())
-    with pytest.raises(EigenexError, match="not ported yet"):
-        ext.shard_state(s, object())
+    jm = JMesh(np.array(jax.devices("cpu")[:4]), ("rows",))
+    ref = jck.load_state(p, mesh=jm)
+    got = tck.load_state(p, mesh=ext.make_mesh(devices=["cpu"] * 4))
+    assert [tuple(x.shape) for x in got.V.pieces] == [
+        tuple(sh.data.shape) for sh in ref.V.addressable_shards]
+    for piece, sh in zip(got.V.pieces, ref.V.addressable_shards):
+        np.testing.assert_array_equal(piece.numpy(), np.asarray(sh.data))
+    placed = ext.shard_state(s, ext.make_mesh(devices=["cpu"] * 4))
+    assert torch.equal(placed.V.gather(), s.V) and torch.equal(placed.alpha, s.alpha)
+    with pytest.raises(Exception) as jerr:
+        jck.shard_state(jck.load_state(p), JMesh(np.array(jax.devices("cpu")[:odd]), ("rows",)))
+    with pytest.raises(EigenexError) as terr:
+        ext.shard_state(s, ext.make_mesh(devices=["cpu"] * odd))
+    assert str(terr.value) == str(jerr.value)

@@ -196,13 +196,14 @@ def test_eigs_rejections():
         ext.eigs(A, k=1, which="XY", device="cpu")
     with pytest.raises(EigenexError, match="square"):
         ext.eigs(np.ones((4, 5)), k=1, device="cpu")
-    with pytest.raises(EigenexError, match="not ported yet"):
-        ext.eigs(A, k=1, mesh=object(), device="cpu")
+    mesh = ext.make_mesh(devices=["cpu"] * 2)  # mesh= is ported for sparse operands
+    with pytest.raises(EigenexError, match="mesh= requires a sparse operand"):
+        ext.eigs(A, k=1, mesh=mesh, device="cpu")
     m = (sp.random(40, 40, density=0.1, random_state=4) + sp.eye(40)).tocoo()
     acc = ext.accelerate((m.row, m.col, m.data + 1j * m.data, m.shape), device="cpu")
     with pytest.raises(EigenexError, match="REAL sigma"):
         ext.eigs(acc, k=2, sigma=1.0 + 1.0j)
     with pytest.raises(EigenexError, match="COOMatrix"):
         ext.eigs(A, k=1, refine=True, device="cpu")
-    with pytest.raises(EigenexError, match="not ported yet"):
-        ext.svds(A, k=1, mesh=object(), device="cpu")
+    with pytest.raises(EigenexError, match="mesh= requires a sparse operand"):
+        ext.svds(A, k=1, mesh=mesh, device="cpu")

@@ -29,6 +29,7 @@ EXPECTED_MODULES = [
     "sparse/csr.py", "sparse/io.py", "block/block_tensor.py", "block/operator.py",
     "block/hamiltonians.py", "native/__init__.py", "utils/checkpoint.py",
     "utils/profiling.py", "utils/benchtime.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/shard_map.py", "parallel/distributed.py",
 ]
 
 
@@ -113,6 +114,7 @@ def test_importing_the_port_is_light():
         "from eigenex_tpu_torch.block import block_tensor, operator, hamiltonians\n"
         "from eigenex_tpu_torch import native\n"
         "from eigenex_tpu_torch.utils import benchtime, checkpoint, profiling\n"
+        "from eigenex_tpu_torch.parallel import distributed, mesh, shard_map\n"
         "assert 'NATIVE' not in vars(native) and not native.native_calls()\n"
         "assert native.BUILD_DIR == native.BUILD_DIR.parent.parent / 'eigenex_tpu_torch' / 'build'\n"
         "import torch\n"
@@ -131,6 +133,8 @@ def test_importing_the_port_is_light():
         "assert callable(ext.truncated_svd_via_lanczos) and callable(ext.tensor_svd)\n"
         "assert callable(ext.einsum) and callable(ext.load_matrix_market)\n"
         "assert callable(ext.heisenberg_block_hamiltonian) and callable(ext.BlockTensor)\n"
+        "assert callable(ext.make_mesh) and callable(shard_map.shard_map)\n"
+        "assert callable(ext.DistributedThickRestartLanczosEigenSolver)\n"
         "print('light')\n"
     )
     build = PACKAGE / "build"

@@ -142,11 +142,14 @@ def test_validation_and_unported_routes():
         ext.eigsh_range(A, (3.0, 1.0))
     with pytest.raises(LanczosError, match="square"):
         ext.chebyshev_moments(torch.ones(4, 6, dtype=torch.float64), 8)
-    for call in (lambda: ext.eigsh_range(A, (1.0, 2.0), mesh=object()),
-                 lambda: ext.chebyshev_moments(A, 8, mesh=object()),
-                 lambda: ext.eigenvalue_count(A, (1.0, 2.0), mesh=object()),
-                 lambda: ext.spectral_density(A, 8, mesh=object())):
-        with pytest.raises(EigenexError, match="not ported yet"):
+    # mesh= is ported for block-sparse operands; a dense one is refused as
+    # the reference refuses it
+    mesh = ext.make_mesh(devices=["cpu"] * 2)
+    for call in (lambda: ext.eigsh_range(A, (1.0, 2.0), mesh=mesh),
+                 lambda: ext.chebyshev_moments(A, 8, mesh=mesh),
+                 lambda: ext.eigenvalue_count(A, (1.0, 2.0), mesh=mesh),
+                 lambda: ext.spectral_density(A, 8, mesh=mesh)):
+        with pytest.raises(LanczosError, match="mesh= requires a block-sparse operand"):
             call()
 
 

@@ -150,7 +150,7 @@ def test_eigsh_lobpcg_route_on_a_container_uses_matmat():
         (dict(which="LM"), "spectrum extremes only"),
         (dict(accelerate=True), "accelerate=True cannot combine"),
         (dict(sigma=1.0), "cannot be combined with sigma"),
-        (dict(mesh=object()), "not ported yet"),
+        (dict(mesh=object()), "cannot be combined with sigma= or mesh="),
     ],
     ids=["v0", "BE", "LM", "accelerate", "sigma", "mesh"],
 )

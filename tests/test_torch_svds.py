@@ -116,8 +116,12 @@ class TestSvds:
             svds(torch.as_tensor(np.random.default_rng(46).standard_normal((6, 4))), k=5)
 
     def test_mesh_is_not_ported(self):
-        with pytest.raises(EigenexError, match="not ported yet"):
-            svds(torch.eye(4, dtype=torch.float64), k=1, mesh=object())
+        """mesh= is ported for sparse operands; a dense one is refused with
+        the reference's error."""
+        from eigenex_tpu_torch.parallel import make_mesh
+
+        with pytest.raises(EigenexError, match="mesh= requires a sparse operand"):
+            svds(torch.eye(4, dtype=torch.float64), k=1, mesh=make_mesh(devices=["cpu"] * 2))
 
 
 # -- the rectangular pack ----------------------------------------------------
