@@ -100,6 +100,19 @@ filter) through the SpMM kernels -- at full size:
                          single-device run.
 30. ``config5``          BASELINE configs 5a (halo shift-invert Lanczos, n = 512) and 5b (the
                          accelerate x mesh composition, n = 1200) on 8 shards, f64.
+31. ``multiprocess_banded``  the mesh across processes (``eigenex_tpu_torch.parallel.multiproc``
+                         workers on cuda:0, gloo): 64 allgather Lanczos steps on 2 processes x 2
+                         shards and the sym_halo ``eigsh`` on 4 processes x 1 shard of the banded
+                         operator, bit-equal across processes and to the one-process mesh of 4
+                         shards, eigenvalues against the single device.
+32. ``heisenberg_l24_multiprocess``  config 3 at L = 24 on 2 processes x 2 shards: the pack of phase
+                         24 saved once and loaded by the workers into host memory, each placing
+                         only its own shards (device peak below the pack), E0 after the same f64
+                         Rayleigh step bit-equal across processes and to phase 27's, within 1e-12
+                         of phase 24's; µs a psum across processes (runs phase 24 first).
+33. ``samples``          the 13 samples of ``eigenex_tpu_torch/samples`` on the card, each held to
+                         its own CPU run (1e-10 for f64 results, 1e-6 for f32 iterations), and
+                         sample_accelerate's kernels against their plain versions at its shapes.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -119,6 +132,11 @@ that phase's launches; phase 24 adds ``sym_bsr_spmv`` at the L = 24 pack, a thir
 ``sym_bsr_spmv`` entry carrying that phase's launches; phase 27's launches join that entry.
 The mesh phases' solves (26-30) are main paths driven like the others, their launches
 counted from 0 for each solve; the products of phase 25 are comparisons, as phase 3's are.
+Phases 31-32 count the workers' launches in the workers (each sets its counts to 0 before
+its solve) and add them up.  Phase 33 counts each sample's card run from 0 and prints the
+counts in its own line only: the samples are not the main path, and the result line's cases
+are timed at the main path's shapes; it holds sample_accelerate's kernels against their
+plain versions at that sample's shapes instead.
 
 The host stages run on the native builders (``eigenex_tpu_torch.native``, built with
 ``g++``).  Every phase whose host stages they serve -- 5, 11, 13, 16, 18, 19 and 24 --
@@ -149,6 +167,7 @@ import dataclasses
 import json
 import math
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -389,19 +408,24 @@ _BF16M = "mesh: bf16 pack sym_halo"
 MAIN_CASES = {
     "bsr_spmv": [dict(match=("config-2 pack", " f32")),
                  dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr": 1}),
-                 dict(match=(f"{_F32M} allgather main ",), phases={"mesh_modes_allgather": 1}),
+                 dict(match=(f"{_F32M} allgather main ",),
+                      phases={"mesh_modes_allgather": 1, "multiprocess_banded_allgather": 1}),
                  dict(match=(f"{_F32M} colsplit main ",), phases={"mesh_modes_colsplit": 1}),
                  *(dict(match=(f"{_F32M} halo {role} ",), phases={"mesh_modes_halo": _THIRD})
                    for role in ("main", "left", "right")),
-                 *(dict(match=(f"{_F32M} sym_halo {role} ",), phases={"mesh_modes_sym_halo": _HALF})
+                 *(dict(match=(f"{_F32M} sym_halo {role} ",),
+                        phases={"mesh_modes_sym_halo": _HALF, "multiprocess_banded_sym_halo": _HALF})
                    for role in ("right", "right_adj")),
                  dict(match=(f"{_F32M} grid main ",), phases={"mesh_modes_grid": 1}),
-                 *(dict(match=(f"{_L24M} {role} ",), phases={"heisenberg_l24_mesh": _HALF})
+                 *(dict(match=(f"{_L24M} {role} ",),
+                        phases={"heisenberg_l24_mesh": _HALF, "heisenberg_l24_multiprocess": _HALF})
                    for role in ("right", "right_adj"))],
     "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16")),
                      dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1}),
-                     dict(match=(f"{_F32M} sym_halo main ",), phases={"mesh_modes_sym_halo": 1}),
-                     dict(match=(f"{_L24M} main ",), phases={"heisenberg_l24_mesh": 1})],
+                     dict(match=(f"{_F32M} sym_halo main ",),
+                          phases={"mesh_modes_sym_halo": 1, "multiprocess_banded_sym_halo": 1}),
+                     dict(match=(f"{_L24M} main ",),
+                          phases={"heisenberg_l24_mesh": 1, "heisenberg_l24_multiprocess": 1})],
     "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
                  *(dict(match=(f"{_F32M} sym_halo {role} ", f"p={MAIN_WIDTH} "),
                         phases={"mesh_filters_lobpcg": _HALF}) for role in ("right", "right_adj")),
@@ -1204,11 +1228,12 @@ def mesh_kernels_phase(bsr32, pack, dev, gen, peaks, kernel_cases) -> None:
          cases=cases)
 
 
-def mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev) -> None:
+def mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev) -> dict:
     """eigsh(k=4, which="LA") on the n = 262,144 banded operator over a
     4-shard mesh of the card in each mode, and over a 2x2 mesh (the panel
     grid): eigenvalues against the single-device eigsh, true residuals, and
-    launches = matvecs x shards x parts."""
+    launches = matvecs x shards x parts.  Returns the runs by mode and the
+    host costs by shard count."""
     if banded_eigenvalues is None:
         res = eigsh(sym32, k=4, which="LA", tol=BANDED_TOL, max_restarts=400)
         banded_eigenvalues = np.asarray(res.eigenvalues, np.float64)
@@ -1249,10 +1274,12 @@ def mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev) ->
             fail(f"mesh_modes [{mode}]: residual {max(rr):.3e} exceeds {BANDED_RESID_LIMIT}")
         if counts != want:
             fail(f"mesh_modes [{mode}]: launches {counts}, expected {want}")
+    costs = mesh_host_costs(sym32, dev)
     emit("mesh_modes", n=sym32.shape[0], k=4, which="LA", tol=BANDED_TOL,
          eig_rel_limit=MESH_EIG_REL, resid_limit=BANDED_RESID_LIMIT,
          one_device_eigenvalues=banded_eigenvalues.tolist(), one_device_ms_per_matvec=banded_ms,
-         runs=runs, by_shard_count=mesh_host_costs(sym32, dev))
+         runs=runs, by_shard_count=costs)
+    return dict(runs={r["mode"]: r for r in runs}, by_shard_count=costs)
 
 
 def mesh_host_costs(sym, dev, steps: int = 64) -> dict:
@@ -1307,7 +1334,7 @@ def mesh_host_costs(sym, dev, steps: int = 64) -> dict:
 
 
 def heisenberg_l24_mesh_phase(acc24, triplets, e0_one, solve_one, drive, dev, peaks,
-                              kernel_cases) -> None:
+                              kernel_cases) -> dict:
     """BASELINE config 3 at L = 24 through the config-5b composition: the
     pack of phase heisenberg_l24 (not rebuilt) row-partitioned over four
     shards of the card on the sym_halo ring, the same f64 Rayleigh step,
@@ -1386,6 +1413,8 @@ def heisenberg_l24_mesh_phase(acc24, triplets, e0_one, solve_one, drive, dev, pe
              f"{L24_E0}: beyond {L24_MESH_E0_LIMIT}")
     if not rel_resid <= L24_RESID_LIMIT:
         fail(f"heisenberg_l24_mesh: residual {rel_resid:.3e} exceeds {L24_RESID_LIMIT}")
+    return dict(e0_f32=float(res.eigenvalues[0]), e0_f64=e0, matvecs=matvecs, seconds=seconds,
+                ms_per_matvec=seconds * 1e3 / max(matvecs, 1))
 
 
 def mesh_general_phase(drive, dev) -> None:
@@ -1588,6 +1617,349 @@ def config5_phase(drive, dev) -> None:
         fail(f"config5: 5b error {err_b:.3e} exceeds {CONFIG5_LIMIT}")
     if any(counts.values()):
         fail(f"config5: launches {counts}: f64 blocks take the plain route")
+
+
+# ---------------------------------------------------------------------------
+# the mesh across processes and the samples
+# ---------------------------------------------------------------------------
+MP_STEPS = 64              # multiprocess_banded: allgather Lanczos steps on 2 processes x 2 shards
+MP_EIG_REL = 1e-7          # multiprocess_banded: eigenvalues against the one-device eigsh, relative
+L24_MP_E0_LIMIT = 1e-12    # heisenberg_l24_multiprocess: E0 (same f64 Rayleigh step) against
+                           # phase heisenberg_l24's
+MP_TIMEOUT = 300.0         # seconds a spawn of workers may take (their start included)
+L24_MP_TIMEOUT = 600.0
+MP_WORK = Path(__file__).resolve().parent / "eigenex_tpu_torch" / "build"  # git-ignored
+
+
+def worker_threads(nproc: int) -> int:
+    """Intra-op threads of each of ``nproc`` workers: the host's cores shared
+    out, so that their thread pools do not fight over them."""
+    import os
+
+    return max(1, (os.cpu_count() or 1) // nproc)
+
+
+def sum_launches(results) -> dict:
+    """The workers' own launch counts of their solve, summed over processes."""
+    out = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    for res in results:
+        for k, c in res["launches"].items():
+            out[k] += c
+    return out
+
+
+def replicated_equal(results, key) -> bool:
+    return all(r[key] == results[0][key] for r in results[1:])
+
+
+def multiprocess_banded_phase(bsr32, sym32, mesh_runs, banded_eigenvalues, record, dev,
+                              work) -> None:
+    """The two scenarios of tests/test_multiprocess.py at full width, on the
+    banded operator of eigsh_banded, each process a worker of
+    ``eigenex_tpu_torch.parallel.multiproc`` on the one card (gloo): allgather
+    Lanczos steps on 2 processes x 2 shards, and eigsh in sym_halo on 4
+    processes x 1 shard.  Replicated outputs bit-equal across processes and
+    to the one-process mesh of 4 shards (the same steps here; the sym_halo
+    run of mesh_modes), eigenvalues within MP_EIG_REL of the one-device
+    eigsh, and launches = steps (matvecs) x shards x parts, summed from the
+    workers' own counters."""
+    from eigenex_tpu_torch.parallel.multiproc import psum_us, save_operator, scenario_steps, spawn
+
+    bsr_path, sym_path = work / "banded_bsr.npz", work / "banded_sym.npz"
+    save_operator(bsr_path, bsr32)
+    save_operator(sym_path, sym32)
+    steps_kw = dict(operator=dict(kind="npz", path=str(bsr_path)), steps=MP_STEPS,
+                    max_subspace=MP_STEPS + 1, seed=SEED, matvec_mode="allgather")
+    t0 = time.time()
+    steps = spawn("steps", 2, [str(dev)] * 2, steps_kw, timeout=MP_TIMEOUT,
+                  threads=worker_threads(2))
+    steps_wall = time.time() - t0
+    one = scenario_steps(card_mesh(dev), **steps_kw)
+    counts_ag = sum_launches(steps)
+    want_ag = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    want_ag["bsr_spmv"] = MP_STEPS * MESH_SHARDS
+    record("multiprocess_banded_allgather", "float32", counts_ag)
+    steps_equal = replicated_equal(steps, "alpha") and replicated_equal(steps, "beta")
+    steps_one = steps[0]["alpha"] == one["alpha"] and steps[0]["beta"] == one["beta"]
+
+    solve = dict(k=4, which="LA", tol=BANDED_TOL, max_restarts=400, matvec_mode="sym_halo")
+    t0 = time.time()
+    sym = spawn("eigsh", MESH_SHARDS, [str(dev)],
+                dict(operator=dict(kind="npz", path=str(sym_path)), solve=solve),
+                timeout=MP_TIMEOUT, threads=worker_threads(MESH_SHARDS))
+    sym_wall = time.time() - t0
+    counts_sh = sum_launches(sym)
+    matvecs = sym[0]["matvecs"]
+    want_sh = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    want_sh.update(sym_bsr_spmv=matvecs * MESH_SHARDS, bsr_spmv=2 * matvecs * MESH_SHARDS)
+    record("multiprocess_banded_sym_halo", "float32", counts_sh)
+    lam = np.asarray(sym[0]["eigenvalues"], np.float64)
+    sym_equal = replicated_equal(sym, "eigenvalues") and replicated_equal(sym, "matvecs")
+    one_mesh = mesh_runs.get("sym_halo") if mesh_runs else None
+    if one_mesh is None:  # mesh_modes did not run: the same call on one process here
+        res = eigsh(sym32, mesh=card_mesh(dev), **solve)
+        one_mesh = dict(eigenvalues=np.asarray(res.eigenvalues, np.float64).tolist(),
+                        matvecs=res.iterations, ms_per_matvec=None)
+    sym_one = list(lam) == list(one_mesh["eigenvalues"]) and matvecs == one_mesh["matvecs"]
+    rel = float(np.max(np.abs(lam - banded_eigenvalues) / np.abs(banded_eigenvalues)))
+    psum_one = psum_us(card_mesh(dev))
+    # the same processes' exchange with no card in it: a psum on CPU shards
+    psum_cpu = spawn("psum", MESH_SHARDS, ["cpu"], {}, timeout=MP_TIMEOUT, threads=1)
+    emit("multiprocess_banded", n=sym32.shape[0], backend=sym[0]["backend"],
+         allgather=dict(processes=2, shards_per_process=2, steps=MP_STEPS,
+                        bit_equal_across_processes=steps_equal,
+                        bit_equal_to_one_process_mesh=steps_one, seconds=steps[0]["seconds"],
+                        one_process_seconds=one["seconds"], spawn_wall_seconds=steps_wall,
+                        launches=counts_ag, launches_expected=want_ag),
+         sym_halo=dict(processes=MESH_SHARDS, shards_per_process=1, matvecs=matvecs,
+                       worker_threads=worker_threads(MESH_SHARDS),
+                       eigenvalues=lam.tolist(), bit_equal_across_processes=sym_equal,
+                       bit_equal_to_one_process_mesh=sym_one,
+                       max_rel_err_vs_one_device=rel, eig_rel_limit=MP_EIG_REL,
+                       seconds=sym[0]["seconds"],
+                       ms_per_matvec=sym[0]["seconds"] * 1e3 / max(matvecs, 1),
+                       one_process_ms_per_matvec=one_mesh.get("ms_per_matvec"),
+                       psum_us_across_processes=[r["psum_us"] for r in sym],
+                       psum_us_across_processes_cpu_shards=[r["psum_us"] for r in psum_cpu],
+                       psum_us_one_process=psum_one, spawn_wall_seconds=sym_wall,
+                       kept_device_gib=[r.get("kept_gib") for r in sym],
+                       host_peak_rss_gib=[r["host_peak_rss_gib"] for r in sym],
+                       launches=counts_sh, launches_expected=want_sh))
+    if not (steps_equal and steps_one):
+        fail("multiprocess_banded: allgather steps differ across processes "
+             f"({steps_equal}) or from the one-process mesh ({steps_one})")
+    if counts_ag != want_ag or counts_sh != want_sh:
+        fail(f"multiprocess_banded: launches {counts_ag} / {counts_sh}, expected "
+             f"{want_ag} / {want_sh}")
+    if not all(r["converged"] for r in sym) or not (sym_equal and sym_one):
+        fail("multiprocess_banded: sym_halo eigsh not converged, or not bit-equal across "
+             f"processes ({sym_equal}) and to the one-process mesh ({sym_one})")
+    if not rel <= MP_EIG_REL:
+        fail(f"multiprocess_banded: eigenvalues {lam} against one device {banded_eigenvalues}")
+
+
+def l24_pack_for_workers(acc24, work: Path) -> dict:
+    """The pack of phase heisenberg_l24 written once into ``work`` with
+    ``AcceleratedOperator.save``, for the workers of
+    heisenberg_l24_multiprocess to load (a full disk fails the phase), and
+    its size on the card."""
+    path = work / "l24_pack.npz"
+    free = shutil.disk_usage(work).free
+    t0 = time.time()
+    acc24.save(str(path))
+    return dict(disk_free_gib=free / 2 ** 30, save_seconds=time.time() - t0,
+                pack_gib=acc24.stats["bytes"] / 2 ** 30, operator=dict(kind="accelerated", path=str(path)))
+
+
+def heisenberg_l24_multiprocess_phase(pack, triplets, e0_one, solve_one, l24_mesh, record,
+                                      dev, work) -> None:
+    """BASELINE config 3 at L = 24 on 2 processes x 2 shards of the card
+    (gloo): phase heisenberg_l24_mesh with the process boundary in the middle
+    of the sym_halo ring.  The workers load the pack that
+    :func:`l24_pack_for_workers` wrote into host memory (this process has
+    freed its own copy) and place only their own shards, so that each
+    process's device peak stays below the whole pack; rank 0 writes the
+    Ritz vector, refined here by the same f64 Rayleigh step.  E0 within
+    L24_MP_E0_LIMIT of heisenberg_l24's, bit-equal across processes and to
+    heisenberg_l24_mesh's; launches summed from the workers' counters."""
+    from eigenex_tpu_torch.parallel.multiproc import spawn
+
+    r, c, v, dim = triplets
+    operator = pack["operator"]
+    vec_path = work / "l24_vector.npy"
+    t0 = time.time()
+    got = spawn("eigsh", 2, [str(dev)] * 2,
+                dict(operator=operator, solve=L24_SOLVE, vectors_to=str(vec_path)),
+                timeout=L24_MP_TIMEOUT, threads=worker_threads(2))
+    wall = time.time() - t0
+    psum_cpu = spawn("psum", 2, ["cpu"] * 2, {}, timeout=MP_TIMEOUT, threads=1)
+    Path(operator["path"]).unlink()
+    X = np.load(vec_path)
+    vec_path.unlink()
+    t0 = time.time()
+    lam, resid = rayleigh_refine(coo_from_numpy(r, c, v, (dim, dim), device="cpu"), X)
+    refine_s = time.time() - t0
+    e0, rel_resid = float(lam[0]), float(resid[0] / abs(lam[0]))
+    counts = sum_launches(got)
+    matvecs = got[0]["matvecs"]
+    want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    want.update(sym_bsr_spmv=MESH_SHARDS * matvecs, bsr_spmv=2 * MESH_SHARDS * matvecs)
+    record("heisenberg_l24_multiprocess", "bfloat16", counts)
+    e0_f32 = [res["eigenvalues"][0] for res in got]
+    across = len(set(e0_f32)) == 1 and replicated_equal(got, "matvecs")
+    same_as_mesh = None
+    if l24_mesh is not None:
+        same_as_mesh = (e0_f32[0] == l24_mesh["e0_f32"] and e0 == l24_mesh["e0_f64"]
+                        and matvecs == l24_mesh["matvecs"])
+    emit("heisenberg_l24_multiprocess", L=L24, sector_dim=dim, processes=2, shards_per_process=2,
+         mode="sym_halo", backend=got[0]["backend"], operator=operator["kind"],
+         pack_save_seconds=pack["save_seconds"], disk_free_gib=pack["disk_free_gib"],
+         worker_threads=worker_threads(2), options=L24_SOLVE,
+         converged=[res["converged"] for res in got], matvecs=matvecs,
+         one_device_matvecs=solve_one["matvecs"], e0_f32=e0_f32, e0_f64=e0,
+         e0_one_device=e0_one, e0_diff_one_device=abs(e0 - e0_one), e0_limit=L24_MP_E0_LIMIT,
+         e0_published=L24_E0, rel_residual_f64=rel_resid, bit_equal_across_processes=across,
+         bit_equal_to_one_process_mesh=same_as_mesh,
+         seconds=[res["seconds"] for res in got],
+         ms_per_matvec=got[0]["seconds"] * 1e3 / max(matvecs, 1),
+         one_process_seconds=None if l24_mesh is None else l24_mesh["seconds"],
+         one_process_ms_per_matvec=None if l24_mesh is None else l24_mesh["ms_per_matvec"],
+         psum_us_across_processes=[res["psum_us"] for res in got],
+         psum_us_across_processes_cpu_shards=[res["psum_us"] for res in psum_cpu],
+         spawn_wall_seconds=wall, refine_seconds=refine_s,
+         pack_device_gib=pack["pack_gib"], kept_device_gib=[res.get("kept_gib") for res in got],
+         peak_device_gib=[res.get("peak_gib") for res in got],
+         host_peak_rss_gib=[res["host_peak_rss_gib"] for res in got],
+         launches=counts, sym_bsr_spmv_launches=counts["sym_bsr_spmv"],
+         boundary_bsr_spmv_launches=counts["bsr_spmv"], launches_expected=want)
+    if not all(res["converged"] for res in got):
+        fail("heisenberg_l24_multiprocess: not converged")
+    if not all(res["peak_gib"] < pack["pack_gib"] for res in got):
+        fail(f"heisenberg_l24_multiprocess: a process's device peak "
+             f"{[res['peak_gib'] for res in got]} GiB reaches the whole pack's "
+             f"{pack['pack_gib']:.2f} GiB")
+    if abs(matvecs - solve_one["matvecs"]) > L24_SOLVE["max_subspace"]:
+        fail(f"heisenberg_l24_multiprocess: {matvecs} matvecs against {solve_one['matvecs']} "
+             "on one device: more than a restart apart")
+    if counts != want:
+        fail(f"heisenberg_l24_multiprocess: launches {counts}, expected {want}")
+    if not across or same_as_mesh is False:
+        fail(f"heisenberg_l24_multiprocess: E0 {e0_f32} not bit-equal across processes "
+             f"({across}) or to heisenberg_l24_mesh's ({same_as_mesh})")
+    if not abs(e0 - e0_one) <= L24_MP_E0_LIMIT:
+        fail(f"heisenberg_l24_multiprocess: E0 {e0!r} against heisenberg_l24's {e0_one!r}: "
+             f"beyond {L24_MP_E0_LIMIT}")
+    if not rel_resid <= L24_RESID_LIMIT:
+        fail(f"heisenberg_l24_multiprocess: residual {rel_resid:.3e} exceeds {L24_RESID_LIMIT}")
+
+
+EIG, F32 = 1e-10, 1e-6     # f64 eigenvalues; f32 iterations at the samples' tolerance of 1e-8
+#: what each sample of eigenex_tpu_torch/samples, run on the card, is held to against its
+#: CPU run: a tolerance on the numbers (relative to max(|x|, 1)), or "equal"; keys not
+#: named are printed only
+SAMPLE_HOLD = {
+    "accelerate": dict(stats="equal", symmetric="equal", complexified="equal",
+                       round_trip="equal", eigenvalues=F32, complex_eigenvalues=F32,
+                       mesh_eigenvalues=F32, one_device_eigenvalues=F32),
+    "arnoldi": dict(eigenvalues=EIG),
+    "block_tensor": dict(e0=EIG, sector="equal", stored_blocks="equal", hpsi_sectors="equal",
+                         rayleigh=EIG),
+    "dtensor": dict(contract=1e-12, batched=1e-12, kron=1e-12, trace=1e-12, diag=1e-12,
+                    sum=1e-12),
+    "lanczos1": dict(eigenvalues=EIG, eigenvectors=1e-9),
+    "lanczos2": dict(range=EIG, eigenvalues=EIG, oracle=EIG, converged="equal"),
+    "lobpcg": dict(prec_eigenvalues=EIG, pencil_eigenvalues=1e-9, closed_form=0.0),
+    "matrix_market": dict(nnz="equal", loaded_nnz="equal", triangle_nnz="equal",
+                          eigenvalues=EIG),
+    "product_indices": dict(dims="equal", size="equal", round_trips="equal",
+                            merged_dims="equal", merged="equal"),
+    "spectrum_slicing": dict(bounds=EIG, true_count="equal", count=1e-8, dos_integral=1e-8,
+                             eigenvalues=EIG, mesh_eigenvalues=EIG),
+    "tebd_ising": dict(energies=EIG, exact=EIG, bond_dims="equal"),
+    "tfi": dict(even=EIG, odd=EIG, exact=EIG, even_dim="equal", odd_dim="equal"),
+    "tpu_hybrid": dict(f32_eigenvalues=F32, rayleigh=1e-9, inverse_iteration=EIG, oracle=0.0),
+}
+
+
+def sample_diff(a, b) -> float:
+    """max |a - b| / max(|b|, 1) over the numbers of two sample outputs."""
+    if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], tuple):  # (labels, values)
+        if a[0] != b[0]:
+            return math.inf
+        a, b = a[1], b[1]
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return math.inf
+    if np.iscomplexobj(a) or np.iscomplexobj(b):  # conjugate pairs tie in |z|
+        key = lambda z: (round(abs(z), 8), z.real, abs(z.imag))  # noqa: E731
+        a, b = np.array(sorted(a.ravel(), key=key)), np.array(sorted(b.ravel(), key=key))
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0))) if a.size else 0.0
+
+
+def sample_accelerate_kernels(dev) -> dict:
+    """The kernels of sample_accelerate at the shapes its card run gives
+    them, each product against its plain version on the same inputs: the
+    chain's pack and the complex ring's real embedding on one device, and
+    every container of every shard of the chain's pack on the sample's
+    sym_halo mesh.  These launches are comparisons, counted nowhere."""
+    from eigenex_tpu_torch.samples import sample_accelerate as sa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(0)  # the sample's own draws, in its order
+    chain = accelerate(sa.chain_triplets(rng), device=dev)
+    ring = accelerate(sa.ring_triplets(rng), device=dev)
+    mesh = card_mesh(dev, sa.MESH_SHARDS)
+    mop = mesh_operator(pad_bsr_for_mesh(chain.matrix, mesh.size), mesh, matvec_mode="sym_halo")
+    containers = [("chain pack", chain.matrix), ("ring embedding pack", ring.matrix)] + [
+        (f"chain pack sym_halo shard {s} {role}", c)
+        for s, parts in enumerate(shard_pieces(mop)) for role, c in parts.roles().items()]
+    out = {}
+    for what, c in containers:
+        x = torch.randn(c.shape[1], generator=gen, device=dev)
+        shape = "x".join(map(str, (c.diag_data if isinstance(c, SymBSRMatrix) else c.data).shape))
+        kernel = "sym_bsr_spmv" if isinstance(c, SymBSRMatrix) else "bsr_spmv"
+        out[f"{kernel} {what} {shape} {str(c.dtype).replace('torch.', '')}"] = rel_to(
+            c.matvec(x), c._plain_matvec(x))
+    del mop
+    return out
+
+
+def samples_phase(dev) -> None:
+    """Every sample of eigenex_tpu_torch/samples on the card, each held to
+    the same sample's CPU run here (SAMPLE_HOLD), with each card run's
+    launches counted from 0 and printed in this phase's line; and the
+    kernels of sample_accelerate, the one sample that launches any, held
+    against their plain versions at its shapes.  The samples are not the
+    main path: their launches stay out of the result line, whose cases are
+    timed at the main path's shapes."""
+    import io
+
+    from eigenex_tpu_torch.samples import (sample_accelerate, sample_arnoldi, sample_block_tensor,
+                                           sample_dtensor, sample_lanczos1, sample_lanczos2,
+                                           sample_lobpcg, sample_matrix_market,
+                                           sample_product_indices, sample_spectrum_slicing,
+                                           sample_tebd_ising, sample_tfi, sample_tpu_hybrid)
+
+    modules = dict(accelerate=sample_accelerate, arnoldi=sample_arnoldi,
+                   block_tensor=sample_block_tensor, dtensor=sample_dtensor,
+                   lanczos1=sample_lanczos1, lanczos2=sample_lanczos2, lobpcg=sample_lobpcg,
+                   matrix_market=sample_matrix_market, product_indices=sample_product_indices,
+                   spectrum_slicing=sample_spectrum_slicing, tebd_ising=sample_tebd_ising,
+                   tfi=sample_tfi, tpu_hybrid=sample_tpu_hybrid)
+    out = {}
+    bad = []
+    for name, mod in modules.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.time()
+            cpu = mod.main(device="cpu")
+            cpu_s = time.time() - t0
+            cuda_spmv.reset_launch_counts()
+            t0 = time.time()
+            card = mod.main(device=str(dev))
+            torch.cuda.synchronize()
+            card_s = time.time() - t0
+        counts = cuda_spmv.launch_counts()
+        held = {}
+        for key, tol in SAMPLE_HOLD[name].items():
+            if tol == "equal":
+                ok = card[key] == cpu[key]
+                held[key] = ok
+            else:
+                d = sample_diff(card[key], cpu[key])
+                ok = d <= tol
+                held[key] = dict(diff=d, tol=tol)
+            if not ok:
+                bad.append(f"{name}.{key}")
+        out[name] = dict(card_seconds=card_s, cpu_seconds=cpu_s, held=held,
+                         launches={k: c for k, c in counts.items() if c})
+    kernels = sample_accelerate_kernels(dev)
+    emit("samples", eig_tol=EIG, f32_tol=F32, samples=out,
+         accelerate_kernels_rel_err=kernels, kernel_rel_tol=KERNEL_REL_TOL)
+    if bad:
+        fail(f"samples: the card's run differs from the CPU's in {bad}")
+    wrong = {k: e for k, e in kernels.items() if not e <= KERNEL_REL_TOL}
+    if wrong:
+        fail(f"samples: sample_accelerate's kernels against their plain versions: {wrong}")
 
 
 def main() -> None:
@@ -1813,6 +2185,14 @@ def main() -> None:
             main_launches[name] += c
         return out, seconds, counts
 
+    def record(phase: str, storage: str, counts: dict) -> None:
+        """A main-path phase whose launches were counted elsewhere (by the
+        worker processes), from 0."""
+        phase_storage[phase] = storage
+        per_phase[phase] = {k: counts.get(k, 0) for k in cuda_spmv.KERNEL_SOURCES}
+        for name, c in per_phase[phase].items():
+            main_launches[name] += c
+
     def only_kernel(name: str, count: int) -> dict:
         """The launch counts of a phase that went through one kernel only."""
         return {k: (count if k == name else 0) for k in cuda_spmv.KERNEL_SOURCES}
@@ -1853,8 +2233,19 @@ def main() -> None:
                               max_restarts=400)))
 
     # -- 26. mesh_modes: eigsh on the banded operator over a 4-shard mesh, each mode --
+    mesh_runs = None
     if wanted("mesh_modes"):
-        mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev)
+        mesh_runs = mesh_modes_phase(bsr32, sym32, banded_eigenvalues, banded_ms, drive, dev)["runs"]
+
+    # -- 31. multiprocess_banded: the mesh across processes (2 x 2 and 4 x 1) -------------
+    MP_WORK.mkdir(parents=True, exist_ok=True)
+    if wanted("multiprocess_banded"):
+        if banded_eigenvalues is None:
+            banded_eigenvalues = np.asarray(eigsh(sym32, k=4, which="LA", tol=BANDED_TOL,
+                                                  max_restarts=400).eigenvalues, np.float64)
+        with tempfile.TemporaryDirectory(dir=MP_WORK) as work:
+            multiprocess_banded_phase(bsr32, sym32, mesh_runs, banded_eigenvalues, record, dev,
+                                      Path(work))
 
     # -- 5. eigsh_accelerated --------------------------------------------------
     if (wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated")
@@ -2840,7 +3231,8 @@ def main() -> None:
             fail(f"native_parity: the native route differs from the numpy route: {equal}")
 
     # -- 24. heisenberg_l24: BASELINE config 3 at L = 24 on the native route -------------------
-    if wanted("heisenberg_l24") or wanted("heisenberg_l24_mesh"):
+    if (wanted("heisenberg_l24") or wanted("heisenberg_l24_mesh")
+            or wanted("heisenberg_l24_multiprocess")):
         torch.cuda.reset_peak_memory_stats()
         native.reset_native_calls()
         host = {}
@@ -2900,11 +3292,23 @@ def main() -> None:
              peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              peak_host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
         # -- 27. heisenberg_l24_mesh: the same pack over a 4-shard mesh of the card ----------
+        l24_mesh = None
         if wanted("heisenberg_l24_mesh"):
-            heisenberg_l24_mesh_phase(acc24, (r, c, v, dim), e0, solve, drive, dev, peaks,
-                                      kernel_cases)
-        del acc24, sym24, x24, r, c, v
+            l24_mesh = heisenberg_l24_mesh_phase(acc24, (r, c, v, dim), e0, solve, drive, dev,
+                                                 peaks, kernel_cases)
+        # -- 32. heisenberg_l24_multiprocess: the same pack on 2 processes x 2 shards -------
+        # (the workers load the pack from the disk: this process frees its copy first)
+        l24_work = tempfile.TemporaryDirectory(dir=MP_WORK)
+        l24_pack = None
+        if wanted("heisenberg_l24_multiprocess"):
+            l24_pack = l24_pack_for_workers(acc24, Path(l24_work.name))
+        del acc24, sym24, x24
         torch.cuda.empty_cache()
+        if l24_pack is not None:
+            heisenberg_l24_multiprocess_phase(l24_pack, (r, c, v, dim), e0, solve, l24_mesh,
+                                              record, dev, Path(l24_work.name))
+        l24_work.cleanup()
+        del r, c, v
         native_total("heisenberg_l24", calls)
         if dim != L24_DIM or st["dtype"] != "bfloat16" or not lossless:
             fail(f"heisenberg_l24: dim {dim}, pack dtype {st['dtype']} (lossless {lossless}): "
@@ -2918,6 +3322,10 @@ def main() -> None:
                  f"{abs(e0 - L24_E0):.3e} exceeds {L24_E0_LIMIT}")
         if not rel_resid <= L24_RESID_LIMIT:
             fail(f"heisenberg_l24: residual {rel_resid:.3e} exceeds {L24_RESID_LIMIT}")
+
+    # -- 33. samples: the 13 samples on the card, each held to its CPU run ------------------
+    if wanted("samples"):
+        samples_phase(dev)
 
     if only:
         emit("partial", phases=sorted(only), seconds=time.time() - t_start)

@@ -280,13 +280,15 @@ def split_bsr_halo(bsr: BSRMatrix, n_shards: int):
 def sym_inpanel_reach(in_data, in_cols, rows_per: int) -> int:
     """Max in-panel block band reach (local col - local row) over the
     stored non-zero in-panel upper blocks (0 when there are none)."""
-    nbr, ku = in_cols.shape
-    if nbr == 0 or ku == 0:
+    lr = torch.arange(in_cols.shape[0], dtype=torch.int64, device=in_cols.device) % rows_per
+    return _inpanel_reach(_nonzero_blocks(in_data), in_cols.long(), lr[:, None])
+
+
+def _inpanel_reach(nz, local_cols, local_rows) -> int:
+    """Max (local col - local row) over the blocks ``nz`` (0 when none)."""
+    if nz.numel() == 0:
         return 0
-    lr = torch.arange(nbr, dtype=torch.int64, device=in_cols.device) % rows_per
-    nz = _nonzero_blocks(in_data)
-    d = torch.where(nz, in_cols.long() - lr[:, None], 0)
-    return max(int(d.max()), 0)
+    return max(int(torch.where(nz, local_cols - local_rows, 0).max()), 0)
 
 
 def split_sym_bsr_halo(sym: SymBSRMatrix, n_shards: int):
@@ -295,10 +297,19 @@ def split_sym_bsr_halo(sym: SymBSRMatrix, n_shards: int):
     shard-local block-column ids.  Upper blocks must lie in the own or the
     immediately-right panel (c > r always holds for upper storage),
     otherwise raises -- use all-gather then."""
+    return _split_sym(sym, n_shards)[:3]
+
+
+def _split_sym(sym: SymBSRMatrix, n_shards: int, rows: range | None = None):
+    """:func:`split_sym_bsr_halo` of the block rows ``rows`` only (whole
+    panels; default all), and the in-panel reach of the whole operator.
+    The slot widths are the whole operator's, so a process that splits only
+    its own shards' rows gets their rows of the whole split bit for bit."""
     nbr = sym.n_block_rows
     if nbr % n_shards:
         raise EigenexError("pad the operator before split_sym_bsr_halo")
     rows_per = nbr // n_shards
+    rows = range(nbr) if rows is None else rows
     ud = sym.upper_data
     uc = sym.upper_cols.long()
     bm, bn = sym.block_shape
@@ -316,15 +327,19 @@ def split_sym_bsr_halo(sym: SymBSRMatrix, n_shards: int):
         )
     slot, counts = _slots(nz, cls, 2)
     local = uc % rows_per
-    rows_out = torch.arange(nbr, device=dev)[:, None].expand_as(uc)
+    row_ids = torch.arange(nbr, device=dev)[:, None]
+    reach = _inpanel_reach(nz & (cls == 0), local, row_ids % rows_per)
+    rows_out = (row_ids - rows.start).expand_as(uc)
+    mine = torch.zeros((nbr, 1), dtype=torch.bool, device=dev)
+    mine[rows.start:rows.stop] = True
     out = []
     for c in range(2):
         kk = max(counts[c], 1)
-        od = torch.zeros((nbr, kk, bm, bn), dtype=ud.dtype, device=dev)
-        oc = torch.zeros((nbr, kk), dtype=torch.int32, device=dev)
-        _scatter(od, oc, ud, nz & (cls == c), rows_out, slot, local)
+        od = torch.zeros((len(rows), kk, bm, bn), dtype=ud.dtype, device=dev)
+        oc = torch.zeros((len(rows), kk), dtype=torch.int32, device=dev)
+        _scatter(od, oc, ud, nz & (cls == c) & mine, rows_out, slot, local)
         out.append((od, oc))
-    return sym.diag_data, out[0], out[1]
+    return sym.diag_data[rows.start:rows.stop], out[0], out[1], reach
 
 
 def split_bsr_colpanels(bsr: BSRMatrix, n_shards: int):
@@ -479,11 +494,14 @@ class _MeshPack:
 def _per_axis(mesh: Mesh, axes, make) -> Sharded:
     """A :class:`Sharded` whose piece for shard s is ``make(i, device)``
     with i the shard's index along ``axes`` (built once per index and
-    device)."""
+    device, for this process's shards only)."""
     lay = _Layout(mesh)
     built: dict = {}
     pieces = []
     for s, dev in enumerate(mesh.flat_devices):
+        if not mesh.is_local(s):
+            pieces.append(None)
+            continue
         i = lay.index(s, axes)
         if (i, dev) not in built:
             built[(i, dev)] = make(i, dev)
@@ -505,12 +523,20 @@ def _mesh_pack(A, mesh: Mesh, axis_name: str, mode: str, split=None) -> _MeshPac
     n_local = rows_per * bm
     sym_reach = -1
     if mode == "sym_halo":
+        first = 0
         if split is None:
+            # this process's shards only: the span of its panels along the axis
             sym = A if isinstance(A, SymBSRMatrix) else sym_bsr_from_bsr(A)
-            split = split_sym_bsr_halo(sym, nd)
-        sym_reach = sym_inpanel_reach(split[1][0], split[1][1], rows_per)
+            lay = _Layout(mesh)
+            idx = [lay.index(s, (axis_name,)) for s in mesh.local_shards]
+            first = min(idx)
+            *split, sym_reach = _split_sym(sym, nd, range(first * rows_per,
+                                                         (max(idx) + 1) * rows_per))
+        else:
+            sym_reach = sym_inpanel_reach(split[1][0], split[1][1], rows_per)
         parts = _per_axis(mesh, (axis_name,),
-                          lambda i, dev: _sym_parts(split, rows_per, i, bn, sym_reach, dev))
+                          lambda i, dev: _sym_parts(split, rows_per, i - first, bn, sym_reach,
+                                                    dev))
     elif mode == "halo":
         if split is None:
             split = split_bsr_halo(A, nd)
@@ -868,10 +894,13 @@ class _DistributedBSRSolverMixin:
                 "the other modes need full-storage block rows"
             )
         self._halo_parts = _chunk_pack(bsr, mesh, axis_name, matvec_mode, None)
+        # the host loop's operator: the placed shards' product, on the mesh's
+        # first device (``bsr`` itself may stay in host memory)
+        self.operator = _pack_operator(self._halo_parts, mesh, axis_name, bsr)
         if bsr.shape[0] != orig_n:
             self._initial_vector = _padding_safe_v0(
                 orig_n, bsr.shape[0], accumulation_dtype(bsr.dtype), self.options.seed,
-                bsr.device,
+                mesh.first_device,
             )
 
     def compute(self, *args, **kwargs):
@@ -1080,7 +1109,11 @@ def mesh_operator(A, mesh: Mesh | None = None, *, axis_name: str = ROWS,
             f"{A.n_block_rows} block rows not divisible by {nd} shards — "
             "use pad_bsr_for_mesh first"
         )
-    pack = _chunk_pack(A, mesh, axis_name, matvec_mode, None)
+    return _pack_operator(_chunk_pack(A, mesh, axis_name, matvec_mode, None), mesh, axis_name, A)
+
+
+def _pack_operator(pack: _MeshPack, mesh: Mesh, axis_name: str, A) -> LinearOperator:
+    """The :class:`LinearOperator` of ``A`` placed on ``mesh`` as ``pack``."""
 
     def mv(p, x):
         return _mesh_apply(p, mesh, axis_name, x, False)
@@ -1089,7 +1122,7 @@ def mesh_operator(A, mesh: Mesh | None = None, *, axis_name: str = ROWS,
         return _mesh_apply(p, mesh, axis_name, X, True)
 
     return LinearOperator(
-        mv, pack, A.shape, accumulation_dtype(A.dtype), mesh.flat_devices[0],
+        mv, pack, A.shape, accumulation_dtype(A.dtype), mesh.first_device,
         rmatvec_fn=mv if isinstance(A, SymBSRMatrix) else None, matmat_fn=mm,
     )
 
@@ -1131,7 +1164,7 @@ def mesh_operator_2d(A: BSRMatrix, mesh: Mesh, *, row_axis: str | None = None,
 
     return LinearOperator(
         lambda p, x: apply(p, x, False), parts, A.shape, accumulation_dtype(A.dtype),
-        mesh.flat_devices[0], matmat_fn=lambda p, X: apply(p, X, True),
+        mesh.first_device, matmat_fn=lambda p, X: apply(p, X, True),
     )
 
 

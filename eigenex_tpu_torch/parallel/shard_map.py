@@ -1,22 +1,23 @@
-"""``shard_map`` and the mesh collectives: one process, N shards.
+"""``shard_map`` and the mesh collectives: N shards, one process or several.
 
 Counterpart of ``jax.shard_map`` with ``lax.psum``, ``lax.all_gather``,
 ``lax.psum_scatter`` and ``lax.ppermute``, which the JAX package's
-distributed layer is written in.  The JAX package is single-controller:
-one process owns every local device, ``shard_map`` runs one body per
-shard, and a body's collectives name a mesh axis.  The port keeps that
-model instead of one process per device over ``torch.distributed``,
-because NCCL refuses two ranks on one GPU: a multi-process port could only
-ever run at world size 1 on a machine with one card, and its halo,
-column-split and grid exchanges would never reach the card.  Here a mesh
+distributed layer is written in.  The JAX package is single-controller
+within a process: one process owns every local device, ``shard_map`` runs
+one body per shard, and a body's collectives name a mesh axis.  The port
+keeps that model instead of one process per device over
+``torch.distributed``, because NCCL refuses two ranks on one GPU: a port of
+one process a device could only ever run at world size 1 on a machine with
+one card, and its halo, column-split and grid exchanges would never reach
+the card.  Here a mesh
 may name one device several times (``["cuda:0"] * 4``), and every shard
 runs its body.
 
 - :func:`shard_map` splits each global tensor argument by its spec
   (:class:`P`) into per-shard pieces on each shard's device, runs ``body``
   once per shard -- **one worker thread per shard, each on its own CUDA
-  stream** -- and reassembles the outputs.  A replicated output is shard
-  0's (``check=True`` asserts that every shard agrees).  An argument that
+  stream** -- and reassembles the outputs.  A replicated output is the
+  first local shard's (``check=True`` asserts that every local shard agrees).  An argument that
   is already a :class:`Sharded` passes its pieces through untouched, and
   ``gather=False`` keeps sharded outputs as :class:`Sharded`, so a basis
   stays in per-shard panels between two calls; operator pieces are placed
@@ -46,6 +47,23 @@ runs its body.
   its producer's stream; the consumer waits on that event and records its
   own stream on the tensor for the caching allocator.
 
+**A mesh across processes** (:func:`~eigenex_tpu_torch.parallel.mesh.make_mesh`
+after :func:`~eigenex_tpu_torch.parallel.mesh.initialize_multihost`): each
+process runs its own shards as above; their collectives still take turns.
+The last local shard to arrive exchanges the terms of all local shards with
+the other processes in one all-gather of the mesh's process group (bytes,
+so every dtype crosses bit for bit; through pinned host memory on gloo),
+and combines all N terms in global shard order, as one process does.  So
+replicated results are bit-equal across processes and to a one-process
+mesh of the same shard count.  A :class:`Sharded` holds only the local
+pieces (None for another process's shards); ``gather``, ``combine`` and a
+``shard_map`` split output with ``gather=True`` all-gather across processes
+and are collectives of every process, which the drivers use for the Ritz
+vectors and the mesh operators' products, never for a basis.  A failing
+or stuck process makes the others raise within the process group's
+timeout (``initialize_multihost(timeout=)``, 600 s by default) or as soon
+as its connection closes.
+
 Worker threads never touch the process-wide f32 matmul precision: the
 front ends pin it once around the whole call
 (:func:`~eigenex_tpu_torch.utils.precision.highest_f32_matmul`).  Python
@@ -63,12 +81,12 @@ import numpy as np
 import torch
 
 from ..utils.exceptions import EigenexError
-from .mesh import Mesh
+from .mesh import COLLECTIVE_TIMEOUT, Mesh
 
 __all__ = ["P", "Sharded", "ShardComm", "AxisComm", "shard_map", "DEFAULT_TIMEOUT"]
 
 #: seconds a shard waits at a collective for the others
-DEFAULT_TIMEOUT = 600.0
+DEFAULT_TIMEOUT = COLLECTIVE_TIMEOUT
 
 
 class P(tuple):
@@ -144,9 +162,10 @@ class _Layout:
 class Sharded:
     """A value split over a mesh: one piece per shard (shard order), the
     global ``shape`` and the ``spec`` that split it.  Pieces may be tensors
-    or any per-shard object (the placed operator containers).  Row indexing
-    of a tensor split along dim 1 (``V[k]``, ``V[:k]``) gives the pieces'
-    views, as a basis held in per-shard column panels needs."""
+    or any per-shard object (the placed operator containers); on a mesh
+    across processes another process's pieces are None.  Row indexing of a
+    tensor split along dim 1 (``V[k]``, ``V[:k]``) gives the pieces' views,
+    as a basis held in per-shard column panels needs."""
 
     def __init__(self, pieces: Sequence, spec: P, mesh: Mesh, shape=None):
         self.pieces = list(pieces)
@@ -154,26 +173,34 @@ class Sharded:
         self.mesh = mesh
         self.shape = tuple(shape) if shape is not None else None
 
+    @property
+    def local_pieces(self) -> list:
+        """This process's pieces, in shard order."""
+        return [self.pieces[s] for s in self.mesh.local_shards]
+
     # -- tensor-like surface of a split tensor ---------------------------
     @property
     def dtype(self):
-        return self.pieces[0].dtype
+        return self.local_pieces[0].dtype
 
     @property
     def device(self):
-        return self.pieces[0].device
+        return self.local_pieces[0].device
 
     def is_complex(self) -> bool:
-        return self.pieces[0].is_complex()
+        return self.local_pieces[0].is_complex()
 
     def _split(self):
         return _split_dim(self.spec)
+
+    def _each(self, fn) -> list:
+        return [None if p is None else fn(s, p) for s, p in enumerate(self.pieces)]
 
     def __getitem__(self, idx):
         dim, axes = self._split()
         if dim == 0:
             raise EigenexError("Sharded: indexing along the split dimension is not supported")
-        out = [p[idx] for p in self.pieces]
+        out = self._each(lambda s, p: p[idx])
         drops = 1 if isinstance(idx, int) else 0
         spec = list(self.spec)[drops:] if drops else list(self.spec)
         shape = None
@@ -183,36 +210,102 @@ class Sharded:
         return Sharded(out, P(*spec), self.mesh, shape)
 
     def clone(self) -> "Sharded":
-        return Sharded([p.clone() for p in self.pieces], self.spec, self.mesh, self.shape)
+        return Sharded(self._each(lambda s, p: p.clone()), self.spec, self.mesh, self.shape)
 
     def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
-        """``fn(piece, *other pieces)`` on every shard, same spec."""
-        outs = [fn(p, *(o.pieces[s] for o in others)) for s, p in enumerate(self.pieces)]
+        """``fn(piece, *other pieces)`` on every local shard, same spec."""
+        outs = self._each(lambda s, p: fn(p, *(o.pieces[s] for o in others)))
         return Sharded(outs, self.spec, self.mesh, None)
 
     def combine(self, fn: Callable, dim: int | None = None) -> torch.Tensor:
         """``fn(piece)`` on each piece, joined along ``dim`` (default: the
-        split dimension) into one tensor on the mesh's first device."""
+        split dimension) into one tensor on the mesh's first local device;
+        across processes a collective of every process."""
         split_dim, axes = self._split()
-        return _join([fn(p) for p in self.pieces], self.mesh,
+        return _join(self._each(lambda s, p: fn(p)), self.mesh,
                      split_dim if dim is None else dim, axes)
 
     def gather(self) -> torch.Tensor:
-        """The global tensor on the mesh's first device."""
+        """The global tensor on the mesh's first local device (across
+        processes a collective of every process)."""
         return self.combine(lambda p: p)
 
 
 def _join(pieces: list, mesh: Mesh, dim: int, axes) -> torch.Tensor:
     """Concatenate one piece per index along ``axes`` (the first shard
-    holding each index) on the mesh's first device."""
+    holding each index) on the mesh's first local device, all-gathering
+    the pieces of other processes."""
     lay = _Layout(mesh)
+    dev0 = mesh.first_device
+    if mesh.multiprocess:
+        local = [pieces[s] for s in mesh.local_shards]
+        local = [p if p.device == dev0 else p.to(dev0) for p in local]
+        pieces = across_processes(mesh, local, dev0)
     first = {}
     for s in range(mesh.size):
         first.setdefault(lay.index(s, axes), s)
-    dev0 = mesh.flat_devices[0]
     parts = [pieces[first[i]] for i in range(lay.size(axes))]
     parts = [p if p.device == dev0 else p.to(dev0) for p in parts]
     return torch.cat(parts, dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# the exchange across processes
+# ---------------------------------------------------------------------------
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous().reshape(-1)
+    if t.is_complex():
+        t = torch.view_as_real(t).reshape(-1)
+    return t.view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.is_complex():
+        real = torch.empty((), dtype=like.dtype).real.dtype
+        return torch.view_as_complex(b.view(real).reshape(tuple(like.shape) + (2,)))
+    return b.view(like.dtype).reshape(like.shape)
+
+
+def across_processes(mesh: Mesh, local: list, device) -> list:
+    """Every shard's tensor, in shard order, from this process's tensors of
+    its local shards (``local``, in shard order, of one shape and dtype on
+    ``device``): one all-gather of the mesh's process group.  A process's
+    own tensors are returned as given; the others' arrive on ``device``.
+    On gloo a CUDA term is staged through pinned host memory."""
+    import torch.distributed as dist
+
+    owners = mesh.processes.reshape(-1)
+    world = mesh.process_count
+    per_process = [int(np.sum(owners == p)) for p in range(world)]
+    rows = max(per_process)
+    like = local[0]
+    if any(t.shape != like.shape or t.dtype != like.dtype for t in local):
+        raise EigenexError("a collective across processes needs terms of one shape and dtype")
+    buf = torch.stack([_as_bytes(t) for t in local])
+    if buf.shape[0] < rows:
+        buf = torch.cat([buf, buf.new_zeros((rows - buf.shape[0], buf.shape[1]))])
+    if mesh.backend == "nccl":
+        out = buf.new_empty((world,) + tuple(buf.shape))
+        dist.all_gather_into_tensor(out, buf, group=mesh.group)
+        got = list(out)
+    else:
+        if buf.device.type == "cuda":
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf)
+        else:
+            host = buf.cpu()
+        parts = [torch.empty_like(host) for _ in range(world)]
+        dist.all_gather(parts, host, group=mesh.group)
+        got = [p.to(device, non_blocking=True) if p.device != device else p for p in parts]
+    seen = [0] * world
+    out_list = []
+    mine = iter(local)
+    for s in range(mesh.size):
+        p = int(owners[s])
+        j = seen[p]
+        seen[p] += 1
+        out_list.append(next(mine) if p == mesh.process_index else _from_bytes(got[p][j], like))
+    return out_list
 
 
 def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -226,14 +319,18 @@ def _place(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def split_tensor(x: torch.Tensor, spec: P, mesh: Mesh, *, place: bool = False) -> Sharded:
-    """``x`` split by ``spec`` into per-shard pieces on each shard's device
-    (views on a shard that shares ``x``'s device; ``place=True`` makes
-    every piece contiguous and aligned)."""
+    """``x`` split by ``spec`` into per-shard pieces on each local shard's
+    device (views on a shard that shares ``x``'s device; ``place=True``
+    makes every piece contiguous and aligned; None for another process's
+    shards)."""
     lay = _Layout(mesh)
     split = _split_dim(spec)
     pieces = []
     cache: dict = {}
     for s, dev in enumerate(mesh.flat_devices):
+        if not mesh.is_local(s):
+            pieces.append(None)
+            continue
         if split is None:
             key = (None, dev)
             if key not in cache:
@@ -262,28 +359,34 @@ def split_tensor(x: torch.Tensor, spec: P, mesh: Mesh, *, place: bool = False) -
 # the rendezvous of one shard_map call
 # ---------------------------------------------------------------------------
 class _Rendezvous:
-    """The shards of one call take turns: shard 0 runs until its first
-    collective, hands the turn to shard 1, and so on; the last shard to
-    arrive completes the exchange and hands the turn back to shard 0.  So
+    """The local shards of one call take turns: the first runs until its
+    first collective, hands the turn to the second, and so on; the last to
+    arrive completes the exchange and hands the turn back to the first.  So
     one shard thread runs Python at a time -- the GIL would serialise them
-    anyway, and taking turns saves the threads from fighting over it -- while
-    the kernels each shard launched keep running on its own stream.  Every
-    wait for the turn has the timeout.  Two slot buffers are used in turn: a
-    shard publishes for collective j+1 only after every shard has read j.
+    anyway, and taking turns saves the threads from fighting over it --
+    while the kernels each shard launched keep running on its own stream.
+    Every wait for the turn has the timeout.  Two slot buffers are used in
+    turn: a shard publishes for collective j+1 only after every shard has
+    read j.
 
     The last shard to arrive computes the collective for all of them
-    (``combine``) on its own device: a reduction is added once, in shard
-    order, and each shard's result is moved to that shard's device (a copy
-    only where the devices differ).  Results of a collective are shared,
-    and so are read-only for the bodies."""
+    (``combine``, over every shard of the mesh in shard order) on its own
+    device; on a mesh across processes it first gathers the other
+    processes' terms (:func:`across_processes`).  A reduction is added
+    once, in shard order, and each local shard's result is moved to that
+    shard's device (a copy only where the devices differ).  Results of a
+    collective are shared, and so are read-only for the bodies.  ``pos``
+    below is a shard's position among the local shards."""
 
-    def __init__(self, devices: list, timeout: float):
-        self.n = n = len(devices)
-        self.devices = devices
+    def __init__(self, mesh: Mesh, timeout: float):
+        self.mesh = mesh
+        self.local = list(mesh.local_shards)
+        self.n = n = len(self.local)
+        self.devices = devices = [mesh.flat_devices[s] for s in self.local]
         self.timeout = timeout
         self.turns = [threading.Lock() for _ in range(n)]
         for lock in self.turns[1:]:
-            lock.acquire()  # shard 0 holds the first turn
+            lock.acquire()  # the first local shard holds the first turn
         self.slots = [[None] * n, [None] * n]
         self.results = [None, None]
         self.seq = [0] * n
@@ -294,8 +397,8 @@ class _Rendezvous:
         self.events = [[torch.cuda.Event(), torch.cuda.Event()] for _ in range(n)] if cuda else None
         self.result_events = [torch.cuda.Event(), torch.cuda.Event()] if cuda else None
 
-    def wait_turn(self, shard: int):
-        if not self.turns[shard].acquire(timeout=self.timeout) or self.aborted:
+    def wait_turn(self, pos: int):
+        if not self.turns[pos].acquire(timeout=self.timeout) or self.aborted:
             self.abort()
             raise _Aborted()
 
@@ -306,36 +409,40 @@ class _Rendezvous:
         except RuntimeError:  # already released by an abort
             pass
 
-    def pass_turn(self, shard: int):
-        if shard + 1 < self.n:
-            self._release(self.turns[shard + 1])
+    def pass_turn(self, pos: int):
+        if pos + 1 < self.n:
+            self._release(self.turns[pos + 1])
 
-    def exchange(self, shard: int, value, combine, stream=None):
+    def exchange(self, pos: int, value, combine, stream=None):
         """Publish ``value`` and return this shard's entry of
         ``combine(values)``, computed once by the last shard to arrive."""
         if self.aborted:
             raise _Aborted()
-        j = self.seq[shard]
-        self.seq[shard] = j + 1
+        j = self.seq[pos]
+        self.seq[pos] = j + 1
         buf = self.slots[j % 2]
         event = None
         if stream is not None and isinstance(value, torch.Tensor):
-            event = self.events[shard][j % 2]
+            event = self.events[pos][j % 2]
             event.record(stream)
-        buf[shard] = (value, event)
-        if shard == self.n - 1:
+        buf[pos] = (value, event)
+        if pos == self.n - 1:
             # the round is complete: compute every shard's result, once
-            dev = self.devices[shard]
-            values = [_receive(item, stream, s == shard, dev) for s, item in enumerate(buf)]
-            self.results[j % 2] = [r if r.device == d else r.to(d, non_blocking=True)
-                                   for r, d in zip(combine(values), self.devices)]
+            dev = self.devices[pos]
+            values = [_receive(item, stream, q == pos, dev) for q, item in enumerate(buf)]
+            if self.mesh.multiprocess:
+                values = across_processes(self.mesh, values, dev)
+            results = combine(values)
+            self.results[j % 2] = [results[s] if results[s].device == d
+                                   else results[s].to(d, non_blocking=True)
+                                   for s, d in zip(self.local, self.devices)]
             if stream is not None:
                 self.result_events[j % 2].record(stream)
-        # the last shard to arrive starts the next round at shard 0
-        self._release(self.turns[(shard + 1) % self.n])
-        self.wait_turn(shard)
-        out = self.results[j % 2][shard]
-        if stream is not None and shard != self.n - 1:
+        # the last shard to arrive starts the next round at the first
+        self._release(self.turns[(pos + 1) % self.n])
+        self.wait_turn(pos)
+        out = self.results[j % 2][pos]
+        if stream is not None and pos != self.n - 1:
             stream.wait_event(self.result_events[j % 2])
             out.record_stream(stream)
         return out
@@ -408,6 +515,7 @@ class ShardComm:
 
     def __init__(self, shard: int, layout: _Layout, rdv: _Rendezvous, device, stream=None):
         self.shard = shard
+        self._pos = rdv.local.index(shard)
         self._lay = layout
         self._rdv = rdv
         self.device = device
@@ -436,7 +544,7 @@ class ShardComm:
         group's results, once."""
         axes = _axes_of(axes)
         lay = self._lay
-        n = self._rdv.n
+        n = lay.mesh.size
 
         def combine(values):
             out = [None] * n
@@ -447,7 +555,7 @@ class ShardComm:
                         out[g] = result
             return out
 
-        return self._rdv.exchange(self.shard, x, combine, self._stream)
+        return self._rdv.exchange(self._pos, x, combine, self._stream)
 
     def psum(self, x, axes):
         return self._collective(x, axes, lambda terms: [_add_in_order(terms)] * len(terms))
@@ -513,9 +621,14 @@ class _Worker:
         while True:
             fn, done = self.tasks.get()
             try:
-                done.put((True, fn(self)))
+                out = (True, fn(self))
             except BaseException as e:  # handed to the caller
-                done.put((False, e))
+                out = (False, e)
+            # an idle worker holds nothing of its last task (its operands,
+            # its collectives' terms) once the caller has the result
+            del fn
+            done.put(out)
+            del done, out
 
 
 _POOL: list[_Worker] = []
@@ -537,14 +650,16 @@ def _workers(n: int) -> list[_Worker]:
 
 
 def _run_shards(mesh: Mesh, task: Callable[[int, "ShardComm"], Any], timeout: float) -> list:
-    """``task(shard, comm)`` on every shard, one worker thread each; the
-    results in shard order, or the first error re-raised."""
+    """``task(shard, comm)`` on every local shard, one worker thread each;
+    the results in shard order (None for another process's shards), or the
+    first error re-raised."""
     if getattr(_IN_WORKER, "active", False):
         raise EigenexError("shard_map cannot be called from inside a shard body")
-    n = mesh.size
     lay = _Layout(mesh)
-    devices = mesh.flat_devices
-    rdv = _Rendezvous(devices, timeout)
+    rdv = _Rendezvous(mesh, timeout)
+    local = rdv.local
+    n = len(local)
+    devices = rdv.devices
     # intra-op threads are a per-thread setting: the shard threads take the
     # caller's, so that N shards do not each start a full pool
     intra_op = torch.get_num_threads()
@@ -555,15 +670,16 @@ def _run_shards(mesh: Mesh, task: Callable[[int, "ShardComm"], Any], timeout: fl
             ev.record(torch.cuda.current_stream(dev))
             start[dev] = ev
 
-    def make(s: int):
-        dev = devices[s]
+    def make(pos: int):
+        dev = devices[pos]
+        s = local[pos]
 
         def fn(worker: _Worker):
             _IN_WORKER.active = True
             try:
                 if torch.get_num_threads() != intra_op:
                     torch.set_num_threads(intra_op)
-                rdv.wait_turn(s)
+                rdv.wait_turn(pos)
                 if dev.type == "cuda":
                     stream = worker.stream(dev)
                     comm = ShardComm(s, lay, rdv, dev, stream)
@@ -577,7 +693,7 @@ def _run_shards(mesh: Mesh, task: Callable[[int, "ShardComm"], Any], timeout: fl
                     comm = ShardComm(s, lay, rdv, dev)
                     with torch.no_grad():
                         out = (task(s, comm), None)
-                rdv.pass_turn(s)
+                rdv.pass_turn(pos)
                 return out
             except BaseException:
                 rdv.abort()
@@ -624,11 +740,11 @@ def _run_shards(mesh: Mesh, task: Callable[[int, "ShardComm"], Any], timeout: fl
             f"shard_map: a collective waited more than {timeout:g} s for a shard "
             "(a shard hung or never reached it)"
         )
-    outs = []
-    for dev, (out, done) in zip(devices, results):
+    outs: list = [None] * mesh.size
+    for s, dev, (out, done) in zip(local, devices, results):
         if done is not None:
             torch.cuda.current_stream(dev).wait_event(done)
-        outs.append(out)
+        outs[s] = out
     return outs
 
 
@@ -651,7 +767,7 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *, check: bool = 
     ``out_specs``: a :class:`P` for a body that returns one value, or a
     tuple of them.  ``gather=False`` returns split outputs as
     :class:`Sharded` instead of global tensors.  ``check=True`` asserts
-    that replicated outputs agree on every shard.  ``timeout``: seconds a
+    that replicated outputs agree on every local shard.  ``timeout``: seconds a
     collective waits (default :data:`DEFAULT_TIMEOUT`)."""
     single = isinstance(out_specs, P)
     outs_spec = (out_specs,) if single else tuple(out_specs)
@@ -671,7 +787,8 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *, check: bool = 
                 local.append(a.pieces)
             elif isinstance(a, torch.Tensor):
                 if _split_dim(spec) is None:
-                    local.append([a.to(dev, copy=True) for dev in mesh.flat_devices])
+                    local.append([a.to(dev, copy=True) if mesh.is_local(s) else None
+                                  for s, dev in enumerate(mesh.flat_devices)])
                 else:
                     local.append(split_tensor(a, spec, mesh).pieces)
             else:
@@ -682,26 +799,27 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *, check: bool = 
             return (out,) if single else tuple(out)
 
         per_shard = _run_shards(mesh, task, timeout)
+        first = mesh.local_shards[0]
         results = []
         for j, spec in enumerate(outs_spec):
             spec = P(*spec)
-            vals = [o[j] for o in per_shard]
+            vals = [None if o is None else o[j] for o in per_shard]
             split = _split_dim(spec)
             if split is None:
                 if check:
-                    for s, v in enumerate(vals[1:], 1):
-                        if not _values_equal(vals[0], v):
+                    for s in mesh.local_shards[1:]:
+                        if not _values_equal(vals[first], vals[s]):
                             raise EigenexError(
                                 f"shard_map: replicated output {j} differs on shard {s}"
                             )
-                results.append(vals[0])
+                results.append(vals[first])
             elif gather:
                 results.append(_join(vals, mesh, *split))
             else:
                 shape = None
-                if all(isinstance(v, torch.Tensor) for v in vals):
+                if all(isinstance(vals[s], torch.Tensor) for s in mesh.local_shards):
                     dim, axes = split
-                    shape = list(vals[0].shape)
+                    shape = list(vals[first].shape)
                     shape[dim] *= _Layout(mesh).size(axes)
                 results.append(Sharded(vals, spec, mesh, shape))
         return results[0] if single else tuple(results)

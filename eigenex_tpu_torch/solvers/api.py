@@ -530,7 +530,9 @@ def _eigsh_accelerated_mesh(
     composition of the RCM + half-storage pack (``accelerate=``) and the
     row-partitioned iteration (``mesh=``), the route for operators past one
     card's memory (BASELINE config 5b).  The packed SymBSRMatrix rides the
-    sym_halo ring; a multi-axis mesh is flattened.  The start vector is zero
+    sym_halo ring; a multi-axis mesh is flattened.  The pack may stay in
+    host memory (``AcceleratedOperator.load(path, device="cpu")``): each
+    process places only its own shards' panels.  The start vector is zero
     on both padding kinds (accelerate's block pad and the mesh row pad), and
     eigenvectors restore through the permutation as on one device."""
     from ..parallel.distributed import (
@@ -557,7 +559,7 @@ def _eigsh_accelerated_mesh(
                 out[: v0e.shape[0]] = v0e
                 v0e = out
             return v0e
-        return _padding_safe_v0(n_work, padded_n, dtype, seed, acc.device)
+        return _padding_safe_v0(n_work, padded_n, dtype, seed, mesh.first_device)
 
     if sigma is not None:
         inner_tol = _default_inner_tol(inner_tol, tol, dtype)

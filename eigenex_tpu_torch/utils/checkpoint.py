@@ -11,7 +11,8 @@ stopped.  The files are those of the JAX package field for field (the step
 count ``k`` is written as its int32), so a state saved by either package
 loads in the other.  ``load_state(mesh=)`` and :func:`shard_state` place a
 state in the distributed drivers' layout: the basis in per-shard column
-panels, the small fields on the mesh's first device.
+panels, the small fields on the mesh's first device (of this process, on
+a mesh across processes, where each process holds its own shards' panels).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def load_state(path: str, *, mesh=None, axis_name: str | None = None, device=Non
         name = str(z["__class__"])
         arrays = {k: z[k] for k in z.files if k != "__class__"}
     if mesh is not None:
-        device = mesh.flat_devices[0]
+        device = mesh.first_device
     state = state_from_dict(name, arrays, device=device)
     if mesh is None:
         return state
@@ -93,7 +94,7 @@ def shard_state(state, mesh, *, axis_name: str | None = None):
             f"basis width {n} not divisible by {nd} mesh shards — the "
             "checkpoint was not written by a mesh-padded run"
         )
-    dev0 = mesh.flat_devices[0]
+    dev0 = mesh.first_device
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)

@@ -21,6 +21,10 @@ import torch
 
 import eigenex_tpu.native as j_native
 import eigenex_tpu_torch.native as t_native
+
+from _reference_native import NOT_LOADED, ensure_reference_native
+
+ensure_reference_native()
 import eigenex_tpu_torch as ext
 from eigenex_tpu.solvers.api import eigs as j_eigs
 from eigenex_tpu.solvers.api import eigsh as j_eigsh
@@ -327,6 +331,7 @@ def test_native_route_packs_match_reference(kind):
     """Both packages on their native route (RCM, block sort, threaded
     packers): the same permutations and the same packs, bit for bit, at the
     default block shapes, and the stages the native route adds."""
+    assert j_native.native_available(), NOT_LOADED
     trip, kw = NATIVE_KINDS[kind]()
     t_native.reset_native_calls()
     ref = j_accelerate(trip, **kw)

@@ -14,12 +14,17 @@ import pytest
 import torch
 
 import eigenex_tpu as ex
+import eigenex_tpu.native as j_native
 import eigenex_tpu_torch as ext
 from eigenex_tpu.solvers import chebyshev as jc
 from eigenex_tpu_torch.solvers import chebyshev as tc
 from eigenex_tpu_torch.sparse.bsr import bsr_from_dense
 from eigenex_tpu_torch.sparse.sym_bsr import sym_bsr_from_bsr
 from eigenex_tpu_torch.utils.exceptions import EigenexError, LanczosError
+
+from _reference_native import NOT_LOADED, ensure_reference_native
+
+ensure_reference_native()
 
 torch.set_num_threads(1)
 
@@ -214,6 +219,7 @@ def test_eigsh_window_on_complexified_operator_matches_reference():
     """The real embedding holds every eigenvalue twice: the block is doubled,
     the window's doubled pairs deduped, the kept vectors normalised -- in both
     packages, to the same eigenvalues (1e-10) and counts."""
+    assert j_native.native_available(), NOT_LOADED
     trip, dense = complex_chain()
     w = np.linalg.eigvalsh(dense)
     window = (w[30] - 0.01, w[34] + 0.01)

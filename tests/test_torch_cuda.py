@@ -311,3 +311,27 @@ def test_block_operator_on_bsr_sectors_launches_once_a_sector(card):
     assert torch.equal(y, y2)  # bsr_spmv is bit-reproducible
     ref = plain.matvec(x.cpu())
     assert float(torch.linalg.vector_norm(y.cpu() - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+
+
+def test_a_pack_in_host_memory_solves_on_a_mesh_of_the_card(card):
+    """``eigsh(acc, mesh=)`` with the accelerated pack left in host memory:
+    the mesh places only the shards' panels on the card, and the solve is
+    bit-equal to the same pack's on the card (the route for a pack past one
+    card's memory)."""
+    from eigenex_tpu_torch import accelerate, make_mesh
+
+    n = 4096
+    rng = np.random.default_rng(3)
+    r = np.concatenate([np.arange(n), np.arange(n - 1), np.arange(1, n)])
+    c = np.concatenate([np.arange(n), np.arange(1, n), np.arange(n - 1)])
+    v = np.concatenate([rng.uniform(-1, 1, n), -np.ones(2 * (n - 1))])
+    host = accelerate((r, c, v, (n, n)), device="cpu")
+    on_card = accelerate((r, c, v, (n, n)), device=card)
+    mesh = make_mesh(devices=[card] * 2)
+    cuda_spmv.reset_launch_counts()
+    a = eigsh(host, k=2, which="SA", tol=1e-6, mesh=mesh)
+    assert cuda_spmv.launch_counts()["sym_bsr_spmv"] == 2 * a.iterations
+    b = eigsh(on_card, k=2, which="SA", tol=1e-6, mesh=mesh)
+    assert host.device.type == "cpu"
+    np.testing.assert_array_equal(a.eigenvalues, b.eigenvalues)
+    np.testing.assert_array_equal(a.eigenvectors, b.eigenvectors)

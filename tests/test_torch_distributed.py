@@ -507,24 +507,38 @@ def test_initialize_multihost_process_id_range_checked():
 
 
 def test_initialize_multihost_forwards_exact_kwargs(monkeypatch):
+    """The process group is gloo whatever the machine (the mesh picks NCCL
+    for its exchanges only where no card is shared), with the collective
+    timeout; ``make_global_mesh=True`` goes on to build the mesh of the
+    given devices (a one-process mesh here: no group is really up)."""
+    import datetime
+
     import torch.distributed as dist
+    from eigenex_tpu_torch.parallel import mesh as mesh_mod
 
     seen = []
     monkeypatch.setattr(dist, "init_process_group", lambda **kw: seen.append(kw))
+    monkeypatch.setitem(mesh_mod._GROUP, "initialized", False)
     assert initialize_multihost("10.0.0.1:1234", num_processes=4, process_id=2) is None
-    assert seen[-1] == {"backend": "nccl" if torch.cuda.is_available() else "gloo",
+    assert seen[-1] == {"backend": "gloo", "timeout": datetime.timedelta(seconds=600),
                         "init_method": "tcp://10.0.0.1:1234", "world_size": 4, "rank": 2}
-    with pytest.raises(EigenexError, match="not ported yet"):
-        initialize_multihost("10.0.0.1:1234", num_processes=4, process_id=2, make_global_mesh=True)
+    mesh = initialize_multihost("10.0.0.1:1234", num_processes=4, process_id=2,
+                                make_global_mesh=True, devices=["cpu"] * 3, timeout=5)
+    assert seen[-1]["timeout"] == datetime.timedelta(seconds=5)
+    assert isinstance(mesh, Mesh) and mesh.size == 3 and not mesh.multiprocess
 
 
 def test_initialize_multihost_auto_detect_and_repeat(monkeypatch):
+    import datetime
+
     import torch.distributed as dist
+    from eigenex_tpu_torch.parallel import mesh as mesh_mod
 
     seen = []
     monkeypatch.setattr(dist, "init_process_group", lambda **kw: seen.append(kw))
+    monkeypatch.setitem(mesh_mod._GROUP, "initialized", False)
     initialize_multihost()
-    assert seen == [{"backend": "nccl" if torch.cuda.is_available() else "gloo"}]
+    assert seen == [{"backend": "gloo", "timeout": datetime.timedelta(seconds=600)}]
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     with pytest.raises(RuntimeError, match="already initialized"):
         initialize_multihost()

@@ -21,6 +21,10 @@ from eigenex_tpu_torch.block.operator import block_operator
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix
 from eigenex_tpu_torch.utils.exceptions import EigenexError
 
+from _reference_native import NOT_LOADED, ensure_reference_native
+
+ensure_reference_native()
+
 torch.set_num_threads(1)
 
 
@@ -123,6 +127,7 @@ def test_config3_L14_native_accelerated_route_against_reference():
     from eigenex_tpu_torch.convert import coo_from_numpy
 
     L = 14
+    assert j_native.native_available(), NOT_LOADED
     native.reset_native_calls()
     r, c, v, dim = native.heisenberg_sector(L, L // 2, 1.0, 1.0, False)
     order = np.lexsort((c, r))

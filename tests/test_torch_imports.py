@@ -30,6 +30,11 @@ EXPECTED_MODULES = [
     "block/hamiltonians.py", "native/__init__.py", "utils/checkpoint.py",
     "utils/profiling.py", "utils/benchtime.py",
     "parallel/__init__.py", "parallel/mesh.py", "parallel/shard_map.py", "parallel/distributed.py",
+    "parallel/multiproc.py", "samples/__init__.py", "samples/_cli.py",
+    *(f"samples/sample_{name}.py" for name in (
+        "accelerate", "arnoldi", "block_tensor", "dtensor", "lanczos1", "lanczos2", "lobpcg",
+        "matrix_market", "product_indices", "spectrum_slicing", "tebd_ising", "tfi",
+        "tpu_hybrid")),
 ]
 
 
@@ -114,7 +119,8 @@ def test_importing_the_port_is_light():
         "from eigenex_tpu_torch.block import block_tensor, operator, hamiltonians\n"
         "from eigenex_tpu_torch import native\n"
         "from eigenex_tpu_torch.utils import benchtime, checkpoint, profiling\n"
-        "from eigenex_tpu_torch.parallel import distributed, mesh, shard_map\n"
+        "from eigenex_tpu_torch.parallel import distributed, mesh, multiproc, shard_map\n"
+        "from eigenex_tpu_torch import samples\n"
         "assert 'NATIVE' not in vars(native) and not native.native_calls()\n"
         "assert native.BUILD_DIR == native.BUILD_DIR.parent.parent / 'eigenex_tpu_torch' / 'build'\n"
         "import torch\n"

@@ -17,6 +17,10 @@ from eigenex_tpu.sparse.io import save_matrix_market as j_save
 from eigenex_tpu_torch import COOMatrix, coo_from_dense, eigsh, load_matrix_market, save_matrix_market
 from eigenex_tpu_torch.utils.exceptions import EigenexError
 
+from _reference_native import ensure_reference_native
+
+ensure_reference_native()
+
 torch.set_num_threads(1)
 
 FILES = {

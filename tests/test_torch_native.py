@@ -5,11 +5,14 @@ numpy-seeded inputs, the same Matrix Market error codes, and -- as the
 reference's own ``tests/test_native.py`` does -- the same results as the
 port's numpy routes.  Also: a build that several processes run at once
 into one directory leaves one loadable library, the call counter, and the
-switch that turns the library off.
+switch that turns the library off.  And the guard that reloads the JAX
+package's library in a test worker that lost its unlocked build race
+(``tests/_reference_native.py``).
 """
 
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +24,10 @@ import eigenex_tpu_torch.native as tn
 from eigenex_tpu_torch.block.hamiltonians import _heisenberg_triplets
 from eigenex_tpu_torch.sparse.bsr import _pack_bsr_host
 from eigenex_tpu_torch.sparse.coo import _shrink
+
+from _reference_native import ensure_reference_native
+
+ensure_reference_native()
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -303,3 +310,57 @@ def test_switch_turns_the_library_off():
                          env={**__import__("os").environ, "EIGENEX_TPU_NO_NATIVE": "1"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "off"
+
+
+class _FakeReference:
+    """Stands for ``eigenex_tpu.native`` in the guard's tests: a library
+    file, ``NATIVE`` and a loader that fails ``fails`` times."""
+
+    def __init__(self, lib, fails):
+        self._LIB = lib
+        self.NATIVE = None
+        self.fails = fails
+        self.calls = 0
+
+    def _load(self):
+        self.calls += 1
+        return None if self.calls <= self.fails else "loaded"
+
+
+@pytest.mark.parametrize("fails", [0, 2])
+def test_reference_guard_reloads_a_library_that_lost_the_race(tmp_path, monkeypatch, fails):
+    import _reference_native as guard
+
+    monkeypatch.setattr(guard, "SETTLED", 0.0)
+    lib = tmp_path / "lib.so"
+    lib.write_bytes(b"\x7fELF")
+    fake = _FakeReference(lib, fails)
+    assert guard.ensure_reference_native(budget=10.0, pause=0.01, module=fake)
+    assert fake.NATIVE == "loaded" and fake.calls == fails + 1
+
+
+def test_reference_guard_leaves_a_missing_library_alone(tmp_path):
+    import _reference_native as guard
+
+    fake = _FakeReference(tmp_path / "absent.so", 0)
+    assert not guard.ensure_reference_native(budget=1.0, pause=0.01, module=fake)
+    assert fake.calls == 0 and fake.NATIVE is None
+
+
+def test_reference_guard_gives_up_within_its_budget(tmp_path, monkeypatch):
+    import _reference_native as guard
+
+    monkeypatch.setattr(guard, "SETTLED", 0.0)
+    lib = tmp_path / "lib.so"
+    lib.write_bytes(b"partial")
+    fake = _FakeReference(lib, 10**9)
+    t0 = time.monotonic()
+    assert not guard.ensure_reference_native(budget=0.3, pause=0.01, module=fake)
+    assert time.monotonic() - t0 < 5 and fake.calls >= 1
+
+
+def test_reference_library_is_loaded_in_this_worker():
+    """The guard ran at this module's import: wherever the library file
+    exists, the reference's native route is on."""
+    if jn._LIB.exists():
+        assert jn.native_available(), "the JAX package's native library did not load"

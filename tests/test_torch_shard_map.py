@@ -8,6 +8,7 @@ kernel launch counters count from every shard thread.
 
 import threading
 import time
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -166,6 +167,18 @@ def test_sharded_arguments_pass_through_and_stay_split():
     assert row.shape == (8,) and torch.equal(row.gather(), V[1])
     cols = out.combine(lambda p: p.T, dim=0)
     assert torch.equal(cols, out.gather().T)
+
+
+def test_idle_shard_workers_hold_nothing_of_their_last_task():
+    """Once ``shard_map`` returns, no shard thread keeps its operands (or its
+    collectives' terms) alive: the caller's last reference frees them."""
+    mesh = make_mesh(devices=["cpu"] * 4)
+    x = torch.arange(16, dtype=torch.float64)
+    freed = weakref.ref(x)
+    out = shard_map(lambda c, v: c.psum(v, "rows") * 2, mesh, (P("rows"),), P("rows"))(x)
+    del x
+    assert freed() is None
+    assert out.shape == (16,)
 
 
 def test_an_error_in_one_shard_raises_in_the_caller():
