@@ -113,6 +113,16 @@ filter) through the SpMM kernels -- at full size:
 33. ``samples``          the 13 samples of ``eigenex_tpu_torch/samples`` on the card, each held to
                          its own CPU run (1e-10 for f64 results, 1e-6 for f32 iterations), and
                          sample_accelerate's kernels against their plain versions at its shapes.
+34. ``derived_adjoint``  matrix-free operators with no adjoint, whose A^H autograd derives through
+                         the kernels' backward (a launch of the same kernel): (a) a closure over
+                         each kernel at its main-path shape (the config-2 pack of phase 11, the
+                         banded operator f32 and bf16, 12-column panels for the SpMMs), its derived
+                         A^H x and A^H X (a forward and a backward launch) bit-equal to the explicit
+                         adjoint, with times; (b) the interior-sigma (7.5) shift-invert of the
+                         config-2 pack on a closure, every application falling back to CGLS on the
+                         derived adjoint, bit-equal to the same operator with the explicit adjoint;
+                         (c) ``eigs(closure, sigma=8.5)`` on phase 12's operand from phase 12's
+                         start, its eigenvalues bit-equal to phase 12's.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -154,9 +164,11 @@ is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accel
 ``lobpcg_banded``, ``eigs_accelerated``, ``block_heisenberg``, ``block_heisenberg_bsr`` and
 ``heisenberg_l24`` solves under ``torch.profiler`` and prints the device's busy and idle
 share and the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``,
-``profile_eigs``, ``profile_block``, ``profile_block_bsr``, ``profile_l24``), and the device
+``profile_eigs``, ``profile_block``, ``profile_block_bsr``, ``profile_l24``), the device
 time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
-``profile_kernels``).
+``profile_kernels``), and a derived and an explicit adjoint product on the config-2 pack, and
+64 CGLS iterations on each, with the host events that take their time (phases
+``profile_derived_adjoint``, ``profile_derived_adjoint_cgls``).
 """
 
 from __future__ import annotations
@@ -185,6 +197,7 @@ from eigenex_tpu_torch import (
     BlockLanczosOptions,
     BlockTensor,
     COOMatrix,
+    cgls_solve,
     accelerate,
     csr_from_coo,
     einsum,
@@ -195,6 +208,7 @@ from eigenex_tpu_torch import (
     eigs,
     LanczosEigenSolver,
     LanczosOptions,
+    LinearOperator,
     eigsh,
     eigsh_range,
     eigsh_window,
@@ -203,6 +217,7 @@ from eigenex_tpu_torch import (
     lobpcg,
     native,
     rayleigh_refine,
+    shift_invert_operator_general,
     svds,
     sym_bsr_from_bsr,
     tridiagonal_operator,
@@ -222,10 +237,12 @@ from eigenex_tpu_torch.parallel import (
 )
 from eigenex_tpu_torch.parallel.distributed import distributed_arnoldi_steps
 from eigenex_tpu_torch.parallel.shard_map import P, shard_map
+from eigenex_tpu_torch.solvers.api import _accelerated_v0
 from eigenex_tpu_torch.solvers.arnoldi import arnoldi_steps, init_arnoldi_state
 from eigenex_tpu_torch.solvers.lanczos import init_lanczos_state, tridiagonal_eigh
 from eigenex_tpu_torch.solvers.lobpcg import LOBPCGOptions, LOBPCGSolver
 from eigenex_tpu_torch.convert import bsr_from_numpy, coo_from_numpy
+from eigenex_tpu_torch.core.operators import pullback
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.solvers import direct
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix, bsr_from_coo_arrays
@@ -286,6 +303,10 @@ SIGMA_K = 2
 SIGMA_TOL = 1e-5
 SIGMA_INNER_TOL = 1e-5     # the GMRES target; the default (1e-2 of tol = 1e-7) is below f32's reach
 SIGMA_RESID_LIMIT = 1e-4
+DA_SIGMA = 7.5             # phase derived_adjoint (b): the interior shift of the nx = 316 stencil where
+                           # GMRES(48) stagnates, so every application falls back to CGLS
+DA_APPLICATIONS = 3        # ... applied to this many seeded vectors (about 2 s each a route)
+DA_PANEL = MAIN_WIDTH      # (a): the columns of the SpMM vjps
 CHAIN_N = 2 ** 18          # phase eigsh_complex_accelerated: complex Hermitian chain, embedded 2^19
 CHAIN_TOL = 1e-6
 CHAIN_RESID_LIMIT = 1e-4   # host complex128 ||H z - lambda z|| / |lambda| of the restored vector
@@ -399,7 +420,10 @@ ALSO_REPLACES = {
 #: (eigsh_banded, eigsh_accelerated), the L = 24 sector pack (heisenberg_l24) and the
 #: in-panel packs of the mesh phases.  bsr_spmm and sym_bsr_spmm: the f32 12-column
 #: panel of LOBPCG, the bf16 8-column block of the window filter (sym_bsr_spmm),
-#: and the mesh_filters phases' shard-local containers at those widths.
+#: and the mesh_filters phases' shard-local containers at those widths; phase
+#: derived_adjoint's vjps at DA_PANEL columns: bsr_spmm forward on the config-2 pack
+#: and backward on its adjoint pack (a half each), sym_bsr_spmm on the bf16 banded
+#: operator (its f32 one is the LOBPCG case).
 #: Mesh cases are timed on shard TIMED_SHARD_1D (TIMED_SHARD on the grid).
 _HALF, _THIRD = Fraction(1, 2), Fraction(1, 3)
 _L24M = f"mesh: L={L24} sym_halo"
@@ -427,6 +451,9 @@ MAIN_CASES = {
                      dict(match=(f"{_L24M} main ",),
                           phases={"heisenberg_l24_mesh": 1, "heisenberg_l24_multiprocess": 1})],
     "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
+                 *(dict(match=(f"config-2 {what} ", f"p={DA_PANEL} "),
+                        phases={"derived_adjoint_config2_f32": _HALF})
+                   for what in ("pack", "adjoint pack")),
                  *(dict(match=(f"{_F32M} sym_halo {role} ", f"p={MAIN_WIDTH} "),
                         phases={"mesh_filters_lobpcg": _HALF}) for role in ("right", "right_adj")),
                  *(dict(match=(f"{_BF16M} {role} ", f"p={WINDOW_WIDTH} "),
@@ -434,6 +461,8 @@ MAIN_CASES = {
                    for role in ("right", "right_adj"))],
     "sym_bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
                      dict(match=("banded", " bf16", f"p={WINDOW_WIDTH} ")),
+                     dict(match=("banded", " bf16", f"p={DA_PANEL} "),
+                          phases={"derived_adjoint_banded_bf16": 1}),
                      dict(match=(f"{_F32M} sym_halo main ", f"p={MAIN_WIDTH} "),
                           phases={"mesh_filters_lobpcg": 1}),
                      dict(match=(f"{_BF16M} main ", f"p={WINDOW_WIDTH} "),
@@ -954,13 +983,14 @@ def check_spmm(name: str, case: str, op, X, peaks) -> dict:
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
     out["bytes"], out["flops"] = nbytes, flops
     out["share_of_bound_rate"] = out["bound_ms"] / out["kernel_ms"]
-    if is_sym and (p, out["storage"]) in ((MAIN_WIDTH, "float32"), (WINDOW_WIDTH, "bfloat16")):
+    main_widths = ((MAIN_WIDTH, "float32"), (WINDOW_WIDTH, "bfloat16"), (DA_PANEL, "bfloat16"))
+    if is_sym and (p, out["storage"]) in main_widths:
         out["library_ms"], out["library"] = library_sym_ms(op, X)
         if out["library_ms"] is not None:
             out["library"] += " on the operator expanded to full storage (about twice the blocks)"
     elif is_sym:
         out["library_ms"] = None
-        out["library"] = "timed at the main-path widths only (f32 p=12, bf16 p=8)"
+        out["library"] = "timed at the main-path widths only (f32 p=12, bf16 p=8 and 12)"
     else:
         out["library_ms"], out["library"] = library_bsr_ms(op, X)
     out["launches"] = cuda_spmv.launch_counts()[name] - before  # this check's own launches
@@ -1021,6 +1051,32 @@ def profile_product(op, X, calls: int = 40) -> dict:
     return dict(storage=str(op.dtype).replace("torch.", ""), p=1 if X.ndim == 1 else X.shape[1],
                 ms_by_events=ms,
                 us_a_launch_by_kernel=kernels, us_a_product=sum(kernels.values()))
+
+
+def profile_calls(fn, calls: int = 50) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler``: wall ms and device
+    busy ms a call, and the host events that took most of the host's time (self
+    CPU time, the autograd engine's thread included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    device = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                 if e.device_type == DeviceType.CUDA)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key != "cudaDeviceSynchronize"),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    return dict(calls=calls, wall_ms_a_call=wall_ms / calls, device_busy_ms_a_call=device / 1e3 / calls,
+                top_host_events=[dict(name=e.key[:80], calls=e.count,
+                                      self_cpu_us_a_call=e.self_cpu_time_total / calls)
+                                 for e in host[:12]])
 
 
 def residuals(matvec, lam, X) -> list[float]:
@@ -1904,6 +1960,173 @@ def sample_accelerate_kernels(dev) -> dict:
     return out
 
 
+def launches_of(fn) -> dict:
+    """The kernel launches of one call of ``fn``, by kernel (not main path)."""
+    before = cuda_spmv.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in cuda_spmv.launch_counts().items() if v - before[k]}
+
+
+def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, profile) -> None:
+    """Phase 34: matrix-free operators with no adjoint, whose A^H comes from
+    autograd through the kernels' backward (a launch of the same kernel).
+    (a) A closure over each kernel at its main-path shape: the derived A^H x,
+    and A^H X by a vjp of the closure's matmat, bit-equal to the explicit
+    adjoint, with the time and launches of each.  (b) The interior-sigma
+    shift-invert of the nx = 316 config-2 pack on a closure: every
+    application falls back to CGLS on the derived adjoint, bit-equal to the
+    same operator with the explicit adjoint.  (c) ``eigs(closure, sigma=)``
+    as phase eigs_sigma runs its operand, from the same start.  ``profile``: a
+    derived and an explicit A^H x on the config-2 pack, and 64 CGLS iterations
+    on each route, under ``torch.profiler`` (phases ``profile_derived_adjoint``
+    and ``profile_derived_adjoint_cgls``)."""
+    t_phase = time.time()
+
+    def closure(op, **kw):
+        return LinearOperator(lambda p, v: p.matvec(v), op, op.shape, torch.float32, dev, **kw)
+
+    # (a) each kernel, its derived adjoint against its explicit one
+    cases = []
+    for tag, op in (("config2_f32", acc_cd.matrix), ("banded_f32", sym32),
+                    ("banded_bf16", sym32.astype(torch.bfloat16))):
+        general = isinstance(op, BSRMatrix)
+        spmv, spmm = ("bsr_spmv", "bsr_spmm") if general else ("sym_bsr_spmv", "sym_bsr_spmm")
+        adj = op.kernel_adjoint() if general else op  # A^H (cached); A^T = A for the symmetric pack
+        mv = closure(op, matmat_fn=lambda p, X: p.matmat(X))
+        x = torch.randn(op.shape[0], generator=gen, device=dev)
+        G = torch.randn((op.shape[0], DA_PANEL), generator=gen, device=dev)
+        explicit = {spmv: adj.matvec(x), spmm: adj.matmat(G)}
+        routes = {spmv: (lambda: mv.rmatvec(x), lambda: adj.matvec(x)),
+                  spmm: (lambda: pullback(mv.matmat, G, (op.shape[1], DA_PANEL), torch.float32),
+                         lambda: adj.matmat(G))}
+        phase = "derived_adjoint_" + tag
+        derived, _, counts = drive(phase, op, lambda: {k: r[0]() for k, r in routes.items()})
+        if counts != {k: (2 if k in routes else 0) for k in cuda_spmv.KERNEL_SOURCES}:
+            fail(f"{phase}: launches {counts}, expected a forward and a backward of {spmv} and {spmm}")
+        for name, (run_derived, run_explicit) in routes.items():
+            got = derived[name]
+            if got.dtype != torch.float32 or got.requires_grad or not torch.equal(got, explicit[name]):
+                fail(f"{phase}: the derived adjoint of {name} is not bit-equal to the explicit one")
+            cases.append(dict(
+                kernel=name, operator=tag, shape=list(op.shape),
+                columns=DA_PANEL if name == spmm else 1, bit_equal=True,
+                derived_ms=time_ms(run_derived), explicit_ms=time_ms(run_explicit),
+                derived_host_us=host_us_per_call(run_derived, calls=20),
+                explicit_host_us=host_us_per_call(run_explicit, calls=20),
+                launches_derived=launches_of(run_derived),
+                launches_explicit=launches_of(run_explicit)))
+            if profile and name == "bsr_spmv":
+                emit("profile_derived_adjoint", operator=tag, derived=profile_calls(run_derived),
+                     explicit=profile_calls(run_explicit))
+        del mv, explicit, derived, routes
+
+    # (b) the interior-sigma shift-invert on a closure over the nx = 316 pack
+    pack = acc_cd.matrix
+    rng = np.random.default_rng(SEED + 34)
+    xs = [rng.standard_normal(acc_cd.orig_shape[1]) for _ in range(DA_APPLICATIONS)]
+    xe = [acc_cd.embed(v) for v in xs]
+    si_e = shift_invert_operator_general(
+        closure(pack, rmatvec_fn=lambda p, v: p.rmatvec(v)), DA_SIGMA, tol=SIGMA_INNER_TOL)
+    si_d = shift_invert_operator_general(closure(pack), DA_SIGMA, tol=SIGMA_INNER_TOL)
+    # the routes in turns, explicit first for even vectors and derived first for odd
+    # ones (E D D E E D): the host's time drifts between runs by tens of percent
+    y_e, y_d, ms_e, ms_d = [], [], [], []
+    explicit_counts = dict.fromkeys(cuda_spmv.KERNEL_SOURCES, 0)
+    counts = dict.fromkeys(cuda_spmv.KERNEL_SOURCES, 0)
+    for i, v in enumerate(xe):
+        for route in (("explicit", "derived") if i % 2 == 0 else ("derived", "explicit")):
+            if route == "derived":
+                y, seconds, got = drive(f"derived_adjoint_shift_invert_{i}", pack,
+                                        lambda: si_d.matvec(v))
+                y_d.append(y)
+                ms_d.append(seconds * 1e3)
+                counts = {k: counts[k] + got[k] for k in counts}
+            else:
+                cuda_spmv.reset_launch_counts()
+                t0 = time.time()
+                y_e.append(si_e.matvec(v))
+                torch.cuda.synchronize()
+                ms_e.append((time.time() - t0) * 1e3)
+                explicit_counts = {k: explicit_counts[k] + c
+                                   for k, c in cuda_spmv.launch_counts().items()}
+    if profile:  # 64 CGLS iterations on (A - sigma I), its adjoint derived or explicit, in turns
+        derived_op = closure(pack).shifted(-DA_SIGMA)
+        explicit_op = closure(pack, rmatvec_fn=lambda p, v: p.rmatvec(v)).shifted(-DA_SIGMA)
+        emit("profile_derived_adjoint_cgls", **{
+            route: profile_calls(lambda: cgls_solve(shifted, xe[0], tol=0.0, max_iters=64), calls=3)
+            for route, shifted in (("derived", derived_op), ("explicit", explicit_op),
+                                   ("explicit_again", explicit_op), ("derived_again", derived_op))})
+    r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
+    A64 = sp.csr_matrix((v_cd, (r_cd, c_cd)), shape=(n_cd, n_cd))
+
+    def true_residual(x, y):
+        y = acc_cd.restore(y).astype(np.float64)
+        return float(np.linalg.norm(A64 @ y - DA_SIGMA * y - x) / np.linalg.norm(x))
+
+    res_d = [true_residual(x, y) for x, y in zip(xs, y_d)]
+    res_e = [true_residual(x, y) for x, y in zip(xs, y_e)]
+    st_d, st_e = dict(si_d.stats), dict(si_e.stats)
+    shift_invert = dict(
+        n=n_cd, pack=list(pack.data.shape), sigma=DA_SIGMA, tol=SIGMA_INNER_TOL,
+        applications=DA_APPLICATIONS, stats_derived=st_d, stats_explicit=st_e,
+        cgls_iterations=st_d["iterations"], true_residuals_derived=res_d,
+        true_residuals_explicit=res_e, bit_equal=all(torch.equal(a, b) for a, b in zip(y_d, y_e)),
+        ms_per_application_derived=ms_d, ms_per_application_explicit=ms_e,
+        launches_derived=counts, launches_explicit=explicit_counts)
+
+    # (c) eigs(closure, sigma=) as phase eigs_sigma runs its accelerated operand
+    r, c, v, n = convection_diffusion_coo(SIGMA_NX)
+    acc_s = accelerate(coo_on(r, c, v, n, dev))
+    solve = dict(k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL)
+    if sigma_eigenvalues is None:  # phase eigs_sigma did not run
+        sigma_eigenvalues = np.asarray(eigs(acc_s, **solve).eigenvalues, np.complex128)
+    op_s = closure(acc_s.matrix)
+    v0 = _accelerated_v0(acc_s, None, 0)  # where eigs(acc_s) starts: seed 0
+    res, seconds, counts_c = drive("derived_adjoint_eigs_sigma", acc_s.matrix,
+                                   lambda: eigs(op_s, v0=v0, **solve))
+    lam = np.asarray(res.eigenvalues, np.complex128)
+    X = np.asarray(acc_s.restore(res.eigenvectors), np.complex128)
+    A64s = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    rr = (np.linalg.norm(A64s @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+    st_c = res.inner_stats
+    # the true-residual check applies the closure (no matmat) to each column of the
+    # eigenvector block, real and imaginary parts apart when it is complex
+    check = SIGMA_K * (2 if torch.as_tensor(res.eigenvectors).is_complex() else 1)
+    want_c = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
+    want_c["bsr_spmv"] = st_c["matvecs"] + st_c["adjoint_forwards"] + check
+    eigs_sigma = dict(n=n, sigma=SIGMA, eigenvalues_re=lam.real.tolist(),
+                      eigenvalues_im=lam.imag.tolist(),
+                      eigs_sigma_eigenvalues_re=sigma_eigenvalues.real.tolist(),
+                      eigenvalues_bit_equal=bool(np.array_equal(lam, sigma_eigenvalues)),
+                      rel_residuals_f64_host=rr, resid_limit=SIGMA_RESID_LIMIT,
+                      converged=res.converged, termination=res.termination, inner_stats=dict(st_c),
+                      launches=counts_c, seconds=seconds)
+    emit("derived_adjoint", kernels=cases, shift_invert=shift_invert, eigs_sigma=eigs_sigma,
+         seconds=time.time() - t_phase)
+
+    if st_d["fallbacks"] != DA_APPLICATIONS or st_d["iterations"] <= 0:
+        fail(f"derived_adjoint: {st_d['fallbacks']} CGLS fallbacks ({st_d['iterations']} "
+             f"iterations) in {DA_APPLICATIONS} applications at sigma = {DA_SIGMA}")
+    if not shift_invert["bit_equal"]:
+        fail("derived_adjoint: the shift-invert results differ from the explicit adjoint's")
+    if not all(np.isfinite(d) and d <= e for d, e in zip(res_d, res_e)):
+        fail(f"derived_adjoint: true residuals {res_d} worse than the explicit route's {res_e}")
+    if ({k: st_d[k] for k in ("matvecs", "iterations", "fallbacks")}
+            != {k: st_e[k] for k in ("matvecs", "iterations", "fallbacks")}
+            or st_e["adjoint_forwards"] != 0 or st_d["adjoint_forwards"] <= 0):
+        fail(f"derived_adjoint: inner stats {st_d} against the explicit route's {st_e}")
+    if counts != {**{k: 0 for k in cuda_spmv.KERNEL_SOURCES},
+                  "bsr_spmv": st_d["matvecs"] + st_d["adjoint_forwards"]}:
+        fail(f"derived_adjoint: shift-invert launches {counts} for inner stats {st_d}")
+    if res.termination == "inner_solve_failure" or not max(rr) <= SIGMA_RESID_LIMIT:
+        fail(f"derived_adjoint: eigs on the closure: {res.termination}, residuals {rr}")
+    if not eigs_sigma["eigenvalues_bit_equal"]:
+        fail(f"derived_adjoint: eigs on the closure gave {lam}, phase eigs_sigma {sigma_eigenvalues}")
+    if counts_c != want_c:
+        fail(f"derived_adjoint: eigs on the closure launched {counts_c}, expected {want_c}")
+
+
 def samples_phase(dev) -> None:
     """Every sample of eigenex_tpu_torch/samples on the card, each held to
     the same sample's CPU run here (SAMPLE_HOLD), with each card run's
@@ -2035,7 +2258,7 @@ def main() -> None:
 
     # BASELINE config 2, packed once: the main-path shape of the general SpMV
     # kernel (phase kernels) and the operand of phase eigs_accelerated
-    if wanted("kernels") or wanted("eigs_accelerated"):
+    if wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint"):
         r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
         coo_cd = coo_on(r_cd, c_cd, v_cd, n_cd, dev)
         native.reset_native_calls()
@@ -2137,6 +2360,18 @@ def main() -> None:
         kernel_cases.append(check_kernel(
             "bsr_spmv", "config-2 pack " + "x".join(map(str, CD_PACK)) + " f32 (main path)",
             cd_pack, x_cd, peaks))
+        # ... its adjoint pack (the backward of phase derived_adjoint's products, built
+        # once on the host and cached), and the general SpMM on both at the width of that
+        # phase's vjps: the forward on the pack, the backward on its adjoint
+        cd_adj = cd_pack.kernel_adjoint()
+        cd_adj_shape = "x".join(map(str, cd_adj.data.shape))
+        kernel_cases.append(check_kernel(
+            "bsr_spmv", f"config-2 adjoint pack {cd_adj_shape} f32", cd_adj, x_cd, peaks))
+        for what, pack in (("config-2 pack " + "x".join(map(str, CD_PACK)), cd_pack),
+                           (f"config-2 adjoint pack {cd_adj_shape}", cd_adj)):
+            X_cd = torch.randn((pack.shape[1], DA_PANEL), generator=gen, device=dev)
+            kernel_cases.append(check_spmm("bsr_spmm", f"{what} f32 p={DA_PANEL} ", pack, X_cd, peaks))
+        del cd_adj, X_cd
         # ... and at the largest sector pack of phase block_heisenberg_bsr: the S_z = 0
         # sector of the L = 20 chain at the card's default 32x128 blocks, mostly padding
         sector = heisenberg_sector_coo(HEIS_BSR_L, HEIS_BSR_L // 2, dtype=np.float32, device="cpu")
@@ -2569,9 +2804,9 @@ def main() -> None:
         if args.profile:
             emit("profile_eigs", solve="eigs_accelerated", **profile_solve(solve_eigs))
     if wanted("kernels") or wanted("eigs_accelerated"):
-        del acc_cd, coo_cd
-
+        del coo_cd
     # -- 12. eigs_sigma: GMRES shift-invert on the general kernel ---------------------
+    sigma_eigenvalues = None  # phase eigs_sigma's, held against phase derived_adjoint's (c)
     if wanted("eigs_sigma"):
         r, c, v, n = convection_diffusion_coo(SIGMA_NX)
         acc_s = accelerate(coo_on(r, c, v, n, dev))
@@ -2607,7 +2842,14 @@ def main() -> None:
         want.update(bsr_spmv=st["matvecs"], bsr_spmm=2)
         if counts != want:
             fail(f"eigs_sigma: launches {counts}, expected {want}")
+        sigma_eigenvalues = lam
         del acc_s
+
+    # -- 34. derived_adjoint: matrix-free adjoints through the kernels' backward ---------
+    if wanted("derived_adjoint"):
+        derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, args.profile)
+    if wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint"):
+        del acc_cd
 
     # -- 13. eigsh_complex_accelerated: the real embedding on the symmetric kernel -----
     if wanted("eigsh_complex_accelerated") or wanted("filter_complex"):

@@ -15,10 +15,13 @@ Counterpart of ``eigenex_tpu/core/operators.py`` on torch tensors.
   (vector_map.hpp:100-146).
 - The eigenvalue shift (lanczos.hpp:155,390-392) is :meth:`LinearOperator.shifted`.
 
-Where the JAX package derives a missing adjoint with ``jax.vjp``, the
-port takes an explicit ``rmatvec_fn`` and raises :class:`OperatorError`
-when an adjoint is asked for and none was given.  No gradient flows
-through an operator: the solvers run under ``torch.no_grad``.
+Where no ``rmatvec_fn`` was given, :meth:`LinearOperator.rmatvec` derives
+the adjoint from the matvec by reverse-mode autograd, as the JAX package
+does with ``jax.vjp``: on the card the block kernels' products are
+autograd Functions whose backward is a launch of the same kernel
+(:mod:`eigenex_tpu_torch.ops.cuda_spmv`), and on the CPU their plain
+versions are torch ops.  The solvers run under ``torch.no_grad``; the
+derivation enables grad for itself only.
 """
 
 from __future__ import annotations
@@ -33,6 +36,37 @@ from ..utils.exceptions import OperatorError
 from ..utils.tolerance import as_torch_dtype
 
 __all__ = ["LinearOperator", "aslinearoperator", "identity_operator"]
+
+
+def pullback(fn, cotangent: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """A^H ``cotangent`` for a linear ``fn`` (A v = ``fn(v)`` for v of
+    ``shape`` and ``dtype``): the vector-Jacobian product at a zero leaf of
+    this function's own, with ``cotangent`` as the output's gradient.
+
+    PyTorch's backward of y = A v already returns A^H g for complex A, so
+    unlike the JAX package's ``jax.vjp`` (which gives A^T and is wrapped in
+    conjugates there) nothing is conjugated here.  ``torch.autograd.grad`` is
+    used rather than ``torch.func.vjp`` because it differentiates any
+    ``torch.autograd.Function`` as it is, the kernels' included.  Grad is
+    enabled around the forward only, so the call works inside the solvers'
+    ``no_grad``; the backward runs on the calling thread (not the autograd
+    engine's device thread, which costs two thread hand-offs a call).  The
+    result carries no graph, ``cotangent`` is left as it was, and the graph
+    is freed on return.  Raises :class:`OperatorError` when the output does
+    not depend on the input in autograd's graph (a product taken outside
+    torch, e.g. through numpy): such an operator needs ``rmatvec_fn=``.
+    """
+    zero = torch.zeros(shape, dtype=dtype, device=cotangent.device, requires_grad=True)
+    with torch.enable_grad():
+        y = fn(zero)
+    if not (isinstance(y, torch.Tensor) and y.requires_grad):
+        raise OperatorError(
+            "cannot derive the adjoint: the matvec's output does not depend on its "
+            "input in autograd's graph (a product outside torch?); pass rmatvec_fn="
+        )
+    with torch.autograd.set_multithreading_enabled(False):
+        (adj,) = torch.autograd.grad(y, zero, grad_outputs=cotangent.to(y.dtype))
+    return adj
 
 
 class LinearOperator:
@@ -77,12 +111,17 @@ class LinearOperator:
         return self.matvec(x)
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
-        """Adjoint action A^H @ x (explicit adjoint only)."""
-        if self._rmatvec_fn is None:
-            raise OperatorError(
-                "this operator was built without an adjoint: pass rmatvec_fn="
-            )
-        return self._rmatvec_fn(self._params, x)
+        """Adjoint action A^H @ x.
+
+        Without an explicit ``rmatvec_fn`` the adjoint is derived from the
+        (linear) ``matvec`` by reverse-mode autograd (:func:`pullback`).
+        Cost: one forward application of the matvec plus one backward.  The
+        reference's ``jit`` drops the unused forward; eager PyTorch cannot.
+        """
+        if self._rmatvec_fn is not None:
+            return self._rmatvec_fn(self._params, x)
+        return pullback(lambda v: self._matvec_fn(self._params, v), torch.as_tensor(x),
+                        (self.shape[1],), self.dtype)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
         """Apply to an (n, k) block of column vectors."""
@@ -92,15 +131,23 @@ class LinearOperator:
 
     @property
     def has_adjoint(self) -> bool:
+        """Whether an explicit ``rmatvec_fn`` was given; a derived adjoint
+        does not count (``svds`` requires an explicit one)."""
         return self._rmatvec_fn is not None
 
     @property
     def H(self) -> "LinearOperator":
         """The adjoint operator (cf. TripletsMatrix::adjoint
-        triplets_matrix.hpp:406)."""
+        triplets_matrix.hpp:406); uses the derived adjoint when no
+        explicit ``rmatvec_fn`` was given."""
         if self._rmatvec_fn is None:
-            raise OperatorError(
-                "this operator was built without an adjoint: pass rmatvec_fn="
+            return LinearOperator(
+                lambda op, v: op.rmatvec(v),
+                self,
+                (self.shape[1], self.shape[0]),
+                self.dtype,
+                self.device,
+                rmatvec_fn=lambda op, v: op.matvec(v),
             )
         return LinearOperator(
             self._rmatvec_fn,

@@ -38,6 +38,18 @@ into ``eigenex_tpu_torch/build``; the library is loaded with ``ctypes``,
 pointers come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream()``.  Importing this module builds nothing.
 
+Gradients: each wrapper is differentiable in x (or X), never in the
+pack.  When autograd records (grad enabled and x requiring grad) a CUDA
+launch goes through a ``torch.autograd.Function`` whose backward is a
+launch of the same kernel: on the cached adjoint pack
+(``BSRMatrix.kernel_adjoint()``) for the general kernels, on the same pack
+for the symmetric ones (a real symmetric A equals A^T).  A backward counts
+as one launch of its kernel.  Otherwise the wrapper launches directly, at
+no extra cost.  Complex operands never reach the kernels: they arrive
+through the real embedding of ``sparse/realify.py``, whose torch ops
+autograd differentiates around the real products, and a complex x is
+refused as any non-f32 x is.
+
 Routing rule: a wrapper given CUDA tensors launches its kernel or
 raises.  It never catches a failure and carries on with the plain
 version.  The plain versions (``*_plain``) run when the tensors lie on
@@ -58,6 +70,7 @@ import threading
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..utils.exceptions import EigenexError
 
@@ -433,6 +446,10 @@ def bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
     :func:`bsr_spmv_plain`."""
     if not bsr.data.is_cuda:
         return bsr_spmv_plain(bsr, x)
+    return _product("bsr_spmv", bsr, x)
+
+
+def _launch_bsr_spmv(bsr, x: torch.Tensor) -> torch.Tensor:
     nbr, kmax, bm, bn = _check_bsr(bsr, "bsr_spmv")
     cols = bsr.block_cols
     x = _kernel_vector(x, bsr.shape[1], bsr.device, "bsr_spmv")
@@ -509,6 +526,10 @@ def sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     so they share them, and calls on two streams use two sets."""
     if not sym.upper_data.is_cuda:
         return sym_bsr_spmv_plain(sym, x)
+    return _product("sym_bsr_spmv", sym, x)
+
+
+def _launch_sym_bsr_spmv(sym, x: torch.Tensor) -> torch.Tensor:
     device = sym.device
     with _on_device(device) as stream:
         head, tail, _ = sym.kernel_workspace(("sym_bsr_spmv", stream),
@@ -546,6 +567,10 @@ def bsr_spmm(bsr, X: torch.Tensor) -> torch.Tensor:
     :func:`bsr_spmm_plain`."""
     if not bsr.data.is_cuda:
         return bsr_spmm_plain(bsr, X)
+    return _product("bsr_spmm", bsr, X)
+
+
+def _launch_bsr_spmm(bsr, X: torch.Tensor) -> torch.Tensor:
     nbr, kmax, bm, bn = _check_bsr(bsr, "bsr_spmm")
     X = _kernel_panel(X, bsr.shape[1], bsr.device, "bsr_spmm")
     p = X.shape[1]
@@ -593,6 +618,10 @@ def sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
     calls on the same input give bit-equal results."""
     if not sym.upper_data.is_cuda:
         return sym_bsr_spmm_plain(sym, X)
+    return _product("sym_bsr_spmm", sym, X)
+
+
+def _launch_sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
     nbr, ku, b = _check_sym(sym, "sym_bsr_spmm")
     X = _kernel_panel(X, sym.shape[1], sym.device, "sym_bsr_spmm")
     p = X.shape[1]
@@ -609,3 +638,41 @@ def sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
     _check_launch("sym_bsr_spmm", code)
     _count_launch("sym_bsr_spmm")
     return Y
+
+
+# ---------------------------------------------------------------------------
+# autograd: the four products differentiable in x (or X), not in the pack
+# ---------------------------------------------------------------------------
+#: kernel name -> the function that launches it on (container, x);
+#: :class:`_KernelProduct` looks its launches up here when it runs
+_LAUNCH = {
+    "bsr_spmv": _launch_bsr_spmv,
+    "sym_bsr_spmv": _launch_sym_bsr_spmv,
+    "bsr_spmm": _launch_bsr_spmm,
+    "sym_bsr_spmm": _launch_sym_bsr_spmm,
+}
+
+
+class _KernelProduct(torch.autograd.Function):
+    """y = A x by kernel ``name``; backward A^H g by the same kernel, on
+    ``kernel_adjoint()``'s pack for the general kernels and on the same
+    pack for the symmetric ones (A = A^T)."""
+
+    @staticmethod
+    def forward(ctx, x, op, name):
+        ctx.op, ctx.name = op, name
+        return _LAUNCH[name](op, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        adj = ctx.op if ctx.name.startswith("sym") else ctx.op.kernel_adjoint()
+        return _LAUNCH[ctx.name](adj, g), None, None
+
+
+def _product(name: str, op, x: torch.Tensor) -> torch.Tensor:
+    """Launch kernel ``name`` on (op, x): through :class:`_KernelProduct`
+    when autograd records this call, directly otherwise."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _KernelProduct.apply(x, op, name)
+    return _LAUNCH[name](op, x)

@@ -109,7 +109,11 @@ def cg_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 1000)
 
 class _Counted:
     """The operator an inner solve works on, ``A - sigma I``, counting the
-    applications of A into ``stats["matvecs"]``."""
+    applications of A and of its adjoint into ``stats["matvecs"]``.  Where A
+    has no explicit adjoint, each adjoint application is derived by autograd
+    and also runs a forward product of A; those are counted apart, in
+    ``stats["adjoint_forwards"]``, so that ``matvecs`` stays the reference's
+    count."""
 
     def __init__(self, op: LinearOperator, sigma, stats: dict):
         self.op, self.sigma, self.stats = op, sigma, stats
@@ -120,6 +124,8 @@ class _Counted:
 
     def rmatvec(self, v):
         self.stats["matvecs"] += 1
+        if not self.op.has_adjoint:
+            self.stats["adjoint_forwards"] += 1
         sig = self.sigma.conjugate() if isinstance(self.sigma, complex) else self.sigma
         return self.op.rmatvec(v) - sig * v
 
@@ -139,10 +145,11 @@ def _scalar_for(op: LinearOperator, sigma):
 
 def _new_stats() -> dict:
     """Counters of a shift-invert operator: applications of the operator
-    itself, applications of A inside them (every one, masked steps and
-    residual checks included), inner iterations, and fallbacks to the
-    second solver."""
-    return dict(applications=0, matvecs=0, iterations=0, fallbacks=0)
+    itself, applications of A and A^H inside them (every one, masked steps
+    and residual checks included), inner iterations, fallbacks to the
+    second solver, and the extra forward products of A that derived
+    adjoints ran (:class:`_Counted`)."""
+    return dict(applications=0, matvecs=0, iterations=0, fallbacks=0, adjoint_forwards=0)
 
 
 def shift_invert_operator(
@@ -202,7 +209,8 @@ def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int, comm=No
     """CGLS (CG on the normal equations A^H A x = A^H b, Bjorck's stable
     recurrence): the least-squares/indefinite fallback where plain CG
     (indefinite A) or restarted GMRES (stagnation) fail.  The adjoint comes
-    from ``op.rmatvec``.  Returns (x, ||r||, iterations)."""
+    from ``op.rmatvec``, derived by autograd when the operator has no
+    explicit one.  Returns (x, ||r||, iterations)."""
     rdt = real_dtype_of(b.dtype)
     dev = b.device
     tol_t = torch.as_tensor(tol**2, dtype=rdt, device=dev)
@@ -243,8 +251,8 @@ def _cgls_loop(op: LinearOperator, b, x0, tol: float, *, max_iters: int, comm=No
 @highest_f32_matmul()
 def cgls_solve(op, b, x0=None, *, tol: float | None = None, max_iters: int = 2000):
     """Least-squares solve min ||A x - b|| via CGLS (works for any A,
-    including indefinite Hermitian and rectangular operators; needs
-    ``op.rmatvec``).
+    including indefinite Hermitian and rectangular operators; takes
+    ``op.rmatvec``, derived by autograd when there is no explicit one).
 
     Returns (x, residual_norm, iterations) as device tensors."""
     op = aslinearoperator(op)

@@ -154,10 +154,12 @@ def shift_invert_operator_general(
     is only a cap.  Restarted GMRES(m) can STAGNATE on nonnormal operators,
     and a silently wrong inner solve poisons every outer Ritz pair, so the
     true residual is checked after GMRES and, when it misses ``tol``, the
-    solve falls back to CGLS (normal equations, monotone residual; needs
-    ``op.rmatvec``), warm-started from the GMRES iterate.  The operator's
-    ``stats`` dict counts its applications, the matvecs of A inside them,
-    the fallbacks and the CGLS iterations they took."""
+    solve falls back to CGLS (normal equations, monotone residual; takes
+    ``op.rmatvec``, derived by autograd when ``op`` has no explicit
+    adjoint), warm-started from the GMRES iterate.  The operator's
+    ``stats`` dict counts its applications, the matvecs of A and A^H inside
+    them, the fallbacks, the CGLS iterations they took, and the extra
+    forward products of derived adjoints (``adjoint_forwards``)."""
     op = aslinearoperator(op)
     restart = int(restart)
     cycles = int(cycles)

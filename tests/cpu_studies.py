@@ -6,6 +6,7 @@ Run from the repository root on the CPU:
     JAX_PLATFORMS=cpu python tests/cpu_studies.py ks-tail      # Krylov-Schur restart tail, both packages
     python tests/cpu_studies.py rehearse                        # the card phases' API at a tenth of the size
     python tests/cpu_studies.py tridiag                         # two tridiagonal solvers at config 1's shift
+    JAX_PLATFORMS=cpu python tests/cpu_studies.py ks-ritz      # what eigs(tol=) bounds on a non-normal operand
 
 ``ks-tail``: f32 ``eigs(k=4, which="LM", tol=1e-6)`` on the upwind
 convection-diffusion COO at nx = 100 (BASELINE config 2's operator), start
@@ -15,7 +16,12 @@ Arnoldi fill parts, the compression order of the reference, and one-ulp
 changes of the start vector.  ``rehearse``: the ``svds_accelerated`` and
 ``expm_accelerated`` phases of ``chip_smoke.py`` on the CPU, 40,000 x 20,000
 and n = 8192.  ``tridiag``: LAPACK ``gtsv`` against a Thomas sweep at
-sigma = -1e-6 (condition 3.6e6).
+sigma = -1e-6 (condition 3.6e6).  ``ks-ritz``: f32 ``eigs(k=2, tol=1e-5,
+accelerate=True)`` on config 2 at nx = 40, seeds 0-39, in both packages: the
+returned eigenvectors' residuals over |lambda|, their residuals' component in
+span(X) over sqrt(k) tol max|lambda|, the same with the Schur vectors of
+span(X) or swapped columns in X's place, and, in the port, the values of the
+leading Schur block that the stop test reads against those returned.
 """
 
 import dataclasses
@@ -157,6 +163,59 @@ def tridiag():
     print(f"gtsv against a Thomas sweep: {np.max(np.linalg.norm(Y - X, axis=0) / np.linalg.norm(X, axis=0)):.1e}")
 
 
+def ks_ritz():
+    import scipy.sparse as sp
+
+    from eigenex_tpu.solvers.api import eigs as j_eigs
+    from eigenex_tpu_torch.solvers import krylov_schur
+
+    torch.set_num_threads(1)  # as the port's tests run: f32 Krylov-Schur here follows any rounding change
+    r, c, v, n = cs.convection_diffusion_coo(40)
+    A = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    t = A.tocoo()  # the triplets in the order the tests pass them
+    trip = (t.row, t.col, t.data.astype(np.float32), t.shape)
+    k, tol = 2, 1e-5
+
+    def in_span(lam, X):
+        R = A @ X - X * lam[None, :]
+        return np.max(np.linalg.norm(np.linalg.qr(X)[0].conj().T @ R, axis=0)
+                      / np.linalg.norm(X, axis=0))
+
+    leading = {}
+    ordered_schur = krylov_schur._ordered_schur
+
+    def recorded(H, n_wanted, which="LM"):
+        T, Q, wanted = ordered_schur(H, n_wanted, which)
+        leading["values"] = np.diag(T)[:k].copy()
+        return T, Q, wanted
+
+    krylov_schur._ordered_schur = recorded
+    try:
+        for package in ("port", "reference"):
+            rows = []
+            for seed in range(40):
+                if package == "port":
+                    res = ext.eigs(trip, k=k, tol=tol, seed=seed, accelerate=True, device="cpu")
+                else:
+                    res = j_eigs(trip, k=k, tol=tol, seed=seed, accelerate=True)
+                lam = np.asarray(res.eigenvalues, np.complex128)
+                X = np.asarray(res.eigenvectors, np.complex128)
+                limit = np.sqrt(k) * tol * np.abs(lam).max()
+                residual = np.max(np.linalg.norm(A @ X - X * lam[None, :], axis=0)
+                                  / np.linalg.norm(X, axis=0) / np.abs(lam))
+                rows.append((residual, in_span(lam, X) / limit,
+                             in_span(lam, np.linalg.qr(X)[0]) / limit, in_span(lam, X[:, ::-1]) / limit))
+                if package == "port" and seed == 1:
+                    print(f"port, seed 1: returned {np.round(lam, 3)}, leading Schur block "
+                          f"{np.round(leading['values'], 3)}")
+            a = np.asarray(rows)
+            print(f"{package}, seeds 0-39: eigenvector residual / |lambda| max {a[:, 0].max():.2e}; "
+                  f"in span(X) / limit max {a[:, 1].max():.2e}; Schur vectors in X's place "
+                  f"min {a[:, 2].min():.2e}; swapped columns min {a[:, 3].min():.2e}")
+    finally:
+        krylov_schur._ordered_schur = ordered_schur
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    {"ks-tail": ks_tail, "rehearse": rehearse, "tridiag": tridiag}[sys.argv[1]]()
+    {"ks-tail": ks_tail, "rehearse": rehearse, "tridiag": tridiag, "ks-ritz": ks_ritz}[sys.argv[1]]()

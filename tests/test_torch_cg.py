@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import eigenex_tpu.solvers.cg as jcg
+from eigenex_tpu.core.operators import LinearOperator as JLinearOperator
 from eigenex_tpu.core.operators import aslinearoperator as j_aslin
 from eigenex_tpu_torch import (
     LinearOperator,
@@ -151,6 +152,55 @@ def test_shift_invert_hermitian_interior(solver):
     assert np.linalg.norm(A @ y - sigma * y - x) / np.linalg.norm(x) < 1e-9
     assert st.stats["applications"] == 1
     assert st.stats["fallbacks"] == (1 if solver == "cg" else 0)
+
+
+def closure(A, dtype=torch.float64):
+    """A matrix-free operator over A with no adjoint, in each package, and
+    a count of the port's matvec calls."""
+    calls = {"n": 0}
+
+    def mv(m, v):
+        calls["n"] += 1
+        return m @ v
+
+    jdt = jnp.complex128 if np.iscomplexobj(A) else jnp.float64
+    return (LinearOperator(mv, torch.as_tensor(A), A.shape, dtype, "cpu"),
+            JLinearOperator(lambda m, v: m @ v, jnp.asarray(A), A.shape, jdt), calls)
+
+
+def test_cgls_on_a_closure_derives_the_adjoint():
+    """test_cgls_matches_reference's indefinite case on an operator with no
+    adjoint: both packages derive A^H (vjp / autograd); same iterations and
+    iterate.  Each derived adjoint calls the matvec once (its forward)."""
+    lam = np.linspace(-3.0, 3.0, 40)
+    lam[np.abs(lam) < 0.2] += 0.4
+    A, b = orthogonal_spectrum(lam, 1)
+    op, jop, calls = closure(A)
+    xj, _, ij = jcg.cgls_solve(jop, jnp.asarray(b), tol=1e-12, max_iters=2000)
+    x, _, it = cgls_solve(op, b, tol=1e-12, max_iters=2000)
+    assert int(it) == int(ij)
+    close(x.numpy(), xj)
+    assert np.linalg.norm(A @ x.numpy() - b) < 1e-10
+    assert calls["n"] % 2 == 0 and calls["n"] >= 2 * (int(it) + 1)  # one matvec, one adjoint a step
+
+
+@pytest.mark.parametrize("solver", ["cg", "minres"])
+def test_shift_invert_hermitian_on_a_closure(solver):
+    """test_shift_invert_hermitian_interior on a matrix-free operator with no
+    adjoint, in both packages: CG under its cap at the interior sigma falls
+    back (to MINRES, in both: neither needs the adjoint), and the result
+    agrees with the reference's."""
+    A, x = orthogonal_spectrum(np.linspace(-1.0, 1.0, 50) + 0.013, 0)
+    sigma = 0.0
+    op, jop, calls = closure(A)
+    st = shift_invert_operator(op, sigma, tol=1e-12, max_iters=70, solver=solver)
+    y = st.matvec(torch.as_tensor(x)).numpy()
+    yj = jcg.shift_invert_operator(jop, sigma, tol=1e-12, max_iters=70,
+                                   solver=solver).matvec(jnp.asarray(x))
+    close(y, yj)
+    assert np.linalg.norm(A @ y - sigma * y - x) / np.linalg.norm(x) < 1e-9
+    assert st.stats["fallbacks"] == (1 if solver == "cg" else 0)
+    assert st.stats["matvecs"] == calls["n"] and st.stats["adjoint_forwards"] == 0
 
 
 def test_minres_rejects_rectangular():

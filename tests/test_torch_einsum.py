@@ -13,10 +13,11 @@ import torch
 
 import eigenex_tpu.ops.einsum  # noqa: F401  (the package re-exports a function of that name)
 from eigenex_tpu.utils.exceptions import EinsumError as RefEinsumError
-from eigenex_tpu_torch.ops import einsum as port
+import eigenex_tpu_torch.ops.einsum  # noqa: F401  (so does the port's)
 from eigenex_tpu_torch.utils.exceptions import EinsumError
 
 ref = sys.modules["eigenex_tpu.ops.einsum"]
+port = sys.modules["eigenex_tpu_torch.ops.einsum"]
 torch.set_num_threads(1)
 
 

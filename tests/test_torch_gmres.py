@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import eigenex_tpu.solvers.gmres as jg
+from eigenex_tpu.core.operators import LinearOperator as JLinearOperator
 from eigenex_tpu.core.operators import aslinearoperator as j_aslin
+from eigenex_tpu.sparse.bsr import bsr_from_dense as j_bsr_from_dense
 from eigenex_tpu.solvers.arnoldi import ArnoldiEigenSolver as JArnoldi
 from eigenex_tpu.solvers.arnoldi import ArnoldiOptions as JOptions
 from eigenex_tpu_torch import (
@@ -22,7 +24,9 @@ from eigenex_tpu_torch import (
     gmres_solve_jit,
     shift_invert_operator_general,
 )
-from eigenex_tpu_torch.utils.exceptions import EigenexError
+from eigenex_tpu_torch.ops import cuda_spmv
+from eigenex_tpu_torch.sparse.bsr import bsr_from_dense
+from eigenex_tpu_torch.utils.exceptions import EigenexError, OperatorError
 
 torch.set_num_threads(1)
 
@@ -129,6 +133,95 @@ def test_shift_invert_general_cgls_fallback():
     yj = jg.shift_invert_operator_general(j_aslin(jnp.asarray(A)), sigma, tol=1e-12).matvec(
         jnp.asarray(x))
     close(y, yj, rel=1e-8)  # the same solution; each solve is itself only 1e-12-exact
+
+
+def stencil(nx=12, conv=0.4):
+    """The upwind convection-diffusion stencil of BASELINE config 2 (non-normal)."""
+    lap = np.diag(np.full(nx, 4.0)) + np.diag(np.full(nx - 1, -1.0 - conv), -1) \
+        + np.diag(np.full(nx - 1, -1.0 + conv), 1)
+    shift = np.diag(np.full(nx - 1, -1.0 - conv), -1) + np.diag(np.full(nx - 1, -1.0 + conv), 1)
+    return np.kron(np.eye(nx), lap) + np.kron(shift, np.eye(nx))
+
+
+def container_matvec(p, v):
+    return p.matvec(v)
+
+
+@pytest.mark.parametrize("case", ["dense_complex", "bsr_stencil"])
+def test_shift_invert_general_cgls_fallback_on_a_closure(case):
+    """test_shift_invert_general_cgls_fallback on matrix-free operators with
+    no adjoint, in both packages: GMRES stagnates, every application falls
+    back to CGLS, whose adjoint the reference derives by ``jax.vjp`` and the
+    port by autograd (before the derived adjoint the port raised
+    OperatorError here).  The results agree to 1e-10; each derived adjoint
+    runs one forward product, counted apart from ``matvecs``."""
+    rng = np.random.default_rng(0)
+    calls = {"n": 0}
+    if case == "dense_complex":
+        n = 80
+        A = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+        sigma, tol, kw = 0.5 + 0.2j, 1e-12, {}
+        x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        got, ref, dt, jdt = torch.as_tensor(A), jnp.asarray(A), torch.complex128, jnp.complex128
+    else:
+        A = stencil()
+        n = A.shape[0]
+        # an interior shift of the stencil's spectrum with a small GMRES budget
+        sigma, tol, kw = 7.1, 1e-12, dict(restart=8, cycles=60)
+        x = rng.standard_normal(n)
+        got = bsr_from_dense(A, (8, 8), device="cpu")
+        ref = j_bsr_from_dense(A, (8, 8))
+        dt, jdt = torch.float64, jnp.float64
+
+    def mv(p, v):
+        calls["n"] += 1
+        return p.matvec(v) if case == "bsr_stencil" else p @ v
+
+    op = LinearOperator(mv, got, A.shape, dt, "cpu")
+    jop = JLinearOperator(container_matvec if case == "bsr_stencil" else (lambda p, v: p @ v),
+                          ref, A.shape, jdt)
+    si = shift_invert_operator_general(op, sigma, tol=tol, **kw)
+    y = si.matvec(torch.as_tensor(x)).numpy()
+    yj = jg.shift_invert_operator_general(jop, sigma, tol=tol, **kw).matvec(jnp.asarray(x))
+    close(y, yj)
+    assert np.linalg.norm(A @ y - sigma * y - x) / np.linalg.norm(x) < 1e-10
+    st = si.stats
+    assert st["applications"] == 1 and st["fallbacks"] == 1 and st["iterations"] > 0
+    assert st["adjoint_forwards"] > 0 and calls["n"] == st["matvecs"]
+    # the same operator with the explicit adjoint: the same counts but no extra forwards
+    explicit = shift_invert_operator_general(
+        LinearOperator(mv, got, A.shape, dt, "cpu",
+                       rmatvec_fn=(lambda p, v: p.rmatvec(v)) if case == "bsr_stencil"
+                       else (lambda p, v: p.conj().T @ v)), sigma, tol=tol, **kw)
+    close(explicit.matvec(torch.as_tensor(x)).numpy(), y)
+    assert explicit.stats["matvecs"] == st["matvecs"] and explicit.stats["adjoint_forwards"] == 0
+
+
+def test_cgls_fallback_raises_where_autograd_cannot_see_the_product(monkeypatch):
+    """The fault this slice repairs, shown on the CPU: a closure over a
+    kernel product taken outside autograd, as a ctypes launch was before the
+    kernels' autograd Functions, has no derivable adjoint, and the CGLS
+    fallback raises OperatorError, as the port did for every closure before
+    its adjoint was derived; with the Functions the same closure solves."""
+    A = stencil()
+    bsr = bsr_from_dense(A, (8, 8), device="cpu")
+    x = np.random.default_rng(0).standard_normal(A.shape[0])
+    kw = dict(tol=1e-12, restart=8, cycles=60)
+
+    def launch(op, v):
+        with torch.no_grad():
+            return cuda_spmv.bsr_spmv_plain(op, v)
+
+    monkeypatch.setitem(cuda_spmv._LAUNCH, "bsr_spmv", launch)
+    op = LinearOperator(lambda p, v: cuda_spmv._product("bsr_spmv", p, v), bsr, bsr.shape,
+                        torch.float64, "cpu")
+    si = shift_invert_operator_general(op, 7.1, **kw)
+    y = si.matvec(torch.as_tensor(x)).numpy()  # through the Functions
+    assert si.stats["fallbacks"] == 1
+    assert np.linalg.norm(A @ y - 7.1 * y - x) / np.linalg.norm(x) < 1e-10
+    monkeypatch.setattr(cuda_spmv, "_product", lambda name, p, v: cuda_spmv._LAUNCH[name](p, v))
+    with pytest.raises(OperatorError, match="rmatvec_fn"):
+        shift_invert_operator_general(op, 7.1, **kw).matvec(torch.as_tensor(x))
 
 
 def test_gmres_rejects_rectangular():

@@ -6,9 +6,13 @@ into the port's own build directory).
 """
 
 import ast
+import importlib
+import importlib.util
 import pathlib
+import pkgutil
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -161,3 +165,51 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          text=True)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+#: the reference's public names with no counterpart in the port: the v5e's
+#: peak bandwidth (the port's is ``utils.benchtime``'s H100 figure)
+TPU_ONLY = {("eigenex_tpu.utils.benchtime", "V5E_PEAK_GBS")}
+
+
+def public_names(module) -> list[str]:
+    """``__all__``, or the public names a module without one defines or
+    re-exports from its own package (its submodules left out)."""
+    names = getattr(module, "__all__", None)
+    if names is not None:
+        return list(names)
+    return [n for n, v in vars(module).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and getattr(v, "__module__", "").startswith("eigenex_tpu")]
+
+
+@pytest.mark.parametrize("sub", ["ops", "sparse", "solvers"])
+def test_subpackages_export_the_reference_names(sub):
+    """``from eigenex_tpu_torch.<sub> import <name>`` works for every name the
+    reference's subpackage exports, and gives the port's own object."""
+    ref = importlib.import_module(f"eigenex_tpu.{sub}")
+    port = importlib.import_module(f"eigenex_tpu_torch.{sub}")
+    names = public_names(ref)
+    assert names
+    for name in names:
+        got = getattr(port, name)
+        assert getattr(got, "__module__", "eigenex_tpu_torch").startswith("eigenex_tpu_torch"), name
+        if not isinstance(got, (int, float, str)):
+            assert got is not getattr(ref, name), name
+
+
+def test_every_reference_module_name_has_a_counterpart():
+    """A walk of the JAX package: each module's public names resolve in the
+    port's module at the same subpath, save the TPU-only ones."""
+    import eigenex_tpu
+
+    missing = []
+    for info in pkgutil.walk_packages(eigenex_tpu.__path__, "eigenex_tpu."):
+        spec = importlib.util.find_spec(info.name)
+        if info.name.endswith(".pallas_spmv") or not str(spec.origin).endswith(".py"):
+            continue  # the Pallas kernels live in ops/cuda_spmv.py; the native .so is no module
+        ref = importlib.import_module(info.name)
+        port = importlib.import_module(info.name.replace("eigenex_tpu", "eigenex_tpu_torch", 1))
+        missing += [(info.name, n) for n in public_names(ref)
+                    if not hasattr(port, n) and (info.name, n) not in TPU_ONLY]
+    assert not missing

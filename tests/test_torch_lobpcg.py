@@ -22,13 +22,14 @@ import torch
 import eigenex_tpu as ex
 import eigenex_tpu_torch as ext
 import eigenex_tpu.solvers.lobpcg  # noqa: F401  (the package re-exports the function under this name)
-from eigenex_tpu_torch.solvers import lobpcg as tl
+import eigenex_tpu_torch.solvers.lobpcg  # noqa: F401  (so does the port's)
 from eigenex_tpu_torch.sparse.bsr import bsr_from_dense
 from eigenex_tpu_torch.sparse.sym_bsr import sym_bsr_from_bsr
 from eigenex_tpu_torch.utils.exceptions import EigenexError, LanczosError
 
 torch.set_num_threads(1)
 jl = sys.modules["eigenex_tpu.solvers.lobpcg"]
+tl = sys.modules["eigenex_tpu_torch.solvers.lobpcg"]
 
 N, K = 80, 4
 
