@@ -123,6 +123,14 @@ filter) through the SpMM kernels -- at full size:
                          derived adjoint, bit-equal to the same operator with the explicit adjoint;
                          (c) ``eigs(closure, sigma=8.5)`` on phase 12's operand from phase 12's
                          start, its eigenvalues bit-equal to phase 12's.
+35. ``mesh_adjoint``     the mesh operators' explicit adjoint on 4 shards of the card: each mode's
+                         reverse product (allgather, colsplit and the 2x2 grid on the config-2
+                         pack of phase 11; halo and sym_halo on the banded operator of phase 4)
+                         against the one-device A^H y, its ms beside the forward's, its launches a
+                         shard piece; one application of the mesh shift-invert at the interior
+                         sigma of phase 34, whose CGLS fallback takes the reverse products, against
+                         one device; the allgather reverse product on 2 processes x 2 shards,
+                         bit-equal to the one-process mesh.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -416,10 +424,12 @@ ALSO_REPLACES = {
 #: 32, 128) f32 pack of phase eigs_accelerated (the 32x128 f32 packs of the general
 #: path, on one device and on a mesh), the S_z = 0 sector pack of phase
 #: block_heisenberg_bsr, and the shard-local containers of each mesh_modes run and of
-#: heisenberg_l24_mesh.  sym_bsr_spmv: f32 and bf16 blocks of reach 1
-#: (eigsh_banded, eigsh_accelerated), the L = 24 sector pack (heisenberg_l24) and the
-#: in-panel packs of the mesh phases.  bsr_spmm and sym_bsr_spmm: the f32 12-column
-#: panel of LOBPCG, the bf16 8-column block of the window filter (sym_bsr_spmm),
+#: heisenberg_l24_mesh, and the reverse pieces ("<role>^H") of phase mesh_adjoint's
+#: modes (its sym_halo reverse product is the forward one).  sym_bsr_spmv: f32 and
+#: bf16 blocks of reach 1 (eigsh_banded, eigsh_accelerated), the L = 24 sector pack
+#: (heisenberg_l24) and the in-panel packs of the mesh phases.  bsr_spmm and
+#: sym_bsr_spmm: the f32 12-column panel of LOBPCG, the bf16 8-column block of the
+#: window filter (sym_bsr_spmm),
 #: and the mesh_filters phases' shard-local containers at those widths; phase
 #: derived_adjoint's vjps at DA_PANEL columns: bsr_spmm forward on the config-2 pack
 #: and backward on its adjoint pack (a half each), sym_bsr_spmm on the bf16 banded
@@ -429,6 +439,7 @@ _HALF, _THIRD = Fraction(1, 2), Fraction(1, 3)
 _L24M = f"mesh: L={L24} sym_halo"
 _F32M = "mesh: f32 full"
 _BF16M = "mesh: bf16 pack sym_halo"
+_CD2M = "mesh: config-2 f32"
 MAIN_CASES = {
     "bsr_spmv": [dict(match=("config-2 pack", " f32")),
                  dict(match=("sector pack", " f32"), phases={"block_heisenberg_bsr": 1}),
@@ -438,16 +449,24 @@ MAIN_CASES = {
                  *(dict(match=(f"{_F32M} halo {role} ",), phases={"mesh_modes_halo": _THIRD})
                    for role in ("main", "left", "right")),
                  *(dict(match=(f"{_F32M} sym_halo {role} ",),
-                        phases={"mesh_modes_sym_halo": _HALF, "multiprocess_banded_sym_halo": _HALF})
+                        phases={"mesh_modes_sym_halo": _HALF, "multiprocess_banded_sym_halo": _HALF,
+                                "mesh_adjoint_sym_halo": _HALF})
                    for role in ("right", "right_adj")),
                  dict(match=(f"{_F32M} grid main ",), phases={"mesh_modes_grid": 1}),
+                 dict(match=(f"{_CD2M} allgather main^H ",),
+                      phases={"mesh_adjoint_allgather": 1, "mesh_adjoint_multiprocess": 1}),
+                 dict(match=(f"{_CD2M} colsplit main^H ",), phases={"mesh_adjoint_colsplit": 1}),
+                 dict(match=(f"{_CD2M} grid main^H ",), phases={"mesh_adjoint_grid": 1}),
+                 *(dict(match=(f"{_F32M} halo {role}^H ",), phases={"mesh_adjoint_halo": _THIRD})
+                   for role in ("main", "left", "right")),
                  *(dict(match=(f"{_L24M} {role} ",),
                         phases={"heisenberg_l24_mesh": _HALF, "heisenberg_l24_multiprocess": _HALF})
                    for role in ("right", "right_adj"))],
     "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16")),
                      dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1}),
                      dict(match=(f"{_F32M} sym_halo main ",),
-                          phases={"mesh_modes_sym_halo": 1, "multiprocess_banded_sym_halo": 1}),
+                          phases={"mesh_modes_sym_halo": 1, "multiprocess_banded_sym_halo": 1,
+                                  "mesh_adjoint_sym_halo": 1}),
                      dict(match=(f"{_L24M} main ",),
                           phases={"heisenberg_l24_mesh": 1, "heisenberg_l24_multiprocess": 1})],
     "bsr_spmm": [dict(match=("banded", " f32", f"p={MAIN_WIDTH} ")),
@@ -893,12 +912,11 @@ def check_kernel(name: str, case: str, op, x, peaks, plain_samples=(TIMED_LAUNCH
         fail(f"{name}[{case}]: rel err {rel_err:.3e} against the plain version exceeds {KERNEL_REL_TOL}")
     out = dict(kernel=name, case=case, storage=str(op.dtype).replace("torch.", ""),
                max_rel_err=rel_err, max_abs_err=abs_err)
-    if is_sym:
-        y2 = wrapper(op, x)
-        torch.cuda.synchronize()
-        if not torch.equal(y, y2):
-            fail(f"{name}[{case}]: two runs on the same input are not bit-equal")
-        out["bit_equal_rerun"] = True
+    y2 = wrapper(op, x)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        fail(f"{name}[{case}]: two runs on the same input are not bit-equal")
+    out["bit_equal_rerun"] = True
     out["kernel_ms"] = time_ms(lambda: wrapper(op, x))
     out["host_us_per_call"] = host_us_per_call(lambda: wrapper(op, x))
     out["plain_ms"] = time_ms(lambda: plain(op, x), count=plain_samples[0], batch=plain_samples[1])
@@ -1150,13 +1168,17 @@ def shard_pieces(mesh_op):
 
 
 def time_shard_parts(tag: str, mode: str, shard: int, parts, peaks, kernel_cases: list,
-                     widths=(), spmv: bool = True, plain_samples=(TIMED_LAUNCHES, 8)) -> None:
+                     widths=(), spmv: bool = True, plain_samples=(TIMED_LAUNCHES, 8),
+                     reverse: bool = False) -> None:
     """Every container of one shard, timed and bounded as the kernels of phase
     kernels are (``check_kernel``, and ``check_spmm`` at each of ``widths``),
     into ``kernel_cases`` under "mesh: <tag> <mode> <role> shard <s> ...": the
     shapes and storages a mesh phase gives the kernels, which MAIN_CASES
-    matches to the phases it claims."""
-    for role, c in parts.roles().items():
+    matches to the phases it claims.  ``reverse``: the adjoint pieces the
+    shard's reverse products built instead, as roles "<role>^H"."""
+    pieces = ({f"{role}^H": c for role, c in parts.reverse_roles().items()} if reverse
+              else parts.roles())
+    for role, c in pieces.items():
         sym = isinstance(c, SymBSRMatrix)
         storage = "bf16" if c.dtype == torch.bfloat16 else "f32"
         shape = "x".join(map(str, (c.diag_data if sym else c.data).shape))
@@ -1387,6 +1409,162 @@ def mesh_host_costs(sym, dev, steps: int = 64) -> dict:
                                        empty_shard_map_us=(time.time() - t0) / 100 * 1e6)
         del placed
     return out
+
+
+MESH_ADJOINT_REL = 1e-5     # mesh_adjoint: each reverse product against the one-device A^H y, relative
+MESH_ADJOINT_CALLS = 8      # ... reverse (and forward) products a mode, timed and counted
+MESH_SI_RESID_FACTOR = 1.5  # ... (b): the mesh application's true residual within this factor of
+                            # the one device's
+#: launches of one reverse product on 4 shards (the 2x2 grid: 4 panels), by mode
+MESH_ADJOINT_LAUNCHES = {"allgather": {"bsr_spmv": 4}, "colsplit": {"bsr_spmv": 4},
+                         "grid": {"bsr_spmv": 4}, "halo": {"bsr_spmv": 12},
+                         "sym_halo": {"sym_bsr_spmv": 4, "bsr_spmv": 8}}
+
+
+def host_ms(fn, calls: int = MESH_ADJOINT_CALLS) -> float:
+    """Wall ms of one call of ``fn``, synchronised, over ``calls`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / calls * 1e3
+
+
+def mesh_adjoint_phase(acc_cd, bsr32, drive, record, dev, peaks, kernel_cases) -> None:
+    """Phase 35: the mesh operators' explicit adjoint, on 4 shards of the card.
+    (a) Each mode's reverse product (``rmatvec``): allgather, colsplit and the
+    2x2 panel grid on the config-2 pack of phase 11 (f32, 32x128 blocks; its
+    block columns padded to a multiple of 4), halo and sym_halo on the f32
+    banded operator of phase 4 (the two modes need square blocks; that
+    operator is symmetric, A^T = A), each against
+    the one-device A^H y (the pack's ``kernel_adjoint()``), its ms beside the
+    mode's matvec, its launches a shard piece counted from 0 over
+    MESH_ADJOINT_CALLS calls (a main path: the result line gives them to the
+    reverse pieces of one shard, timed here at their shapes; sym_halo's
+    reverse product is its forward one).  (b) One application of the mesh
+    shift-invert operator of the config-2 pack at DA_SIGMA in allgather,
+    where GMRES stagnates and CGLS takes the reverse products, against the
+    same application on one device: fallbacks, CGLS iterations and true
+    residuals (a comparison: its launches, forward and reverse pieces in a
+    ratio the data sets, are printed in this line only).  (c) The allgather
+    reverse product on 2 processes x 2 shards of the card, bit-equal to the
+    one-process mesh of 4 shards."""
+    from eigenex_tpu_torch.parallel.multiproc import save_operator, scenario_reverse, spawn
+
+    t_phase = time.time()
+    pack = acc_cd.matrix
+    cd_adj = pack.kernel_adjoint()  # cached since phase kernels
+    n_cd = pack.shape[0]
+    # colsplit and the grid split the 781 block columns of 128 over the shards: the pack
+    # padded (zero block rows of 32, and as many columns) to 784, as pad_bsr_for_mesh does
+    bm, bn = pack.block_shape
+    padded = pad_bsr_for_mesh(pack, MESH_SHARDS * bn // bm)
+    mesh, grid = card_mesh(dev), card_grid(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    plan = (("allgather", "config-2 f32", padded, mesh), ("colsplit", "config-2 f32", padded, mesh),
+            ("grid", "config-2 f32", padded, grid), ("halo", "f32 full", bsr32, mesh),
+            ("sym_halo", "f32 full", bsr32, mesh))
+    modes = []
+    for mode, tag, op, m in plan:
+        mop = mesh_operator_2d(op, m) if mode == "grid" else mesh_operator(op, m, matvec_mode=mode)
+        y = torch.randn(op.shape[0], generator=gen, device=dev)
+        t0 = time.time()
+        x = mop.rmatvec(y)  # builds the reverse pieces of every shard
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        if op is bsr32:
+            ref = bsr32.matvec(y)  # A^H = A
+        else:
+            ref = torch.zeros_like(x)
+            ref[:n_cd] = cd_adj.matvec(y[:n_cd].contiguous())
+        rel = rel_to(x, ref)
+        bit_equal = bool(torch.equal(x, mop.rmatvec(y)))
+        _, seconds, counts = drive(f"mesh_adjoint_{mode}", op,
+                                   lambda: [mop.rmatvec(y) for _ in range(MESH_ADJOINT_CALLS)])
+        want = {k: MESH_ADJOINT_CALLS * MESH_ADJOINT_LAUNCHES[mode].get(k, 0)
+                for k in cuda_spmv.KERNEL_SOURCES}
+        shard = TIMED_SHARD.get(mode, TIMED_SHARD_1D)
+        parts = shard_pieces(mop)[shard]
+        if mode != "sym_halo":  # its pieces are the forward ones, timed by phase mesh_kernels
+            time_shard_parts(tag, mode, shard, parts, peaks, kernel_cases, reverse=True)
+        modes.append(dict(
+            mode=mode, operand=tag, shape=list(op.shape), pack=list(op.data.shape),
+            shards=m.size, rel_err_vs_one_device=rel, rel_limit=MESH_ADJOINT_REL,
+            bit_equal_rerun=bit_equal, first_call_seconds=first_s,
+            ms_per_rmatvec=seconds * 1e3 / MESH_ADJOINT_CALLS,
+            ms_per_matvec=host_ms(lambda: mop.matvec(y)),
+            reverse_pieces={role: list(c.data.shape) for role, c in parts.reverse_roles().items()},
+            launches=counts, launches_expected=want,
+            launches_per_shard_per_rmatvec={k: v / (MESH_ADJOINT_CALLS * m.size)
+                                            for k, v in counts.items() if v}))
+        if not (rel <= MESH_ADJOINT_REL and bit_equal):
+            fail(f"mesh_adjoint [{mode}]: reverse product against one device {rel:.3e} "
+                 f"(limit {MESH_ADJOINT_REL}), re-run bit-equal {bit_equal}")
+        if counts != want:
+            fail(f"mesh_adjoint [{mode}]: launches {counts}, expected {want}")
+        del mop, x, y, ref
+    torch.cuda.empty_cache()
+
+    # (b) one application of the interior-sigma shift-invert, on the mesh and on one device
+    v = acc_cd.embed(np.random.default_rng(SEED + 35).standard_normal(acc_cd.orig_shape[1]))
+    r_cd, c_cd, v_cd, n = convection_diffusion_coo(CD_NX)
+    A64 = sp.csr_matrix((v_cd, (r_cd, c_cd)), shape=(n, n))
+    x_host = acc_cd.restore(v).astype(np.float64)
+    si_runs = {}
+    for where, op in (("one_device", pack),
+                      ("mesh", mesh_operator(pack, mesh, matvec_mode="allgather"))):
+        si = shift_invert_operator_general(op, DA_SIGMA, tol=SIGMA_INNER_TOL)
+        cuda_spmv.reset_launch_counts()
+        t0 = time.time()
+        y = si.matvec(v)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        yh = acc_cd.restore(y).astype(np.float64)
+        resid = float(np.linalg.norm(A64 @ yh - DA_SIGMA * yh - x_host) / np.linalg.norm(x_host))
+        si_runs[where] = dict(stats=dict(si.stats), true_residual=resid, seconds=seconds,
+                              launches=cuda_spmv.launch_counts())
+    one, on_mesh = si_runs["one_device"], si_runs["mesh"]
+
+    # (c) the allgather reverse product across processes, against the one-process mesh
+    with tempfile.TemporaryDirectory(dir=MP_WORK) as work:
+        spec = dict(kind="npz", path=str(Path(work) / "config2_pack.npz"))
+        save_operator(spec["path"], padded)  # the shapes of (a)'s allgather pieces
+        t0 = time.time()
+        got = spawn("reverse", 2, [str(dev)] * 2,
+                    dict(operator=spec, modes=["allgather"], seed=SEED, calls=MESH_ADJOINT_CALLS),
+                    timeout=MP_TIMEOUT, threads=worker_threads(2))
+        spawn_s = time.time() - t0
+        here = scenario_reverse(card_mesh(dev), spec, ["allgather"], seed=SEED)["allgather"]
+    mp_counts = sum_launches([g["allgather"] for g in got])
+    record("mesh_adjoint_multiprocess", "float32", mp_counts)
+    mp_equal = all(g["allgather"]["digest"] == here["digest"] for g in got)
+    mp_want = {k: MESH_ADJOINT_CALLS * MESH_ADJOINT_LAUNCHES["allgather"].get(k, 0)
+               for k in cuda_spmv.KERNEL_SOURCES}
+    emit("mesh_adjoint", devices=f"{MESH_SHARDS} shards of {dev} (grid {MESH_GRID})", modes=modes,
+         shift_invert=dict(sigma=DA_SIGMA, tol=SIGMA_INNER_TOL, mode="allgather", **si_runs,
+                           resid_factor_limit=MESH_SI_RESID_FACTOR),
+         multiprocess=dict(processes=2, shards_per_process=2, mode="allgather",
+                           bit_equal_to_one_process_mesh=mp_equal,
+                           digest=here["digest"], norm=here["norm"],
+                           ms_per_rmatvec=[g["allgather"]["seconds"] * 1e3 / MESH_ADJOINT_CALLS
+                                           for g in got],
+                           spawn_wall_seconds=spawn_s, launches=mp_counts,
+                           launches_expected=mp_want, backend=got[0]["backend"]),
+         seconds=time.time() - t_phase)
+    same = {k: one["stats"][k] for k in ("fallbacks", "iterations")} == \
+        {k: on_mesh["stats"][k] for k in ("fallbacks", "iterations")}
+    if not (same and one["stats"]["fallbacks"] == 1 and on_mesh["stats"]["adjoint_forwards"] == 0):
+        fail(f"mesh_adjoint: shift-invert on the mesh {on_mesh['stats']} against one device "
+             f"{one['stats']}: expected the same single CGLS fallback and iterations")
+    if not (np.isfinite(on_mesh["true_residual"])
+            and on_mesh["true_residual"] <= MESH_SI_RESID_FACTOR * one["true_residual"]):
+        fail(f"mesh_adjoint: shift-invert true residual {on_mesh['true_residual']:.3e} on the mesh, "
+             f"{one['true_residual']:.3e} on one device (factor limit {MESH_SI_RESID_FACTOR})")
+    if not mp_equal or mp_counts != mp_want:
+        fail(f"mesh_adjoint: across processes bit-equal {mp_equal}, launches {mp_counts} "
+             f"(expected {mp_want})")
 
 
 def heisenberg_l24_mesh_phase(acc24, triplets, e0_one, solve_one, drive, dev, peaks,
@@ -2258,7 +2436,8 @@ def main() -> None:
 
     # BASELINE config 2, packed once: the main-path shape of the general SpMV
     # kernel (phase kernels) and the operand of phase eigs_accelerated
-    if wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint"):
+    if (wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint")
+            or wanted("mesh_adjoint")):
         r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
         coo_cd = coo_on(r_cd, c_cd, v_cd, n_cd, dev)
         native.reset_native_calls()
@@ -2848,7 +3027,12 @@ def main() -> None:
     # -- 34. derived_adjoint: matrix-free adjoints through the kernels' backward ---------
     if wanted("derived_adjoint"):
         derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, args.profile)
-    if wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint"):
+    # -- 35. mesh_adjoint: the mesh operators' reverse products -----------------------------
+    if wanted("mesh_adjoint"):
+        MP_WORK.mkdir(parents=True, exist_ok=True)
+        mesh_adjoint_phase(acc_cd, bsr32, drive, record, dev, peaks, kernel_cases)
+    if (wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint")
+            or wanted("mesh_adjoint")):
         del acc_cd
 
     # -- 13. eigsh_complex_accelerated: the real embedding on the symmetric kernel -----
@@ -3570,7 +3754,10 @@ def main() -> None:
         samples_phase(dev)
 
     if only:
-        emit("partial", phases=sorted(only), seconds=time.time() - t_start)
+        # every timed case of the run, those the mesh phases added included
+        emit("partial", phases=sorted(only), seconds=time.time() - t_start,
+             timed=[{k: c.get(k) for k in ("kernel", "case", "kernel_ms", "bound_ms", "plain_ms",
+                                           "library_ms", "max_rel_err")} for c in kernel_cases])
         return
 
     # -- result ----------------------------------------------------------------

@@ -2,14 +2,10 @@
 // precision rule below for both, and the body of bsr_spmv.cu.
 // (sym_bsr_spmv.cu has a design of its own, described in its head.)
 //
-// Work decomposition of bsr_spmv: one CTA of 8 warps owns one
-// block row.  A warp owns whole rows of a block (row i belongs to warp
-// i % 8); its 32 lanes stride the row with one 4-element load each, so a
-// warp-wide load covers 128 consecutive columns -- 512 contiguous bytes of
-// f32 storage, 256 of bf16.  Each lane keeps 16 rows in flight per pass,
-// i.e. 16 independent vector loads, which is what hides the latency of
-// device memory: the kernels do 2-4 flops per byte they stream and are
-// bound by bytes, far below the FMA rate.
+// Both kernels stream every block once with 16-byte loads, many in
+// flight a lane, which is what hides the latency of device memory: they do
+// 2-4 flops per byte they stream and are bound by bytes, far below the FMA
+// rate.  (Each kernel's head gives its work decomposition.)
 //
 // Precision rule (replaces _dot_mode/_sdot of eigenex_tpu/ops/pallas_spmv.py):
 // blocks are stored as f32 or bf16, x and every accumulator are f32, and
@@ -32,8 +28,6 @@ constexpr int kWarps = 8;                        // warps per CTA
 constexpr int kThreads = kWarps * 32;            // threads per CTA
 constexpr int kLane = 4;                         // elements per lane per load
 constexpr int kChunk = 32 * kLane;               // columns per warp-wide load
-constexpr int kRowsPerWarp = 16;                 // rows a warp keeps in flight
-constexpr int kRowPass = kWarps * kRowsPerWarp;  // block rows covered per pass
 
 // Four consecutive stored elements, widened to f32.  Block data is read
 // exactly once per matvec, so it is loaded with the streaming hint and

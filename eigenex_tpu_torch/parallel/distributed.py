@@ -39,6 +39,12 @@ reverse product is one ``bsr_spmv`` launch with no float atomics, and two
 runs of a product are bit-equal.  ``use_pallas`` is accepted for
 signature parity only: there is no XLA path to switch from.
 
+Each mesh operator has an explicit adjoint, where the JAX package derives
+one with ``jax.vjp`` through ``shard_map``: the forward's collectives
+transposed over the adjoints of the same shard containers
+(:func:`_local_reverse`, :func:`_grid_reverse`), built in the containers'
+block shape at the first reverse product, so the same kernel takes them.
+
 The host splits (:func:`split_bsr_halo`, :func:`split_sym_bsr_halo`,
 :func:`split_bsr_colpanels`, :func:`split_bsr_grid`) return the JAX
 package's stacked layout bit for bit, computed with vectorised torch ops
@@ -58,6 +64,8 @@ and gather only the Ritz vectors at the end.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -453,6 +461,59 @@ class _ShardParts:
         found = dict(main=self.main, left=self.left, right=self.right, right_adj=self.right_adj)
         return {role: c for role, c in found.items() if c is not None}
 
+    def reverse(self, role: str) -> BSRMatrix:
+        """The adjoint of the container ``role`` in the same block shape (so
+        that the same kernel takes it), built at the first call and kept
+        with these parts; its shape may be padded to whole blocks
+        (:func:`_reverse_piece`)."""
+        found = self.__dict__.setdefault("_reverse", {})
+        if role not in found:
+            found[role] = _reverse_piece(getattr(self, role))
+        return found[role]
+
+    def reverse_roles(self) -> dict:
+        """The reverse pieces built so far, by role."""
+        return dict(self.__dict__.get("_reverse", {}))
+
+
+#: the roles whose adjoint the reverse product of each mode multiplies with
+#: (sym_halo is Hermitian: its reverse product is the forward one)
+_REVERSE_ROLES = {"allgather": ("main",), "colsplit": ("main",), "grid": ("main",),
+                  "halo": ("main", "left", "right"), "sym_halo": ()}
+
+
+def _reverse_piece(c: BSRMatrix) -> BSRMatrix:
+    """c^H as a container of c's block shape: square blocks transposed on
+    their device (:func:`_block_adjoint`); others through
+    :meth:`BSRMatrix.kernel_adjoint`, with c first padded by zero block rows
+    and columns to a multiple of both block sides where its shape does not
+    tile by them (a 32x128 pack over a shard count that leaves a shard
+    block rows not a multiple of 4).  The result then has more rows and
+    columns than c^H; :func:`_reverse_apply` pads the input and cuts the
+    output."""
+    m, n = c.shape
+    bm, bn = c.block_shape
+    if bm == bn:
+        return _block_adjoint(c.data, c.block_cols, c.n_block_cols, (n, m))
+    if n % bm or m % bn:
+        step = math.lcm(bm, bn)
+        m_pad, n_pad = -(-m // step) * step, -(-n // step) * step
+        extra = m_pad // bm - c.n_block_rows
+        data = torch.cat([c.data, c.data.new_zeros((extra,) + tuple(c.data.shape[1:]))])
+        cols = torch.cat([c.block_cols, c.block_cols.new_zeros((extra, c.block_cols.shape[1]))])
+        c = BSRMatrix(data, cols, (m_pad, n_pad))
+    return c.kernel_adjoint()
+
+
+def _reverse_apply(parts: _ShardParts, role: str, y):
+    """This shard's container ``role`` applied in reverse: role^H y."""
+    adj = parts.reverse(role)
+    n_out, m_in = getattr(parts, role).shape[1], y.shape[0]
+    if adj.shape[1] != m_in:
+        y = torch.cat([y, y.new_zeros(adj.shape[1] - m_in)])
+    z = adj.matvec(y)
+    return z if z.shape[0] == n_out else z[:n_out]
+
 
 def _bsr_piece(data, cols, shape, device) -> BSRMatrix:
     return BSRMatrix(_place(data, device), _place(cols, device), shape)
@@ -615,6 +676,42 @@ def _grid_apply(parts: _ShardParts, x, comm, row_axis, col_axis, matmat: bool):
     x_panel = comm.all_gather(x, row_axis)
     y_partial = _apply(parts.main, x_panel, matmat)
     return comm.psum_scatter(y_partial, col_axis)
+
+
+def _local_reverse(parts: _ShardParts, y, ax):
+    """This shard's piece of A^H @ y (y: this shard's piece) for its mode:
+    the forward's collectives transposed, over the adjoints of the same
+    containers (each a launch of the same kernel)."""
+    mode = parts.mode
+    if mode == "allgather":
+        # y_s = A_s all_gather(x)  ->  x = sum_s A_s^H y_s, scattered
+        return ax.psum_scatter(_reverse_apply(parts, "main", y))
+    if mode == "colsplit":
+        # y = psum_scatter(P_s x_s)  ->  x_s = P_s^H all_gather(y)
+        return _reverse_apply(parts, "main", ax.all_gather(y))
+    if mode == "halo":
+        # y_s = D_s x_s + L_s x_(s-1) + R_s x_(s+1): L_s^H y_s belongs to the left
+        # neighbour, R_s^H y_s to the right one -- the forward's shifts reversed
+        x = _reverse_apply(parts, "main", y)
+        x = x + ax.shift(_reverse_apply(parts, "left", y), -1)
+        return x + ax.shift(_reverse_apply(parts, "right", y), 1)
+    return _local_apply(parts, y, ax)  # sym_halo: Hermitian by construction
+
+
+def _grid_reverse(parts: _ShardParts, y, comm, row_axis, col_axis):
+    """2-D grid body of A^H y: the transpose of :func:`_grid_apply` --
+    gather the row panel of y along the column axis, the panel's adjoint
+    product, reduce-scatter along the row axis."""
+    y_panel = comm.all_gather(y, col_axis)
+    return comm.psum_scatter(_reverse_apply(parts, "main", y_panel), row_axis)
+
+
+def _build_reverse(parts: Sharded) -> None:
+    """The reverse pieces of this process's shards, built once, in the
+    calling thread, before the first reverse product's shard bodies run."""
+    for piece in parts.local_pieces:
+        for role in _REVERSE_ROLES[piece.mode]:
+            piece.reverse(role)
 
 
 class _ShardOperator:
@@ -1096,8 +1193,10 @@ def mesh_operator(A, mesh: Mesh | None = None, *, axis_name: str = ROWS,
     ``A``: a :class:`BSRMatrix` (any mode) or :class:`SymBSRMatrix`
     (``matvec_mode='sym_halo'``) whose block rows divide the mesh -- use
     :func:`pad_bsr_for_mesh` first.  Vectors live on the mesh's first
-    device.  The operator holds the placement of ``A`` and frees it with
-    itself."""
+    device.  ``rmatvec`` is explicit in every mode (sym_halo: the forward
+    product, Hermitian by construction).  The operator holds the placement
+    of ``A``, and the adjoint pieces once a reverse product built them, and
+    frees them with itself."""
     mesh = _default_mesh(mesh, axis_name)
     nd = mesh.shape[axis_name]
     if matvec_mode not in _MODES:
@@ -1121,9 +1220,18 @@ def _pack_operator(pack: _MeshPack, mesh: Mesh, axis_name: str, A) -> LinearOper
     def mm(p, X):
         return _mesh_apply(p, mesh, axis_name, X, True)
 
+    def rmv(p, y):
+        _build_reverse(p.parts)
+
+        def body(comm, parts, yl):
+            return _local_reverse(parts, yl, comm.along(axis_name))
+
+        return shard_map(body, mesh, in_specs=(P(axis_name), P(axis_name)),
+                         out_specs=P(axis_name))(p.parts, y)
+
     return LinearOperator(
         mv, pack, A.shape, accumulation_dtype(A.dtype), mesh.first_device,
-        rmatvec_fn=mv if isinstance(A, SymBSRMatrix) else None, matmat_fn=mm,
+        rmatvec_fn=mv if pack.mode == "sym_halo" else rmv, matmat_fn=mm,
     )
 
 
@@ -1134,7 +1242,7 @@ def mesh_operator_2d(A: BSRMatrix, mesh: Mesh, *, row_axis: str | None = None,
     R x C panel grid, x splits over (cols, rows), y over (rows, cols), and a
     product moves n/C + n/R entries a shard where the 1-D all-gather moves n.
     Chained applications need no re-layout: the global vector is the same
-    either way."""
+    either way.  ``rmatvec`` is explicit (:func:`_grid_reverse`)."""
     if len(mesh.axis_names) < 2:
         raise EigenexError("mesh_operator_2d needs a 2-axis mesh")
     row_axis = row_axis or mesh.axis_names[0]
@@ -1162,9 +1270,18 @@ def mesh_operator_2d(A: BSRMatrix, mesh: Mesh, *, row_axis: str | None = None,
         return shard_map(body, mesh, in_specs=(P((row_axis, col_axis)), x_spec),
                          out_specs=y_spec)(p, x)
 
+    def reverse(p, y):
+        _build_reverse(p)
+
+        def body(comm, part, yl):
+            return _grid_reverse(part, yl, comm, row_axis, col_axis)
+
+        return shard_map(body, mesh, in_specs=(P((row_axis, col_axis)), P((row_axis, col_axis))),
+                         out_specs=P((col_axis, row_axis)))(p, y)
+
     return LinearOperator(
         lambda p, x: apply(p, x, False), parts, A.shape, accumulation_dtype(A.dtype),
-        mesh.first_device, matmat_fn=lambda p, X: apply(p, X, True),
+        mesh.first_device, rmatvec_fn=reverse, matmat_fn=lambda p, X: apply(p, X, True),
     )
 
 

@@ -319,6 +319,36 @@ def scenario_eigsh(mesh, operator, solve, vectors_to=None):
     return out
 
 
+def scenario_reverse(mesh, operator, modes=("allgather",), seed=3, calls=1):
+    """Each mode's reverse product (``rmatvec`` of :func:`mesh_operator`)
+    of one numpy-seeded vector: the SHA-256 of the result's bytes (equal
+    digests: bit-equal results), its norm, and the seconds and launches of
+    ``calls`` calls after a first one (which builds the reverse pieces)."""
+    import hashlib
+
+    from .distributed import mesh_operator, pad_bsr_for_mesh
+
+    nd = mesh.shape[mesh.axis_names[0]]
+    bsr = pad_bsr_for_mesh(build_operator(operator, mesh.first_device), nd)
+    out = {}
+    for mode in modes:
+        op = mesh_operator(bsr, mesh, axis_name=mesh.axis_names[0], matvec_mode=mode)
+        y = torch.as_tensor(np.random.default_rng(seed).standard_normal(op.shape[0]))
+        y = y.to(op.dtype).to(op.device)
+        x = op.rmatvec(y)
+
+        def again():
+            for _ in range(calls):
+                op.rmatvec(y)
+
+        _, seconds, launches = _counted(mesh, again)
+        host = x.cpu().contiguous()
+        out[mode] = dict(digest=hashlib.sha256(host.numpy().tobytes()).hexdigest(),
+                         norm=float(torch.linalg.vector_norm(host.double())),
+                         seconds=seconds, calls=calls, launches=launches)
+    return out
+
+
 def scenario_psum(mesh, count=200):
     """The wall µs of one psum on the mesh (:func:`psum_us`)."""
     return dict(psum_us=psum_us(mesh, count))
@@ -329,6 +359,7 @@ SCENARIOS = {
     "trlm": scenario_trlm,
     "eigsh": scenario_eigsh,
     "psum": scenario_psum,
+    "reverse": scenario_reverse,
 }
 
 

@@ -200,6 +200,45 @@ def test_bsr_spmv_at_the_general_pack_shape(card, storage):
     assert torch.equal(y, cuda_spmv.bsr_spmv(bsr, x))
 
 
+#: (nbr, kmax, bm, bn) of the general SpMV checks: one block row, fewer block rows
+#: than the card has SMs, and the config-2 pack's count; one slot and fifteen; the
+#: general pack's 32-row blocks and 128-row ones; then ragged row groups (1, 8 and
+#: 320 rows) and several 128-column chunks a block
+BSR_SPMV_SHAPES = [(nbr, kmax, bm, 128) for nbr in (1, 60, 3124) for kmax in (1, 15)
+                   for bm in (32, 128)] + [(7, 3, 1, 128), (33, 4, 8, 256), (5, 2, 320, 384)]
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BSR_SPMV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bsr_spmv_every_work_split_matches_the_plain_version(card, storage, shape):
+    """The general SpMV kernel at shapes that take each of its work splits
+    (whole units a warp, and a unit's steps over 2-8 warps when the block rows
+    are few), with ELL padding slots (column 0, zero block) in every other
+    row: one launch a product, against the plain version on the same stored
+    blocks lifted to f32, and bit-equal on a second run."""
+    from eigenex_tpu_torch.sparse.bsr import BSRMatrix
+
+    nbr, kmax, bm, bn = shape
+    gen = torch.Generator(card).manual_seed(nbr * 1000 + kmax * 10 + bm)
+    nbc = max(kmax, 24)
+    data = torch.randn((nbr, kmax, bm, bn), generator=gen, device=card)
+    cols = torch.randint(0, nbc, (nbr, kmax), generator=gen, device=card, dtype=torch.int32)
+    if kmax > 1:
+        data[::2, -1] = 0
+        cols[::2, -1] = 0
+    bsr = BSRMatrix(data.to(storage), cols, (nbr * bm, nbc * bn))
+    del data
+    x = torch.randn(bsr.shape[1], generator=gen, device=card)
+    cuda_spmv.reset_launch_counts()
+    y = cuda_spmv.bsr_spmv(bsr, x)
+    torch.cuda.synchronize()
+    assert cuda_spmv.launch_counts()["bsr_spmv"] == 1
+    ref = cuda_spmv.bsr_spmv_plain(bsr.astype(torch.float32), x)
+    assert y.shape == (nbr * bm,) and bool(torch.isfinite(y).all())
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert torch.equal(y, cuda_spmv.bsr_spmv(bsr, x))
+
+
 def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
     """``eigs`` on an accelerated non-symmetric operand (the upwind stencil of
     BASELINE config 2 at nx = 40): every Krylov-Schur matvec is one launch of

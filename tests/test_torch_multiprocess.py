@@ -133,6 +133,37 @@ def test_every_matvec_mode_across_processes(mode):
         assert res["alpha"] == one["alpha"] and res["beta"] == one["beta"] and res["k"] == 12
 
 
+def test_reverse_products_across_processes_are_bit_equal_to_one_process(tmp_path):
+    """The explicit reverse products (``rmatvec`` of ``mesh_operator``) of a
+    non-symmetric operator on 2 processes x 2 shards, in every mode with a
+    collective across the process boundary (the allgather's reduce-scatter,
+    the colsplit's all-gather, the halo ring's shifts reversed): the same
+    bits on every process and on one process of 4 shards, and A^T y."""
+    from eigenex_tpu_torch.parallel.distributed import mesh_operator
+    from eigenex_tpu_torch.parallel.multiproc import save_operator, scenario_reverse
+    from eigenex_tpu_torch.sparse.bsr import bsr_from_coo_arrays
+
+    rng = np.random.default_rng(12)
+    A = np.triu(np.tril(rng.standard_normal((64, 64)), 5), -7)
+    r, c = np.nonzero(A)
+    path = tmp_path / "general.npz"
+    save_operator(path, bsr_from_coo_arrays(r, c, A[r, c], A.shape, (4, 4), device="cpu"))
+    spec = dict(kind="npz", path=str(path))
+    modes = ["allgather", "colsplit", "halo"]
+    got = spawn("reverse", 2, ["cpu", "cpu"], dict(operator=spec, modes=modes),
+                timeout=SPAWN_TIMEOUT, threads=1)
+    one = scenario_reverse(make_mesh(devices=["cpu"] * 4), spec, modes)
+    y = np.random.default_rng(3).standard_normal(64)
+    for mode in modes:
+        for res in got:
+            assert res[mode]["digest"] == one[mode]["digest"], mode
+        op = mesh_operator(bsr_from_coo_arrays(r, c, A[r, c], A.shape, (4, 4), device="cpu"),
+                           make_mesh(devices=["cpu"] * 4), matvec_mode=mode)
+        x = op.rmatvec(torch.as_tensor(y))
+        np.testing.assert_allclose(x.numpy(), A.T @ y, rtol=0, atol=1e-12)
+        assert float(torch.linalg.vector_norm(x)) == one[mode]["norm"]
+
+
 def test_every_mesh_route_across_processes():
     """``eigsh`` (halo; an accelerated pack), ``eigs`` (allgather and the 2-D
     panel grid), ``svds``, ``eigsh_window``, ``eigsh_range``, the KPM moments,
