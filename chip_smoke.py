@@ -131,6 +131,18 @@ filter) through the SpMM kernels -- at full size:
                          sigma of phase 34, whose CGLS fallback takes the reverse products, against
                          one device; the allgather reverse product on 2 processes x 2 shards,
                          bit-equal to the one-process mesh.
+36. ``chunk_graphs``     the CUDA graphs of the Arnoldi chunk (``solvers/chunk_graph.py``):
+                         ``eigsh_banded``, ``eigsh_accelerated``, ``eigs_accelerated``,
+                         ``eigs_sigma`` and ``heisenberg_l24`` each solved eagerly
+                         (``eager_chunks()``) and with graphs in turns (E G G E), at their
+                         full widths: seconds, ms a matvec, graphs captured, replays, capture
+                         ms, pool bytes and device peak of every run, the graph counts beside
+                         their prediction, launches = matvecs in both routes, and every run's
+                         eigenvalues and eigenvectors bit-equal to the first eager run's.
+
+Every main path runs its Krylov chunks through the graph set of its solve: where a
+thick-restart, Krylov-Schur or GMRES solve repeats a chunk's key on a kernel operator, the
+chunk is captured once and replayed; a replay adds the launches its capture recorded.
 
 Each phase prints one JSON line.  Any failure ends the run with a non-zero
 exit code: no phase's exception is caught and passed over, nothing carries on
@@ -172,7 +184,8 @@ is then not printed), ``--profile`` repeats the ``eigsh_banded``, ``window_accel
 ``lobpcg_banded``, ``eigs_accelerated``, ``block_heisenberg``, ``block_heisenberg_bsr`` and
 ``heisenberg_l24`` solves under ``torch.profiler`` and prints the device's busy and idle
 share and the kernels by time (phases ``profile``, ``profile_window``, ``profile_lobpcg``,
-``profile_eigs``, ``profile_block``, ``profile_block_bsr``, ``profile_l24``), the device
+``profile_eigs``, ``profile_block``, ``profile_block_bsr``, ``profile_l24``; ``eigsh_banded``
+and ``eigs_accelerated`` with graphs and eagerly, ``route`` says which), the device
 time of each kernel of one SpMV and one SpMM product at the main-path shapes (phase
 ``profile_kernels``), and a derived and an explicit adjoint product on the config-2 pack, and
 64 CGLS iterations on each, with the host events that take their time (phases
@@ -252,7 +265,7 @@ from eigenex_tpu_torch.solvers.lobpcg import LOBPCGOptions, LOBPCGSolver
 from eigenex_tpu_torch.convert import bsr_from_numpy, coo_from_numpy
 from eigenex_tpu_torch.core.operators import pullback
 from eigenex_tpu_torch.ops import cuda_spmv
-from eigenex_tpu_torch.solvers import direct
+from eigenex_tpu_torch.solvers import chunk_graph, direct
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix, bsr_from_coo_arrays
 from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
 from eigenex_tpu_torch.utils import benchtime
@@ -1069,6 +1082,75 @@ def profile_product(op, X, calls: int = 40) -> dict:
     return dict(storage=str(op.dtype).replace("torch.", ""), p=1 if X.ndim == 1 else X.shape[1],
                 ms_by_events=ms,
                 us_a_launch_by_kernel=kernels, us_a_product=sum(kernels.values()))
+
+
+#: phase chunk_graphs: what one graph run of each case should make, written before the
+#: first run on the card: keys = distinct (k_start, num_steps, ...) of the solve's chunks,
+#: captures = the keys seen twice or more (each is warmed up once, then captured)
+GRAPH_PREDICTION = {
+    "eigsh_banded": dict(keys=2, captures=1),  # (0, 64), then (12, 52) at each of 4 restarts
+    "eigsh_accelerated": dict(keys=1, captures=0),  # one chunk of 64 steps: converged there
+    "eigs_accelerated": dict(keys="2-3", captures="1-2"),  # (0, 48), (12, 36), (11, 37)
+    "eigs_sigma": dict(keys="2-4", captures=1),  # the outer solve's 1-3 (a closure: eager),
+                                                 # and GMRES(48)'s (0, 48) on the shifted pack
+    "heisenberg_l24": dict(keys=1, captures=0),  # one chunk of 160 steps
+}
+GRAPH_ROUTES = ("eager", "graphs", "graphs", "eager")  # the runs of a case, in turns
+
+
+def host_array(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def chunk_graphs_case(case: str, solve, matvecs_of, launches_of, replaying: bool) -> dict:
+    """Phase chunk_graphs, one case: ``solve()`` run eagerly (``eager_chunks``) and
+    with graphs in turns, each run timed from a synchronised start to a synchronised
+    end, with its matvecs, its launches (= ``launches_of(res)``, else the phase
+    fails), the graph counts, the bytes the captures added and the device peak;
+    every run's eigenvalues and eigenvectors against the first eager run's, bit for
+    bit (else the phase fails).  ``replaying``: a case whose graph runs must capture
+    and replay (its solve repeats a key), else the phase fails."""
+    runs, first = [], None
+    t_case = time.time()
+    for route in GRAPH_ROUTES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunk_graph.reset_graph_counts()
+        cuda_spmv.reset_launch_counts()
+        with chunk_graph.eager_chunks() if route == "eager" else contextlib.nullcontext():
+            t0 = time.time()
+            res = solve()
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+        counts = chunk_graph.graph_counts()
+        launches = cuda_spmv.launch_counts()
+        matvecs = matvecs_of(res)
+        values, vectors = host_array(res.eigenvalues), host_array(res.eigenvectors)
+        if first is None:
+            first = (values, vectors)
+        same = bool(np.array_equal(values, first[0]) and np.array_equal(vectors, first[1]))
+        runs.append(dict(route=route, seconds=seconds, matvecs=matvecs,
+                         ms_per_matvec=seconds * 1e3 / max(matvecs, 1),
+                         graphs_captured=counts["captures"], replays=counts["replays"],
+                         keys=counts["keys"], warmups=counts["warmups"],
+                         eager_chunks=counts["eager"], capture_ms=counts["capture_ms"],
+                         pool_bytes=counts["pool_bytes"],
+                         peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches={k: v for k, v in launches.items() if v},
+                         bit_equal_to_first_eager=same))
+        if launches != launches_of(res):
+            fail(f"chunk_graphs {case} ({route}): launches {launches}, expected {launches_of(res)}")
+        if not same:
+            fail(f"chunk_graphs {case} ({route}): eigenvalues or eigenvectors differ from the "
+                 "first eager run's")
+        if route == "eager" and counts["captures"] + counts["replays"] + counts["warmups"]:
+            fail(f"chunk_graphs {case}: eager_chunks() left graphs on: {counts}")
+        if route == "graphs" and replaying and not (counts["captures"] and counts["replays"]):
+            fail(f"chunk_graphs {case}: the graph run captured or replayed nothing: {counts}")
+    out = dict(case=case, prediction=GRAPH_PREDICTION[case], runs=runs,
+               seconds=time.time() - t_case)
+    emit("chunk_graphs", **out)
+    return out
 
 
 def profile_calls(fn, calls: int = 50) -> dict:
@@ -2437,7 +2519,7 @@ def main() -> None:
     # BASELINE config 2, packed once: the main-path shape of the general SpMV
     # kernel (phase kernels) and the operand of phase eigs_accelerated
     if (wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint")
-            or wanted("mesh_adjoint")):
+            or wanted("mesh_adjoint") or wanted("chunk_graphs")):
         r_cd, c_cd, v_cd, n_cd = convection_diffusion_coo(CD_NX)
         coo_cd = coo_on(r_cd, c_cd, v_cd, n_cd, dev)
         native.reset_native_calls()
@@ -2615,11 +2697,12 @@ def main() -> None:
     lam_max = None
     banded_eigenvalues = None
     banded_ms = None  # ms per matvec of the single-device eigsh_banded
-    if wanted("eigsh_banded"):
-        res, seconds, counts = drive(
-            "eigsh_banded", sym32,
-            lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
-                          max_restarts=400))
+    graph_cases = []  # phase chunk_graphs, case by case
+    if wanted("eigsh_banded") or wanted("chunk_graphs"):
+        def solve_banded():
+            return eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL, max_restarts=400)
+
+        res, seconds, counts = drive("eigsh_banded", sym32, solve_banded)
         X = res.eigenvectors
         rr = residuals(sym32._plain_matvec, res.eigenvalues, X)
         report = dict(n=sym32.shape[0], nnz_applied=sym32.nnz_applied, storage="float32",
@@ -2642,9 +2725,14 @@ def main() -> None:
         banded_ms = report["ms_per_matvec"]
         lam_max = float(res.eigenvalues[-1])
         if args.profile:
-            emit("profile", solve="eigsh_banded", **profile_solve(
-                lambda: eigsh(sym32, k=4, which="LA", v0=v0_banded, tol=BANDED_TOL,
-                              max_restarts=400)))
+            emit("profile", solve="eigsh_banded", route="graphs", **profile_solve(solve_banded))
+            with chunk_graph.eager_chunks():
+                emit("profile", solve="eigsh_banded", route="eager", **profile_solve(solve_banded))
+        # -- 36. chunk_graphs: each case eager and with graphs in turns ---------------
+        if wanted("chunk_graphs"):
+            graph_cases.append(chunk_graphs_case(
+                "eigsh_banded", solve_banded, lambda r: r.iterations,
+                lambda r: only_kernel("sym_bsr_spmv", r.iterations), replaying=True))
 
     # -- 26. mesh_modes: eigsh on the banded operator over a 4-shard mesh, each mode --
     mesh_runs = None
@@ -2663,7 +2751,7 @@ def main() -> None:
 
     # -- 5. eigsh_accelerated --------------------------------------------------
     if (wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated")
-            or wanted("mesh_kernels") or wanted("mesh_filters")):
+            or wanted("mesh_kernels") or wanted("mesh_filters") or wanted("chunk_graphs")):
         n_a = nbr * BLOCK
         rng = np.random.default_rng(SEED + 7)
         r_a = np.repeat(np.arange(n_a), 2)
@@ -2682,10 +2770,11 @@ def main() -> None:
         if acc.matrix.dtype != torch.bfloat16:
             fail(f"eigsh_accelerated: dyadic values packed as {acc.matrix.dtype}, expected bfloat16")
 
-    if wanted("eigsh_accelerated") or wanted("window_accelerated"):
-        res, seconds, counts = drive(
-            "eigsh_accelerated", acc.matrix,
-            lambda: eigsh(acc, k=2, which="LA", tol=ACCEL_TOL, seed=3, max_restarts=400))
+    if wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("chunk_graphs"):
+        def solve_accelerated():
+            return eigsh(acc, k=2, which="LA", tol=ACCEL_TOL, seed=3, max_restarts=400)
+
+        res, seconds, counts = drive("eigsh_accelerated", acc.matrix, solve_accelerated)
         A64 = sp.coo_matrix((trip[2], (trip[0], trip[1])), shape=trip[3]).tocsr()
         X = np.asarray(res.eigenvectors, np.float64)
         lam = np.asarray(res.eigenvalues, np.float64)
@@ -2707,6 +2796,10 @@ def main() -> None:
             fail(f"eigsh_accelerated: residual {max(rr):.3e} exceeds {ACCEL_RESID_LIMIT}")
         if counts != only_kernel("sym_bsr_spmv", res.iterations):
             fail(f"eigsh_accelerated: launches {counts} for {res.iterations} matvecs")
+        if wanted("chunk_graphs"):
+            graph_cases.append(chunk_graphs_case(
+                "eigsh_accelerated", solve_accelerated, lambda r: r.iterations,
+                lambda r: only_kernel("sym_bsr_spmv", r.iterations), replaying=False))
 
         # -- 9. window_accelerated: the filter path held against the Lanczos path ----
         if wanted("window_accelerated"):
@@ -2801,7 +2894,7 @@ def main() -> None:
         mesh_filters_phase(acc, trip, sym32, window_ref, drive, dev)
 
     if (wanted("eigsh_accelerated") or wanted("window_accelerated") or wanted("expm_accelerated")
-            or wanted("mesh_kernels") or wanted("mesh_filters")):
+            or wanted("mesh_kernels") or wanted("mesh_filters") or wanted("chunk_graphs")):
         del acc
 
     # -- 6. eigsh_bsr: kernel A on a path ---------------------------------------
@@ -2935,7 +3028,7 @@ def main() -> None:
             fail(f"lobpcg_bsr: launches {counts} for {lobpcg_products(res)} block products")
 
     # -- 11. eigs_accelerated: the general path at full width, BASELINE config 2 -------
-    if wanted("eigs_accelerated"):
+    if wanted("eigs_accelerated") or wanted("chunk_graphs"):
         n = n_cd
         A64 = sp.csr_matrix((v_cd, (r_cd, c_cd)), shape=(n, n))
         top = convection_diffusion_top(CD_NX, 10)
@@ -2981,18 +3074,27 @@ def main() -> None:
         if counts != only_kernel("bsr_spmv", res.iterations):
             fail(f"eigs_accelerated: launches {counts} for {res.iterations} matvecs")
         if args.profile:
-            emit("profile_eigs", solve="eigs_accelerated", **profile_solve(solve_eigs))
-    if wanted("kernels") or wanted("eigs_accelerated"):
+            emit("profile_eigs", solve="eigs_accelerated", route="graphs",
+                 **profile_solve(solve_eigs))
+            with chunk_graph.eager_chunks():
+                emit("profile_eigs", solve="eigs_accelerated", route="eager",
+                     **profile_solve(solve_eigs))
+        if wanted("chunk_graphs"):
+            graph_cases.append(chunk_graphs_case(
+                "eigs_accelerated", solve_eigs, lambda r: r.iterations,
+                lambda r: only_kernel("bsr_spmv", r.iterations), replaying=True))
+    if wanted("kernels") or wanted("eigs_accelerated") or wanted("chunk_graphs"):
         del coo_cd
     # -- 12. eigs_sigma: GMRES shift-invert on the general kernel ---------------------
     sigma_eigenvalues = None  # phase eigs_sigma's, held against phase derived_adjoint's (c)
-    if wanted("eigs_sigma"):
+    if wanted("eigs_sigma") or wanted("chunk_graphs"):
         r, c, v, n = convection_diffusion_coo(SIGMA_NX)
         acc_s = accelerate(coo_on(r, c, v, n, dev))
         A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
-        res, seconds, counts = drive(
-            "eigs_sigma", acc_s.matrix,
-            lambda: eigs(acc_s, k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL))
+        def solve_sigma():
+            return eigs(acc_s, k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL)
+
+        res, seconds, counts = drive("eigs_sigma", acc_s.matrix, solve_sigma)
         X = np.asarray(res.eigenvectors, np.complex128)
         lam = np.asarray(res.eigenvalues, np.complex128)
         rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
@@ -3022,6 +3124,11 @@ def main() -> None:
         if counts != want:
             fail(f"eigs_sigma: launches {counts}, expected {want}")
         sigma_eigenvalues = lam
+        if wanted("chunk_graphs"):
+            graph_cases.append(chunk_graphs_case(
+                "eigs_sigma", solve_sigma, lambda r: r.inner_stats["matvecs"],
+                lambda r: {**only_kernel("bsr_spmv", r.inner_stats["matvecs"]), "bsr_spmm": 2},
+                replaying=True))
         del acc_s
 
     # -- 34. derived_adjoint: matrix-free adjoints through the kernels' backward ---------
@@ -3032,7 +3139,7 @@ def main() -> None:
         MP_WORK.mkdir(parents=True, exist_ok=True)
         mesh_adjoint_phase(acc_cd, bsr32, drive, record, dev, peaks, kernel_cases)
     if (wanted("kernels") or wanted("eigs_accelerated") or wanted("derived_adjoint")
-            or wanted("mesh_adjoint")):
+            or wanted("mesh_adjoint") or wanted("chunk_graphs")):
         del acc_cd
 
     # -- 13. eigsh_complex_accelerated: the real embedding on the symmetric kernel -----
@@ -3658,7 +3765,7 @@ def main() -> None:
 
     # -- 24. heisenberg_l24: BASELINE config 3 at L = 24 on the native route -------------------
     if (wanted("heisenberg_l24") or wanted("heisenberg_l24_mesh")
-            or wanted("heisenberg_l24_multiprocess")):
+            or wanted("heisenberg_l24_multiprocess") or wanted("chunk_graphs")):
         torch.cuda.reset_peak_memory_stats()
         native.reset_native_calls()
         host = {}
@@ -3717,6 +3824,10 @@ def main() -> None:
              spmv_library_ms=case["library_ms"],
              peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
              peak_host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
+        if wanted("chunk_graphs"):
+            graph_cases.append(chunk_graphs_case(
+                "heisenberg_l24", lambda: eigsh(acc24, **L24_SOLVE), lambda r: r.iterations,
+                lambda r: only_kernel("sym_bsr_spmv", r.iterations), replaying=False))
         # -- 27. heisenberg_l24_mesh: the same pack over a 4-shard mesh of the card ----------
         l24_mesh = None
         if wanted("heisenberg_l24_mesh"):
@@ -3806,7 +3917,8 @@ def main() -> None:
             if "max_col_rel_err" in c:
                 entry["worst_col_rel_err_all_cases"] = max(k["max_col_rel_err"] for k in worst)
             kernels.append(entry)
-    emit("total", seconds=time.time() - t_start)
+    emit("total", seconds=time.time() - t_start,
+         chunk_graphs_seconds=sum(c["seconds"] for c in graph_cases))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

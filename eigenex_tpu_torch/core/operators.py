@@ -83,6 +83,11 @@ class LinearOperator:
         as for every constructor of the package.
     rmatvec_fn : optional ``(params, x) -> A^H @ x`` (adjoint).
     matmat_fn : optional fused ``(params, X) -> A @ X`` for (n, k) blocks.
+    capturable : whether ``matvec`` may be captured into a CUDA graph: a
+        product of torch ops and kernel launches on fixed tensors, with no
+        host synchronisation and no host-side state a replay would skip
+        (:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  False unless the
+        constructor says so; the block containers on CUDA say so.
     """
 
     def __init__(
@@ -94,6 +99,7 @@ class LinearOperator:
         device=None,
         rmatvec_fn: Callable | None = None,
         matmat_fn: Callable | None = None,
+        capturable: bool = False,
     ):
         self._matvec_fn = matvec_fn
         self._params = params
@@ -102,6 +108,7 @@ class LinearOperator:
         self.device = resolve_device(device)
         self._rmatvec_fn = rmatvec_fn
         self._matmat_fn = matmat_fn
+        self.capturable = bool(capturable)
 
     # -- application -----------------------------------------------------
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,9 @@ raises.  It never catches a failure and carries on with the plain
 version.  The plain versions (``*_plain``) run when the tensors lie on
 the CPU, and for storage the kernels do not take (f64, complex), as in
 the reference; that route is visible because the launch count does not
-move.
+move.  A launch recorded into a CUDA graph (a Krylov chunk's capture,
+:mod:`eigenex_tpu_torch.solvers.chunk_graph`) is counted at each replay of
+the graph instead (:func:`launch_tally`, :func:`count_replayed_launches`).
 """
 
 from __future__ import annotations
@@ -88,6 +90,8 @@ __all__ = [
     "kernel_storage",
     "launch_counts",
     "reset_launch_counts",
+    "launch_tally",
+    "count_replayed_launches",
     "KERNEL_SOURCES",
 ]
 
@@ -152,8 +156,36 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name: str) -> None:
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:  # captured into a CUDA graph: counted at each replay instead
+        tally[name] += 1
+        return
     with _launch_lock:
         _launches[name] += 1
+
+
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """While open, this thread's launches go into the yielded dict instead
+    of the counts: a CUDA graph capture, where a launch is recorded, not
+    run (:mod:`eigenex_tpu_torch.solvers.chunk_graph`)."""
+    tally = dict.fromkeys(_launches, 0)
+    previous = getattr(_capturing, "tally", None)
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = previous
+
+
+def count_replayed_launches(tally: dict) -> None:
+    """Add the launches a CUDA graph replay made: the tally of its capture."""
+    with _launch_lock:
+        for name, count in tally.items():
+            _launches[name] += count
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,11 @@ per chunk.  The dense Hessenberg eigenproblem runs on the host in
 float64/complex128 once per chunk.  A complex operator takes a complex
 basis; a real operator a real one, whose complex Ritz vectors are lifted
 on the device in the complex dtype of the basis.
+
+The loop is :func:`_arnoldi_chunk_body`; :func:`_arnoldi_chunk`, which
+every caller runs, replays it as a CUDA graph inside a solve's graph set
+(:mod:`eigenex_tpu_torch.solvers.chunk_graph`, the counterpart of the
+reference's ``jax.jit`` of the chunk).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..utils.exceptions import ArnoldiError
 from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance, real_dtype_of
 from ..utils.trace import ConvergenceTrace, Severity
+from . import chunk_graph
 from .lanczos import UNLIMITED, LanczosOptions, _formal_indices, _host_flags, _phase_fix, _start_vector
 
 __all__ = [
@@ -134,7 +140,7 @@ def init_arnoldi_state(
 
 
 @torch.no_grad()
-def _arnoldi_chunk(
+def _arnoldi_chunk_body(
     op: LinearOperator,
     state: ArnoldiState,
     shift,
@@ -160,7 +166,7 @@ def _arnoldi_chunk(
     rdt = residue_prev.dtype
     dev = V.device
     row_ids = torch.arange(m + 1, device=dev)
-    thr = torch.as_tensor(breakdown_threshold, dtype=rdt, device=dev)
+    thr = torch.full((), breakdown_threshold, dtype=rdt, device=dev)
     one = torch.ones((), dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=rdt, device=dev)
     has_shift = not (isinstance(shift, (int, float, complex)) and shift == 0)
@@ -206,6 +212,60 @@ def _arnoldi_chunk(
         failed = failed | (active & failed_now)
 
     return ArnoldiState(V=V, H=H, k=k, breakdown=breakdown, residue=residue_prev, failed=failed)
+
+
+def _arnoldi_chunk(
+    op: LinearOperator,
+    state: ArnoldiState,
+    shift,
+    breakdown_threshold: float,
+    deflate,
+    *,
+    k_start: int,
+    num_steps: int,
+    comm=None,
+) -> ArnoldiState:
+    """The chunk every caller runs (the reference's jitted
+    ``_arnoldi_chunk``, arnoldi.py:236-238).  Inside a solve's graph set
+    (:mod:`~eigenex_tpu_torch.solvers.chunk_graph`) it runs on the set's
+    terms: ``state``'s tensors are updated in place and ``state`` returned,
+    through a CUDA graph of :func:`_arnoldi_chunk_body` where the operator is
+    capturable on the card.  Outside a set, and on a mesh (``comm``), it is
+    the body."""
+
+    def body():
+        return _arnoldi_chunk_body(op, state, shift, breakdown_threshold, deflate,
+                                   k_start=k_start, num_steps=num_steps, comm=comm)
+
+    graphs = chunk_graph.current()
+    if graphs is None or comm is not None:
+        return body()
+    key = (int(k_start), int(num_steps), shift, float(breakdown_threshold), deflate)
+    return graphs.run(op, state, key, body)
+
+
+def _restart_into(state: ArnoldiState, V, H: torch.Tensor, k: int) -> ArnoldiState:
+    """A restarted state written into ``state``'s own tensors with ``copy_``
+    (basis, projected matrix, ``k``, the flags cleared; ``residue`` kept),
+    so that the chunk graphs of the solve keep their addresses.  A basis in
+    per-shard panels (the mesh solvers, whose chunks return new tensors and
+    run eagerly) is bound anew, as are its scalars."""
+    if not isinstance(state.V, torch.Tensor):
+        dev = H.device
+        return ArnoldiState(
+            V=V,
+            H=H,
+            k=torch.full((), k, dtype=torch.int64, device=dev),
+            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+            residue=state.residue,
+            failed=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+    state.V.copy_(V)
+    state.H.copy_(H)
+    state.k.fill_(k)
+    state.breakdown.zero_()
+    state.failed.zero_()
+    return state
 
 
 def arnoldi_steps(

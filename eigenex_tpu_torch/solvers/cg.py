@@ -130,10 +130,14 @@ class _Counted:
         return self.op.rmatvec(v) - sig * v
 
     def operator(self) -> LinearOperator:
-        return LinearOperator(
+        """Capturable where A is (the shift is torch ops); its ``stats`` are
+        the counts a chunk graph replays with its launches."""
+        shifted = LinearOperator(
             lambda s, v: s.matvec(v), self, self.op.shape, self.op.dtype, self.op.device,
-            rmatvec_fn=lambda s, v: s.rmatvec(v),
+            rmatvec_fn=lambda s, v: s.rmatvec(v), capturable=self.op.capturable,
         )
+        shifted.stats = self.stats
+        return shifted
 
 
 def _scalar_for(op: LinearOperator, sigma):

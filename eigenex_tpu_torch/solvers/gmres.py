@@ -4,11 +4,12 @@ Counterpart of ``eigenex_tpu/solvers/gmres.py``: GMRES(m) is the
 shift-invert inner solve for *Arnoldi* eigenproblems and general linear
 systems.  Each cycle builds the Krylov basis and Hessenberg with the
 Arnoldi chunk (:mod:`eigenex_tpu_torch.solvers.arnoldi`, masked CGS2 on
-the device), solves the tiny (m+1, m) least-squares problem on the host
-in float64 by SVD (``numpy.linalg.lstsq``; it stays right when the
-Hessenberg loses rank at breakdown, where the card's QR-only
-``torch.linalg.lstsq`` would not), and updates the iterate with one basis
-product.
+the device; on the card one CUDA graph replayed every cycle, the cycle's
+state written anew into the same tensors), solves the tiny (m+1, m)
+least-squares problem on the host in float64 by SVD (``numpy.linalg.lstsq``;
+it stays right when the Hessenberg loses rank at breakdown, where the card's
+QR-only ``torch.linalg.lstsq`` would not), and updates the iterate with one
+basis product.
 
 :func:`gmres_solve_jit` keeps the reference's name: in the JAX package it
 is the jittable, residual-controlled variant whose cycles run inside a
@@ -29,6 +30,7 @@ from ..core.operators import LinearOperator, aslinearoperator
 from ..utils.exceptions import EigenexError
 from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_tolerance, real_dtype_of
+from . import chunk_graph
 from .arnoldi import ArnoldiState, _arnoldi_chunk, arnoldi_steps, init_arnoldi_state
 from .cg import _cgls_loop, _Counted, _new_stats, _scalar_for
 
@@ -45,7 +47,27 @@ def _lstsq_host(H: torch.Tensor, beta: float):
     return y, Hh, e1
 
 
+def _cycle_state(op: LinearOperator, m: int) -> ArnoldiState:
+    """The state tensors of GMRES(m) on ``op``, made once a solve by the
+    solve's graph set and written anew at each cycle, so that the cycle's
+    chunk graph keeps its addresses."""
+    n, dtype, dev = op.shape[1], op.dtype, op.device
+
+    def make():
+        return ArnoldiState(
+            V=torch.zeros((m + 1, n), dtype=dtype, device=dev),
+            H=torch.zeros((m + 1, m), dtype=dtype, device=dev),
+            k=torch.zeros((), dtype=torch.int64, device=dev),
+            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+            residue=torch.zeros((), dtype=real_dtype_of(dtype), device=dev),
+            failed=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+
+    return chunk_graph.current().buffers(op, ("gmres", m), make)
+
+
 @highest_f32_matmul()
+@chunk_graph.solve_graphs()
 @torch.no_grad()
 def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
                 max_restarts: int = 100):
@@ -79,7 +101,10 @@ def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
         # breakdown_threshold=0: ||r|| is already known > 0 (rel > tol) and
         # the absolute dtype default would spuriously reject small-norm
         # residuals of well-scaled systems
-        state = init_arnoldi_state(op, m, v0=r, breakdown_threshold=0.0)
+        fresh = init_arnoldi_state(op, m, v0=r, breakdown_threshold=0.0)
+        state = _cycle_state(op, m)
+        for buffer, value in zip(*map(chunk_graph.state_tensors, (state, fresh))):
+            buffer.copy_(value)
         state = arnoldi_steps(op, state, m, breakdown_threshold=0.0)
         k = int(state.k)
         y, _, _ = _lstsq_host(state.H[: k + 1, :k], beta)
@@ -90,6 +115,7 @@ def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
 
 
 @highest_f32_matmul()
+@chunk_graph.solve_graphs()
 @torch.no_grad()
 def gmres_solve_jit(op, b, x0=None, *, restart: int = 32, cycles: int = 10, tol=0.0):
     """GMRES(m) with residual-controlled restart cycles: at most ``cycles``
@@ -119,16 +145,14 @@ def gmres_solve_jit(op, b, x0=None, *, restart: int = 32, cycles: int = 10, tol=
         r = b - op.matvec(x)
         beta_t = torch.linalg.vector_norm(r).to(rdt)
         safe = torch.where(beta_t > 0, beta_t, torch.ones_like(beta_t))
-        V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
-        V[0] = r / safe.to(dtype)
-        state = ArnoldiState(
-            V=V,
-            H=torch.zeros((m + 1, m), dtype=dtype, device=dev),
-            k=torch.zeros((), dtype=torch.int64, device=dev),
-            breakdown=beta_t <= 0,
-            residue=beta_t,
-            failed=torch.zeros((), dtype=torch.bool, device=dev),
-        )
+        state = _cycle_state(op, m)
+        state.V.zero_()
+        state.V[0] = r / safe.to(dtype)
+        state.H.zero_()
+        state.k.zero_()
+        state.breakdown.copy_(beta_t <= 0)
+        state.residue.copy_(beta_t)
+        state.failed.zero_()
         state = _arnoldi_chunk(op, state, 0.0, 1e-30, None, k_start=0, num_steps=m)
         beta = float(beta_t)
         y, Hh, e1 = _lstsq_host(state.H, beta)

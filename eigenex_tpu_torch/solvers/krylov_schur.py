@@ -10,8 +10,11 @@ bounded memory, restart-accelerated convergence for clustered dominant
 spectra (Stewart 2001).
 
 One chunk fills the subspace, so the host and the device synchronise
-once per restart.  All small-matrix work (Schur, ordering, residual
-bounds, the real-basis span reduction) is host LAPACK on float64 /
+once per restart; the restarts are written into the one state of the
+solve, whose chunks replay CUDA graphs on the card
+(:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  All small-matrix work
+(Schur, ordering, residual bounds, the real-basis span reduction) is host
+LAPACK on float64 /
 complex128 copies of the Hessenberg, as in the reference; the device
 does the Arnoldi chunk and the (p, m) x (m, n) basis compression.
 """
@@ -29,7 +32,9 @@ from ..utils.exceptions import ArnoldiError
 from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
-from .arnoldi import ArnoldiResult, ArnoldiState, _lift_ritz, arnoldi_steps, init_arnoldi_state
+from . import chunk_graph
+from .arnoldi import (ArnoldiResult, ArnoldiState, _lift_ritz, _restart_into, arnoldi_steps,
+                      init_arnoldi_state)
 from .lanczos import LanczosOptions
 from .restart import _compress_basis
 
@@ -129,6 +134,7 @@ class KrylovSchurArnoldiSolver:
         return self
 
     @highest_f32_matmul()
+    @chunk_graph.solve_graphs()
     def compute(self, operator=None) -> ArnoldiResult:
         if operator is not None:
             self.operator = aslinearoperator(operator)
@@ -179,7 +185,7 @@ class KrylovSchurArnoldiSolver:
                     raise ArnoldiError("numerical failure on the first Arnoldi step")
                 break
             H = state.H[:k, :k].to(torch.complex128).cpu().numpy()
-            beta = float(state.residue)
+            beta = float(self.state_residue(state))
             T, Q, evals_desc = _ordered_schur(H, min(p, k - 1), o.which)
             # residual bound per Schur vector: |beta Q[k-1, i]|
             resid = np.abs(beta * Q[k - 1, :])
@@ -222,14 +228,9 @@ class KrylovSchurArnoldiSolver:
             coup = beta * qs[k - 1, :]
             H_new[pk2, :pk2] = coup if complex_basis else coup.real
             dev = state.V.device
-            state = ArnoldiState(
-                V=_compress_basis(state.V, qs, state.V[k].clone()),
-                H=torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype),
-                k=torch.full((), pk2, dtype=torch.int64, device=dev),
-                breakdown=torch.zeros((), dtype=torch.bool, device=dev),
-                residue=state.residue,
-                failed=torch.zeros((), dtype=torch.bool, device=dev),
-            )
+            state = _restart_into(
+                state, _compress_basis(state.V, qs, state.V[k].clone()),
+                torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk2)
             k = pk2
 
         # ---- extraction ----
@@ -257,6 +258,12 @@ class KrylovSchurArnoldiSolver:
             op, state, num_steps, shift=self.options.eigenvalue_shift,
             breakdown_threshold=breakdown_threshold,
         )
+
+    @staticmethod
+    def state_residue(state: ArnoldiState) -> float:
+        """||w|| after the last orthogonalisation: the beta of the residual
+        bound and of the coupling row."""
+        return float(state.residue)
 
     @property
     def eigenvalues(self):

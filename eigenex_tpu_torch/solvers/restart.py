@@ -14,7 +14,10 @@ per-step masked CGS2 against the whole basis computes exactly the
 projected-matrix column needed after a restart; Hermiticity is recovered
 on the host by symmetrising the tiny projected matrix before its
 ``eigh`` in float64.  One chunk fills the subspace, so the host and the
-device synchronise once per restart.  Convergence uses the Lanczos
+device synchronise once per restart.  A solve keeps one state and writes
+each restart into it, so that on the card every restart's chunk (the same
+``(k_start, num_steps)`` each time) replays one CUDA graph
+(:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  Convergence uses the Lanczos
 residual bound |beta_m y_{m,i}| <= tol * scale rather than the
 reference's successive-value test.
 """
@@ -32,7 +35,8 @@ from ..utils.exceptions import LanczosError
 from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
-from .arnoldi import ArnoldiState, arnoldi_steps, init_arnoldi_state
+from . import chunk_graph
+from .arnoldi import ArnoldiState, _restart_into, arnoldi_steps, init_arnoldi_state
 from .lanczos import LanczosOptions, LanczosResult, _ritz_vectors
 
 __all__ = ["ThickRestartLanczosEigenSolver", "ThickRestartOptions"]
@@ -92,6 +96,7 @@ class ThickRestartLanczosEigenSolver:
         return self
 
     @highest_f32_matmul()
+    @chunk_graph.solve_graphs()
     def compute(self, operator=None) -> LanczosResult:
         if operator is not None:
             self.operator = aslinearoperator(operator)
@@ -143,7 +148,7 @@ class ThickRestartLanczosEigenSolver:
                 break
             Hk = _projected(state.H, k)
             theta, Y = np.linalg.eigh(Hk)
-            beta_m = float(state.residue)
+            beta_m = float(self.state_residue(state))
             # Lanczos residual bound per Ritz pair: |beta_m y_{m-1,i}|
             resid = np.abs(beta_m * Y[k - 1, :])
             idx = [i if i >= 0 else k + i for i in tracked]
@@ -182,14 +187,8 @@ class ThickRestartLanczosEigenSolver:
             # arrowhead coupling row: <r, A u_i> = beta_m y_{m-1,i}
             H_new[pk, :pk] = beta_m * Y[k - 1, keep]
             dev = state.V.device
-            state = ArnoldiState(
-                V=V_new,
-                H=torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype),
-                k=torch.full((), pk, dtype=torch.int64, device=dev),
-                breakdown=torch.zeros((), dtype=torch.bool, device=dev),
-                residue=state.residue,
-                failed=torch.zeros((), dtype=torch.bool, device=dev),
-            )
+            state = _restart_into(
+                state, V_new, torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk)
             k = pk
 
         # ---- extraction ----
@@ -219,6 +218,12 @@ class ThickRestartLanczosEigenSolver:
             shift=self.options.eigenvalue_shift,
             breakdown_threshold=breakdown_threshold,
         )
+
+    @staticmethod
+    def state_residue(state: ArnoldiState) -> float:
+        """||w|| after the last orthogonalisation: the beta_m of the
+        residual bound and of the arrowhead coupling row."""
+        return float(state.residue)
 
     @staticmethod
     def _select_keep(theta: np.ndarray, tracked_idx: list[int], p: int, k: int) -> list[int]:

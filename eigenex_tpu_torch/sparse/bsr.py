@@ -146,9 +146,14 @@ class BSRMatrix:
         return adj
 
     def as_linear_operator(self) -> LinearOperator:
+        """Capturable into the CUDA graph of a Krylov chunk where the product
+        is a kernel launch (CUDA blocks in a kernel storage)."""
+        from ..ops import cuda_spmv
+
         return LinearOperator(
             _container_matvec, self, self.shape, self._acc_dtype, self.device,
             rmatvec_fn=_container_rmatvec, matmat_fn=_container_matmat,
+            capturable=self.data.is_cuda and cuda_spmv.kernel_storage(self.dtype),
         )
 
     def to_dense(self) -> torch.Tensor:

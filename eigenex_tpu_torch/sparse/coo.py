@@ -156,9 +156,55 @@ class COOMatrix:
     def to(self, device) -> "COOMatrix":
         return COOMatrix(self.row.to(device), self.col.to(device), self.val.to(device), self.shape)
 
+    # -- transforms (return new containers on this container's device) ----
+    def _resorted(self, row, col, val, shape) -> "COOMatrix":
+        """Host arrays re-sorted row-major (``lexsort``), the invariant of
+        :meth:`build`'s output, back on this container's device."""
+        order = np.lexsort((col, row))
+        return _coo_on(row[order], col[order], val[order], shape, self.device)
+
+    def transpose(self) -> "COOMatrix":
+        """cf. transpose triplets_matrix.hpp:386-404 (re-sorted row-major)."""
+        r, c, v = self._host()
+        return self._resorted(c, r, v, (self.shape[1], self.shape[0]))
+
+    def adjoint(self) -> "COOMatrix":
+        """cf. adjoint triplets_matrix.hpp:406-421 (re-sorted row-major)."""
+        r, c, v = self._host()
+        return self._resorted(c, r, np.conj(v), (self.shape[1], self.shape[0]))
+
+    @property
+    def T(self) -> "COOMatrix":
+        return self.transpose()
+
+    @property
+    def H(self) -> "COOMatrix":
+        return self.adjoint()
+
     def scalar_multiple(self, c) -> "COOMatrix":
         """cf. scalarMultiple triplets_matrix.hpp:423-434"""
         return COOMatrix(self.row, self.col, self.val * c, self.shape)
+
+    def __mul__(self, c) -> "COOMatrix":
+        return self.scalar_multiple(c)
+
+    __rmul__ = __mul__
+
+    def __add__(self, other: "COOMatrix") -> "COOMatrix":
+        """Entry-append + merge (cf. operator+ triplets_matrix.hpp:566-571):
+        the values promoted as ``np.promote_types`` does, duplicates summed
+        and explicit zeros dropped by :func:`_shrink`."""
+        if self.shape != other.shape:
+            raise EigenexError(f"shape mismatch: {self.shape} vs {other.shape}")
+        (r1, c1, v1), (r2, c2, v2) = self._host(), other._host()
+        dt = np.promote_types(v1.dtype, v2.dtype)
+        r, c, v = _shrink(np.concatenate([r1, r2]), np.concatenate([c1, c2]),
+                          np.concatenate([v1.astype(dt), v2.astype(dt)]),
+                          self.shape[0], self.shape[1], 0.0)
+        return _coo_on(r, c, v, self.shape, self.device)
+
+    def __sub__(self, other: "COOMatrix") -> "COOMatrix":
+        return self + other.scalar_multiple(-1)
 
     # -- compute ---------------------------------------------------------
     def _index64(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -234,6 +280,19 @@ class COOMatrix:
             rmatvec_fn=_container_rmatvec,
             matmat_fn=_container_matmat,
         )
+
+    # -- norms (cf. l1norm/l2norm/linorm triplets_matrix.hpp:452-481) ----
+    def l1norm(self) -> torch.Tensor:
+        """max column sum of |v|, a 0-d tensor on this container's device"""
+        return self._scatter(self.val.abs(), self._index64()[1], self.shape[1]).max()
+
+    def l2norm(self) -> torch.Tensor:
+        """Frobenius norm (the reference's l2norm :462-470)"""
+        return torch.sqrt(torch.sum(self.val.abs() ** 2))
+
+    def linorm(self) -> torch.Tensor:
+        """max row sum of |v|"""
+        return self._scatter(self.val.abs(), self._index64()[0], self.shape[0]).max()
 
     # -- spectral-range estimation ---------------------------------------
     def gershgorin_discs(self):

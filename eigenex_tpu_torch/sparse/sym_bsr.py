@@ -184,10 +184,15 @@ class SymBSRMatrix:
         return self._plain_matmat(X)
 
     def as_linear_operator(self) -> LinearOperator:
+        """Capturable into the CUDA graph of a Krylov chunk where the product
+        is a kernel launch (CUDA blocks in a kernel storage)."""
+        from ..ops import cuda_spmv
+
         return LinearOperator(
             _sym_matvec, self, self.shape, self._acc_dtype, self.device,
             rmatvec_fn=_sym_matvec,  # Hermitian: A == A^H
             matmat_fn=_sym_matmat,
+            capturable=self.upper_data.is_cuda and cuda_spmv.kernel_storage(self.dtype),
         )
 
     # -- spectral-range estimation ---------------------------------------

@@ -476,3 +476,106 @@ def test_cgls_fallback_on_a_closure_over_the_general_kernel(card):
     assert torch.equal(yd, ye)
     assert {k: sd[k] for k in ("matvecs", "iterations")} == {k: se[k] for k in ("matvecs", "iterations")}
     assert cd["bsr_spmv"] == sd["matvecs"] + sd["adjoint_forwards"] and ce["bsr_spmv"] == se["matvecs"]
+
+
+# ---------------------------------------------------------------------------
+# the chunk graphs of a solve (eigenex_tpu_torch.solvers.chunk_graph)
+# ---------------------------------------------------------------------------
+def test_the_containers_on_the_card_say_they_may_be_captured(card):
+    from eigenex_tpu_torch.solvers.cg import _Counted, _new_stats
+
+    bsr = banded(4, 128, 3, card)
+    for container in (bsr, bsr.astype(torch.bfloat16), sym_bsr_from_bsr(bsr)):
+        op = container.as_linear_operator()
+        assert op.capturable
+        assert _Counted(op, 0.5, _new_stats()).operator().capturable
+    assert not bsr.astype(torch.float64).as_linear_operator().capturable  # plain version
+
+
+def test_a_chunk_graph_replays_bit_equal_and_counts_its_launches(card, monkeypatch):
+    """One key run four times on the same input: a warm-up, a capture then
+    its replay, two replays.  Every run bit-equal to the warm-up; launches =
+    matvecs, the capture counted as none; the capture adds no kernel
+    workspace to the container (the warm-up made the set stream's)."""
+    from eigenex_tpu_torch.solvers import chunk_graph
+    from eigenex_tpu_torch.solvers.arnoldi import _arnoldi_chunk, init_arnoldi_state
+
+    sym = sym_bsr_from_bsr(banded(16, 128, 4, card))
+    op = sym.as_linear_operator()
+    workspaces = []
+    capture = chunk_graph.ChunkGraphs._capture
+
+    def counted_capture(self, *args):
+        before = len(sym.__dict__.get("_kernel_workspaces", {}))
+        out = capture(self, *args)
+        workspaces.append((before, len(sym.__dict__.get("_kernel_workspaces", {}))))
+        return out
+
+    monkeypatch.setattr(chunk_graph.ChunkGraphs, "_capture", counted_capture)
+    chunk_graph.reset_graph_counts()
+    cuda_spmv.reset_launch_counts()
+    steps, outs = 20, []
+    with chunk_graph.solve_graphs():
+        state = init_arnoldi_state(op, steps, seed=5, breakdown_threshold=1e-6)
+        start = [t.clone() for t in chunk_graph.state_tensors(state)]
+        for _ in range(4):
+            for buffer, value in zip(chunk_graph.state_tensors(state), start):
+                buffer.copy_(value)
+            out = _arnoldi_chunk(op, state, 0.0, 1e-6, None, k_start=0, num_steps=steps)
+            assert out is state
+            outs.append([t.clone() for t in chunk_graph.state_tensors(state)])
+    torch.cuda.synchronize()
+    for run in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, outs[0]))
+    assert int(outs[0][2]) == steps
+    counts = chunk_graph.graph_counts()
+    assert (counts["keys"], counts["warmups"], counts["captures"], counts["replays"]) == (1, 1, 1, 3)
+    assert cuda_spmv.launch_counts()["sym_bsr_spmv"] == 4 * steps
+    assert workspaces == [(1, 1)]
+
+
+def graph_and_eager(solve):
+    """The solve eagerly, then with graphs (counts from 0): both results,
+    the graph run's launches and its graph counts."""
+    from eigenex_tpu_torch.solvers import chunk_graph
+
+    with chunk_graph.eager_chunks():
+        eager = solve()
+    chunk_graph.reset_graph_counts()
+    cuda_spmv.reset_launch_counts()
+    graphed = solve()
+    return eager, graphed, cuda_spmv.launch_counts(), chunk_graph.graph_counts()
+
+
+def test_a_thick_restart_with_graphs_is_the_eager_solve(card):
+    sym = sym_bsr_from_bsr(banded(24, 128, 6, card))
+    v0 = torch.randn(sym.shape[0], device=card, generator=torch.Generator(card).manual_seed(7))
+    eager, graphed, launches, counts = graph_and_eager(
+        lambda: eigsh(sym, k=2, which="LA", v0=v0, tol=1e-9, max_subspace=24, max_restarts=6))
+    assert np.array_equal(eager.eigenvalues, graphed.eigenvalues)
+    assert torch.equal(eager.eigenvectors, graphed.eigenvectors)
+    assert eager.iterations == graphed.iterations
+    # keys (0, 24) and (p, 24 - p): the second warmed up at restart 1, captured at 2
+    assert (counts["keys"], counts["captures"], counts["replays"]) == (2, 1, 5)
+    assert launches["sym_bsr_spmv"] == graphed.iterations
+
+
+def test_krylov_schur_and_gmres_with_graphs_are_the_eager_solves(card):
+    from eigenex_tpu_torch import eigs
+
+    bsr = banded(24, 128, 8, card)
+    v0 = torch.randn(bsr.shape[0], device=card, generator=torch.Generator(card).manual_seed(9))
+    eager, graphed, launches, counts = graph_and_eager(
+        lambda: eigs(bsr, k=2, v0=v0, tol=1e-9, max_subspace=24, max_restarts=5))
+    assert np.array_equal(eager.eigenvalues, graphed.eigenvalues)
+    assert torch.equal(eager.eigenvectors, graphed.eigenvectors)
+    assert counts["captures"] >= 1 and counts["replays"] >= 1
+    assert launches["bsr_spmv"] == graphed.iterations
+    # shift-invert: every inner GMRES cycle one key, captured at the second solve
+    eager, graphed, launches, counts = graph_and_eager(
+        lambda: eigs(bsr, k=1, sigma=0.5, v0=v0, tol=1e-5, inner_tol=1e-5, max_subspace=12))
+    assert np.array_equal(eager.eigenvalues, graphed.eigenvalues)
+    assert torch.equal(eager.eigenvectors, graphed.eigenvectors)
+    assert eager.inner_stats == graphed.inner_stats
+    assert counts["captures"] >= 1 and counts["replays"] >= 1
+    assert launches["bsr_spmv"] == graphed.inner_stats["matvecs"]

@@ -213,3 +213,58 @@ def test_every_reference_module_name_has_a_counterpart():
         missing += [(info.name, n) for n in public_names(ref)
                     if not hasattr(port, n) and (info.name, n) not in TPU_ONLY]
     assert not missing
+
+
+#: public members of the reference's classes with no counterpart in the port, each
+#: with its reason: (module of the class, class, member) -> why.  Not members, so
+#: not walked: ``SymBSRMatrix._xla_matvec`` and ``_xla_matmat`` (private; the port's
+#: plain versions stand for them), and keyword gaps (``axis_name``, ``key``,
+#: ``use_pallas``, ``bn``; ``to_device``, which is ``device=`` in the port).
+JAX_ONLY_MEMBERS = {
+    ("eigenex_tpu.core.operators", "LinearOperator", "tree_flatten"):
+        "pytree registration: a LinearOperator crosses jax.jit as a pytree; torch has no jit",
+    ("eigenex_tpu.core.operators", "LinearOperator", "tree_unflatten"):
+        "pytree registration, as tree_flatten",
+}
+#: operators a class may define; they are public members although they start with _
+OPERATORS = ("__add__", "__sub__", "__mul__", "__rmul__", "__matmul__", "__rmatmul__",
+             "__neg__", "__call__", "__truediv__", "__getitem__", "__len__", "__iter__")
+
+
+def public_members(cls) -> set[str]:
+    """Public attributes, methods, properties and operators a class of the
+    JAX package defines itself or inherits from another of its classes."""
+    members = set()
+    for klass in cls.__mro__:
+        if not klass.__module__.startswith("eigenex_tpu"):
+            continue
+        members |= {m for m in vars(klass) if not m.startswith("_") or m in OPERATORS}
+    return members
+
+
+def test_every_reference_class_member_has_a_counterpart():
+    """A walk of the public classes of every module of the JAX package: each
+    public member (properties and operators included) resolves on the port's
+    class of the same name, save the JAX-only ones named above."""
+    import inspect
+
+    import eigenex_tpu
+
+    missing, classes = [], 0
+    for info in pkgutil.walk_packages(eigenex_tpu.__path__, "eigenex_tpu."):
+        spec = importlib.util.find_spec(info.name)
+        if info.name.endswith(".pallas_spmv") or not str(spec.origin).endswith(".py"):
+            continue
+        ref = importlib.import_module(info.name)
+        port = importlib.import_module(info.name.replace("eigenex_tpu", "eigenex_tpu_torch", 1))
+        for name in public_names(ref):
+            cls = getattr(ref, name, None)
+            if not inspect.isclass(cls) or not cls.__module__.startswith("eigenex_tpu"):
+                continue
+            classes += 1
+            ported = getattr(port, name)
+            missing += [(cls.__module__, name, m) for m in sorted(public_members(cls))
+                        if not hasattr(ported, m)
+                        and (cls.__module__, name, m) not in JAX_ONLY_MEMBERS]
+    assert classes > 50
+    assert not missing
