@@ -1029,33 +1029,23 @@ def check_spmm(name: str, case: str, op, X, peaks) -> dict:
 
 
 def profile_solve(fn) -> dict:
-    """One solve under ``torch.profiler``: wall time, the time the device was
-    busy (sum of the self device time of every event; one stream, so nothing
-    overlaps) and the events that took most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One solve under ``torch.profiler``, reduced by the benchmark's reducer
+    (``eigbench/devtrace.py``): wall time under the profiler, the time the
+    device was busy (the union of its events' intervals), the device
+    operations that took most of it, and the longest idle gaps, each named
+    by the innermost program span or torch operation running in it.  The
+    idle share is left out: busy over this wall counts the profiler's own
+    host time as idle (the benchmark's ``device_idle`` divides by unprofiled
+    walls)."""
+    from eigbench import devtrace
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        res = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    # device-side events only: an operator's own row repeats its kernels' time
-    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                    key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    out = dict(iterations=res.iterations, wall_ms_under_profiler=wall_ms,
-               device_busy_ms=busy_ms,
-               top_device_events=[dict(name=e.key[:80], calls=e.count, ms=device_us(e) / 1e3)
-                                  for e in events[:10] if device_us(e) > 0])
-    if busy_ms > 0:
-        out["device_busy_share"] = busy_ms / wall_ms
-        out["device_idle_share"] = 1 - busy_ms / wall_ms
-    else:
+    profiled = devtrace.profile(fn)
+    out = dict(iterations=profiled["solve"].iterations,
+               wall_ms_under_profiler=profiled["window_s"] * 1e3,
+               device_busy_ms=profiled["busy_s"] * 1e3,
+               top_device_events=profiled["breakdown"]["device_ops"],
+               idle_gaps=profiled["breakdown"]["idle_gaps"])
+    if profiled["busy_s"] <= 0:
         out["note"] = "the profiler recorded no device time on this machine"
     return out
 

@@ -41,6 +41,7 @@ from ..sparse.bsr import bsr_from_coo_arrays
 from ..sparse.coo import COOMatrix, _coo_on
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
+from ..utils.profiling import annotate
 from .block_tensor import BlockTensor
 
 __all__ = [
@@ -123,12 +124,16 @@ def _sector_triplets(L, n_up, J, Jz, pbc, dtype):
     native enumerator for f64 where the library is available (its
     column-major output lexsorted), the numpy builder otherwise."""
     if np.dtype(dtype) == np.float64 and native.native_available():
-        r, c, v, dim = native.heisenberg_sector(L, n_up, J, J if Jz is None else Jz, pbc)
-        order = np.lexsort((c, r))
-        return r[order].astype(np.int32), c[order].astype(np.int32), v[order], dim
-    return _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype)
+        with annotate("eigenex.build.enumerate", native=True):
+            r, c, v, dim = native.heisenberg_sector(L, n_up, J, J if Jz is None else Jz, pbc)
+        with annotate("eigenex.build.lexsort"):
+            order = np.lexsort((c, r))
+            return r[order].astype(np.int32), c[order].astype(np.int32), v[order], dim
+    with annotate("eigenex.build.enumerate", native=False):
+        return _heisenberg_triplets(L, n_up, J, Jz, pbc, dtype)
 
 
+@annotate("eigenex.build")
 def heisenberg_sector_coo(
     L: int,
     n_up: int,
@@ -141,7 +146,8 @@ def heisenberg_sector_coo(
     """XXZ chain H = sum_b J/2 (S+_i S-_j + S-_i S+_j) + Jz S^z_i S^z_j
     restricted to the total-S_z sector with ``n_up`` up spins, as a COO
     matrix over the sector basis, on ``device`` (the card unless told
-    otherwise)."""
+    otherwise).  Runs under the span ``eigenex.build``, its stages under
+    ``eigenex.build.<stage>``."""
     r, c, v, dim = _sector_triplets(L, n_up, J, Jz, pbc, dtype)
     return _coo_on(r, c, v, (dim, dim), resolve_device(device))
 

@@ -74,6 +74,7 @@ from pathlib import Path
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import profiling
 from ..utils.exceptions import EigenexError
 
 __all__ = [
@@ -106,6 +107,8 @@ KERNEL_SOURCES = {
     "bsr_spmm": "bsr_spmm.cu",
     "sym_bsr_spmm": "sym_bsr_spmm.cu",
 }
+#: kernel name -> its launch counter
+_LAUNCH_COUNTERS = {name: f"launch.{name}" for name in KERNEL_SOURCES}
 _HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
 #: sources that bind a CUDA library rather than hold a kernel of their own ->
 #: their file under ``csrc/``; built by :func:`build_kernels` like the kernels
@@ -131,9 +134,6 @@ SPMV_TILE_ROWS = 128
 #: the scratch of :func:`sym_bsr_spmm` is sized for one such chunk
 _MAX_COLS = 32
 
-_launches = {name: 0 for name in KERNEL_SOURCES}
-#: the counts are bumped from the shard threads of a mesh, so under a lock
-_launch_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -144,15 +144,14 @@ def kernel_storage(dtype) -> bool:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel's wrapper since the last reset, from every
-    thread."""
-    with _launch_lock:
-        return dict(_launches)
+    thread: the ``launch.<kernel>`` counters of
+    :mod:`~eigenex_tpu_torch.utils.profiling`."""
+    launched = profiling.counters("launch.")
+    return {name: launched.get(key, 0) for name, key in _LAUNCH_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    with _launch_lock:
-        for name in _launches:
-            _launches[name] = 0
+    profiling.reset_counters("launch.")
 
 
 def _count_launch(name: str) -> None:
@@ -160,8 +159,7 @@ def _count_launch(name: str) -> None:
     if tally is not None:  # captured into a CUDA graph: counted at each replay instead
         tally[name] += 1
         return
-    with _launch_lock:
-        _launches[name] += 1
+    profiling.count(_LAUNCH_COUNTERS[name])
 
 
 _capturing = threading.local()
@@ -172,7 +170,7 @@ def launch_tally():
     """While open, this thread's launches go into the yielded dict instead
     of the counts: a CUDA graph capture, where a launch is recorded, not
     run (:mod:`eigenex_tpu_torch.solvers.chunk_graph`)."""
-    tally = dict.fromkeys(_launches, 0)
+    tally = dict.fromkeys(KERNEL_SOURCES, 0)
     previous = getattr(_capturing, "tally", None)
     _capturing.tally = tally
     try:
@@ -183,9 +181,9 @@ def launch_tally():
 
 def count_replayed_launches(tally: dict) -> None:
     """Add the launches a CUDA graph replay made: the tally of its capture."""
-    with _launch_lock:
-        for name, count in tally.items():
-            _launches[name] += count
+    for name, launched in tally.items():
+        if launched:
+            profiling.count(_LAUNCH_COUNTERS[name], launched)
 
 
 # ---------------------------------------------------------------------------

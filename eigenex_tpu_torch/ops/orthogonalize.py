@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import as_device_tensor
+from ..utils.profiling import annotate
 
 __all__ = [
     "project_coefficients",
@@ -82,12 +83,14 @@ def cgs2(V: torch.Tensor, v: torch.Tensor, mask=None, *, comm=None):
 
     Returns ``(v_orth, c)`` where ``c`` is the **total** projection
     coefficient vector (sum of both passes) -- Arnoldi consumes it as the
-    Hessenberg column, Lanczos reads alpha from it."""
-    c1 = project_coefficients(V, v, mask, comm=comm)
-    v = v - c1 @ V
-    c2 = project_coefficients(V, v, mask, comm=comm)
-    v = v - c2 @ V
-    return v, c1 + c2
+    Hessenberg column, Lanczos reads alpha from it.  Runs under the span
+    ``eigenex.cgs2``."""
+    with annotate("eigenex.cgs2"):
+        c1 = project_coefficients(V, v, mask, comm=comm)
+        v = v - c1 @ V
+        c2 = project_coefficients(V, v, mask, comm=comm)
+        v = v - c2 @ V
+        return v, c1 + c2
 
 
 def gram_schmidt(vectors: torch.Tensor, normalize: bool = True) -> torch.Tensor:

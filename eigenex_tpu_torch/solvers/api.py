@@ -34,10 +34,14 @@ takes the panel grid.  Sparse operands only.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
+from ..utils import profiling
 from ..utils.exceptions import EigenexError
 from ..utils.precision import highest_f32_matmul
 from .gmres import shift_invert_operator_general
@@ -46,6 +50,42 @@ from .lanczos import LanczosEigenSolver, LanczosOptions, LanczosResult
 from .restart import ThickRestartLanczosEigenSolver, ThickRestartOptions
 
 __all__ = ["eigsh", "eigs", "svds"]
+
+
+_requests = threading.local()
+
+
+def _launched() -> int:
+    return sum(profiling.counters("launch.").values())
+
+
+def _request(front_end):
+    """A public front end as one request: the root span ``eigenex.solve`` and
+    the counters ``solver.solves``, ``solver.iterations`` (the result's own
+    count, where it has one) and ``solver.launches`` (kernel launches while
+    it ran, from every thread).  A front end called from inside another
+    (the accelerated routes call ``eigsh`` on the pack) is part of its
+    request."""
+
+    @functools.wraps(front_end)
+    def request(*args, **kwargs):
+        if getattr(_requests, "open", False):
+            return front_end(*args, **kwargs)
+        _requests.open = True
+        launched = _launched()
+        try:
+            with profiling.annotate(profiling.ROOT_SPAN):
+                result = front_end(*args, **kwargs)
+        finally:
+            _requests.open = False
+        profiling.count("solver.solves")
+        profiling.count("solver.launches", _launched() - launched)
+        iterations = getattr(result, "iterations", None)
+        if iterations is not None:
+            profiling.count("solver.iterations", int(iterations))
+        return result
+
+    return request
 
 
 def _resolve_operand(A, device) -> LinearOperator:
@@ -142,6 +182,7 @@ def _truncate(res, n: int):
     return res
 
 
+@_request
 @highest_f32_matmul()
 def eigsh(
     A,
@@ -630,6 +671,7 @@ def _restore_accelerated(res: LanczosResult, acc, k, refine, coo) -> LanczosResu
     return _maybe_refine_hermitian(res2, coo, refine)
 
 
+@_request
 @highest_f32_matmul()
 def eigs(
     A,
@@ -983,6 +1025,7 @@ def _safe(s: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.where(s > 0, s, 1.0)).to(device=like.device, dtype=like.dtype)
 
 
+@_request
 @highest_f32_matmul()
 def svds(
     A,

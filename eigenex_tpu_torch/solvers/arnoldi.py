@@ -37,6 +37,7 @@ from ..core.operators import LinearOperator, aslinearoperator
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
 from ..utils.exceptions import ArnoldiError
 from ..utils.precision import highest_f32_matmul
+from ..utils.profiling import annotate
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance, real_dtype_of
 from ..utils.trace import ConvergenceTrace, Severity
 from . import chunk_graph
@@ -239,7 +240,8 @@ def _arnoldi_chunk(
 
     graphs = chunk_graph.current()
     if graphs is None or comm is not None:
-        return body()
+        with annotate("eigenex.chunk.eager"):
+            return body()
     key = (int(k_start), int(num_steps), shift, float(breakdown_threshold), deflate)
     return graphs.run(op, state, key, body)
 

@@ -30,6 +30,11 @@ storage, and the shifted operator of a GMRES solve on one) are captured, and
 only on CUDA; everything else runs the body eagerly on the same buffers.
 Nothing falls back: a failed capture raises.
 
+Each chunk runs under a span of its route (``eigenex.chunk.eager``,
+``.warmup`` or ``.replay``; a capture under ``eigenex.graph.capture``, the
+set's freeing under ``eigenex.graphs.close``;
+:mod:`~eigenex_tpu_torch.utils.profiling`).  A replay runs no Python, so the
+spans inside the body show in eager chunks, warm-ups and captures only.
 The kernel wrappers count their launches at capture into a tally instead of
 the global counts (:func:`~eigenex_tpu_torch.ops.cuda_spmv.launch_tally`);
 each replay adds that tally, so launch counts still equal matvecs.  An
@@ -48,6 +53,8 @@ import time
 import torch
 
 from ..ops import cuda_spmv
+from ..utils import profiling
+from ..utils.profiling import annotate
 
 __all__ = [
     "ChunkGraphs",
@@ -63,7 +70,6 @@ _lock = threading.Lock()
 _eager_depth = 0
 _COUNTS = ("solves", "keys", "eager", "warmups", "captures", "replays", "capture_ms",
            "pool_bytes")
-_counts = dict.fromkeys(_COUNTS, 0)
 
 
 def graph_counts() -> dict:
@@ -71,20 +77,19 @@ def graph_counts() -> dict:
     run eagerly (no graph: CPU, an operator that is not capturable, or
     :func:`eager_chunks`), warm-ups, captures, replays, ms spent capturing
     and instantiating, and bytes the captures added to the reserved memory
-    (the graphs' private pools)."""
-    with _lock:
-        return dict(_counts)
+    (the graphs' private pools): the ``graph.<name>`` counters of
+    :mod:`~eigenex_tpu_torch.utils.profiling`."""
+    counted = profiling.counters("graph.")
+    return {name: counted.get(f"graph.{name}", 0) for name in _COUNTS}
 
 
 def reset_graph_counts() -> None:
-    with _lock:
-        _counts.update(dict.fromkeys(_COUNTS, 0))
+    profiling.reset_counters("graph.")
 
 
 def _count(**deltas) -> None:
-    with _lock:
-        for name, value in deltas.items():
-            _counts[name] += value
+    for name, value in deltas.items():
+        profiling.count(f"graph.{name}", value)
 
 
 def current() -> "ChunkGraphs | None":
@@ -188,23 +193,28 @@ class ChunkGraphs:
                 *(_identity(part) for part in key))
         graph = self._graphs.get(full)
         if graph is not None and not _eager_depth:
-            graph.replay()
-            _count(replays=1)
+            self._replay(graph)
             return state
         first = full not in self._seen
         if first:
             self._seen.add(full)
             _count(keys=1)
         if _eager_depth or not (op.capturable and state.V.is_cuda):
-            _store(state, body())
+            with annotate("eigenex.chunk.eager"):
+                _store(state, body())
             _count(eager=1)
         elif first:
             self._warm_up(state, body)
         else:
             graph = self._graphs[full] = self._capture(op, state, body, key)
-            graph.replay()
-            _count(replays=1)
+            self._replay(graph)
         return state
+
+    @staticmethod
+    def _replay(graph: _Graph) -> None:
+        with annotate("eigenex.chunk.replay"):
+            graph.replay()
+        _count(replays=1)
 
     def _side_stream(self, device):
         if self._stream is None:
@@ -217,10 +227,11 @@ class ChunkGraphs:
         device = state.V.device
         stream = self._side_stream(device)
         caller = torch.cuda.current_stream(device)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            _store(state, body())
-        caller.wait_stream(stream)
+        with annotate("eigenex.chunk.warmup"):
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                _store(state, body())
+            caller.wait_stream(stream)
         _count(warmups=1)
 
     def _capture(self, op, state, body, key) -> _Graph:
@@ -233,7 +244,8 @@ class ChunkGraphs:
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        with cuda_spmv.launch_tally() as launches, torch.cuda.stream(stream):
+        with (annotate("eigenex.graph.capture"), cuda_spmv.launch_tally() as launches,
+              torch.cuda.stream(stream)):
             graph.capture_begin(pool=self._pool)
             try:
                 _store(state, body())
@@ -250,9 +262,10 @@ class ChunkGraphs:
 
     def close(self) -> None:
         """Free the graphs, their pool and the buffers."""
-        for graph in self._graphs.values():
-            graph.graph.reset()
-        self._graphs.clear()
-        self._seen.clear()
-        self._buffers.clear()
-        self._stream = self._pool = None
+        with annotate("eigenex.graphs.close"):
+            for graph in self._graphs.values():
+                graph.graph.reset()
+            self._graphs.clear()
+            self._seen.clear()
+            self._buffers.clear()
+            self._stream = self._pool = None

@@ -16,7 +16,9 @@ solve, whose chunks replay CUDA graphs on the card
 (Schur, ordering, residual bounds, the real-basis span reduction) is host
 LAPACK on float64 /
 complex128 copies of the Hessenberg, as in the reference; the device
-does the Arnoldi chunk and the (p, m) x (m, n) basis compression.
+does the Arnoldi chunk and the (p, m) x (m, n) basis compression.  The
+loop's spans and its ``solver.restarts`` count are those of
+:mod:`eigenex_tpu_torch.solvers.restart`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import torch
 
 from ..core.operators import aslinearoperator
 from ..utils.exceptions import ArnoldiError
+from ..utils import profiling
 from ..utils.precision import highest_f32_matmul
+from ..utils.profiling import annotate
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
 from . import chunk_graph
@@ -171,7 +175,8 @@ class KrylovSchurArnoldiSolver:
             k0 = k
             state = self._run_arnoldi_chunk(op, state, m - k0, bd)
             # the host/device synchronisation point, once per restart
-            k, has_broken, has_failed = state.host_flags()
+            with annotate("eigenex.wait"):
+                k, has_broken, has_failed = state.host_flags()
             total += k - k0
             if has_failed:
                 termination = "numerical_failure"
@@ -184,18 +189,20 @@ class KrylovSchurArnoldiSolver:
                 if k == 0:
                     raise ArnoldiError("numerical failure on the first Arnoldi step")
                 break
-            H = state.H[:k, :k].to(torch.complex128).cpu().numpy()
-            beta = float(self.state_residue(state))
-            T, Q, evals_desc = _ordered_schur(H, min(p, k - 1), o.which)
-            # residual bound per Schur vector: |beta Q[k-1, i]|
-            resid = np.abs(beta * Q[k - 1, :])
-            nev_eff = min(nev, k)
-            cur = np.diag(T)[:nev_eff]
-            scale = max(float(np.max(np.abs(evals_desc))) if len(evals_desc) else 1.0, 1e-300)
-            self.trace.record(
-                total, cur, float(np.max(resid[:nev_eff])) if nev_eff else np.nan,
-                time.perf_counter() - t0,
-            )
+            with annotate("eigenex.ritz"):
+                H = state.H[:k, :k].to(torch.complex128).cpu().numpy()
+                with annotate("eigenex.wait"):
+                    beta = float(self.state_residue(state))
+                T, Q, evals_desc = _ordered_schur(H, min(p, k - 1), o.which)
+                # residual bound per Schur vector: |beta Q[k-1, i]|
+                resid = np.abs(beta * Q[k - 1, :])
+                nev_eff = min(nev, k)
+                cur = np.diag(T)[:nev_eff]
+                scale = max(float(np.max(np.abs(evals_desc))) if len(evals_desc) else 1.0, 1e-300)
+                self.trace.record(
+                    total, cur, float(np.max(resid[:nev_eff])) if nev_eff else np.nan,
+                    time.perf_counter() - t0,
+                )
 
             if has_broken:
                 termination = "breakdown"
@@ -220,28 +227,31 @@ class KrylovSchurArnoldiSolver:
             # decomposition exactly: A (qs^T V) rows project to
             # qs^H H[:k,:k] qs with coupling row <r, A w_i> = beta qs[k-1, i]
             # -- no extra matvecs, real and complex alike.
-            qs = _restart_coefficients(Q, min(p, k - 1), m, complex_basis)
-            pk2 = qs.shape[1]
-            H_new = np.zeros((m + 1, m), np.complex128 if complex_basis else np.float64)
-            Hp = qs.conj().T @ H @ qs
-            H_new[:pk2, :pk2] = Hp if complex_basis else Hp.real
-            coup = beta * qs[k - 1, :]
-            H_new[pk2, :pk2] = coup if complex_basis else coup.real
-            dev = state.V.device
-            state = _restart_into(
-                state, _compress_basis(state.V, qs, state.V[k].clone()),
-                torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk2)
-            k = pk2
+            with annotate("eigenex.restart"):
+                qs = _restart_coefficients(Q, min(p, k - 1), m, complex_basis)
+                pk2 = qs.shape[1]
+                H_new = np.zeros((m + 1, m), np.complex128 if complex_basis else np.float64)
+                Hp = qs.conj().T @ H @ qs
+                H_new[:pk2, :pk2] = Hp if complex_basis else Hp.real
+                coup = beta * qs[k - 1, :]
+                H_new[pk2, :pk2] = coup if complex_basis else coup.real
+                dev = state.V.device
+                state = _restart_into(
+                    state, _compress_basis(state.V, qs, state.V[k].clone()),
+                    torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk2)
+                k = pk2
+            profiling.count("solver.restarts")
 
         # ---- extraction ----
-        H = state.H[:k, :k].to(torch.complex128).cpu().numpy()
-        evals, Y = np.linalg.eig(H)
-        order = np.argsort(_which_key(evals, o.which), kind="stable")
-        sel = order[: min(o.max_eigenvalues, k)]
-        evals_out = evals[sel] - complex(o.eigenvalue_shift)
-        vecs = None
-        if o.compute_eigenvectors:
-            vecs = _lift_ritz(state.V, Y[:, sel], k)
+        with annotate("eigenex.extract"):
+            H = state.H[:k, :k].to(torch.complex128).cpu().numpy()
+            evals, Y = np.linalg.eig(H)
+            order = np.argsort(_which_key(evals, o.which), kind="stable")
+            sel = order[: min(o.max_eigenvalues, k)]
+            evals_out = evals[sel] - complex(o.eigenvalue_shift)
+            vecs = None
+            if o.compute_eigenvectors:
+                vecs = _lift_ritz(state.V, Y[:, sel], k)
         self._result = ArnoldiResult(
             eigenvalues=evals_out,
             eigenvectors=vecs,

@@ -17,7 +17,12 @@ on the host by symmetrising the tiny projected matrix before its
 device synchronise once per restart.  A solve keeps one state and writes
 each restart into it, so that on the card every restart's chunk (the same
 ``(k_start, num_steps)`` each time) replays one CUDA graph
-(:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  Convergence uses the Lanczos
+(:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  Each pass of the loop runs
+under spans (:mod:`eigenex_tpu_torch.utils.profiling`): ``eigenex.wait``
+where the host waits for the device, ``eigenex.ritz`` for the projected
+eigenproblem and the convergence test, ``eigenex.restart`` for the
+restart itself (counted in ``solver.restarts``), ``eigenex.extract`` for
+the Ritz vectors at the end.  Convergence uses the Lanczos
 residual bound |beta_m y_{m,i}| <= tol * scale rather than the
 reference's successive-value test.
 """
@@ -32,7 +37,9 @@ import torch
 
 from ..core.operators import aslinearoperator
 from ..utils.exceptions import LanczosError
+from ..utils import profiling
 from ..utils.precision import highest_f32_matmul
+from ..utils.profiling import annotate
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
 from . import chunk_graph
@@ -133,7 +140,8 @@ class ThickRestartLanczosEigenSolver:
             k0 = k
             state = self._run_arnoldi_chunk(op, state, m - k0, bd)
             # the host/device synchronisation point, once per restart
-            k, has_broken, has_failed = state.host_flags()
+            with annotate("eigenex.wait"):
+                k, has_broken, has_failed = state.host_flags()
             total_iters += k - k0
             if has_failed:
                 termination = "numerical_failure"
@@ -146,18 +154,21 @@ class ThickRestartLanczosEigenSolver:
                 if k == 0:
                     raise LanczosError("numerical failure on the first Lanczos step")
                 break
-            Hk = _projected(state.H, k)
-            theta, Y = np.linalg.eigh(Hk)
-            beta_m = float(self.state_residue(state))
-            # Lanczos residual bound per Ritz pair: |beta_m y_{m-1,i}|
-            resid = np.abs(beta_m * Y[k - 1, :])
-            idx = [i if i >= 0 else k + i for i in tracked]
-            idx = [i for i in idx if 0 <= i < k]
-            spread = float(theta[-1] - theta[0]) if k > 1 else 1.0
-            scale = max(spread, float(np.max(np.abs(theta))) if k else 1.0, 1e-300)
-            cur = theta[idx] if idx else np.zeros(0)
-            self.trace.record(total_iters, cur, float(np.max(resid[idx]) if idx else np.nan),
-                              time.perf_counter() - t0)
+            with annotate("eigenex.ritz"):
+                Hk = _projected(state.H, k)
+                theta, Y = np.linalg.eigh(Hk)
+                with annotate("eigenex.wait"):
+                    beta_m = float(self.state_residue(state))
+                # Lanczos residual bound per Ritz pair: |beta_m y_{m-1,i}|
+                resid = np.abs(beta_m * Y[k - 1, :])
+                idx = [i if i >= 0 else k + i for i in tracked]
+                idx = [i for i in idx if 0 <= i < k]
+                spread = float(theta[-1] - theta[0]) if k > 1 else 1.0
+                scale = max(spread, float(np.max(np.abs(theta))) if k else 1.0, 1e-300)
+                cur = theta[idx] if idx else np.zeros(0)
+                self.trace.record(total_iters, cur,
+                                  float(np.max(resid[idx]) if idx else np.nan),
+                                  time.perf_counter() - t0)
 
             if has_broken:
                 termination = "breakdown"
@@ -178,27 +189,30 @@ class ThickRestartLanczosEigenSolver:
                 break
 
             # ---- thick restart: keep the tracked pairs + nearest extras ----
-            keep = self._select_keep(theta, idx, p, k)
-            r = state.V[k].clone()  # unit residual direction
-            V_new = _compress_basis(state.V, Y[:, keep], r)
-            pk = len(keep)
-            H_new = np.zeros((m + 1, m), Hk.dtype)
-            H_new[:pk, :pk] = np.diag(theta[keep])
-            # arrowhead coupling row: <r, A u_i> = beta_m y_{m-1,i}
-            H_new[pk, :pk] = beta_m * Y[k - 1, keep]
-            dev = state.V.device
-            state = _restart_into(
-                state, V_new, torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk)
-            k = pk
+            with annotate("eigenex.restart"):
+                keep = self._select_keep(theta, idx, p, k)
+                r = state.V[k].clone()  # unit residual direction
+                V_new = _compress_basis(state.V, Y[:, keep], r)
+                pk = len(keep)
+                H_new = np.zeros((m + 1, m), Hk.dtype)
+                H_new[:pk, :pk] = np.diag(theta[keep])
+                # arrowhead coupling row: <r, A u_i> = beta_m y_{m-1,i}
+                H_new[pk, :pk] = beta_m * Y[k - 1, keep]
+                dev = state.V.device
+                state = _restart_into(
+                    state, V_new, torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk)
+                k = pk
+            profiling.count("solver.restarts")
 
         # ---- extraction ----
-        theta, Y = np.linalg.eigh(_projected(state.H, k))
-        sel = [i if i >= 0 else k + i for i in tracked]
-        sel = [i for i in sel if 0 <= i < k] or list(range(min(nev, k)))
-        evals = theta[sel] - np.real(o.eigenvalue_shift)
-        vecs = None
-        if o.compute_eigenvectors:
-            vecs = _ritz_vectors(state.V, Y[:, sel], k)
+        with annotate("eigenex.extract"):
+            theta, Y = np.linalg.eigh(_projected(state.H, k))
+            sel = [i if i >= 0 else k + i for i in tracked]
+            sel = [i for i in sel if 0 <= i < k] or list(range(min(nev, k)))
+            evals = theta[sel] - np.real(o.eigenvalue_shift)
+            vecs = None
+            if o.compute_eigenvectors:
+                vecs = _ritz_vectors(state.V, Y[:, sel], k)
         self._result = LanczosResult(
             eigenvalues=evals,
             eigenvectors=vecs,

@@ -65,6 +65,7 @@ from .. import native
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
+from ..utils.profiling import add_span, annotate
 from ..utils.prng import make_generator, random_vector
 from ..utils.tolerance import as_torch_dtype
 from .bsr import BSRMatrix, _pack_bsr_host
@@ -260,7 +261,7 @@ def _host_cast(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _no_stage(name, t_start):
-    return time.time()
+    return time.perf_counter()
 
 
 def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device, use_native,
@@ -272,7 +273,7 @@ def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device, use_nativ
     both triangles into BSR-ELL in f32, keep the diagonal and the strictly
     upper blocks; ``skipped`` is None."""
     nbr = n_pad // block
-    ts = time.time()
+    ts = time.perf_counter()
     if use_native:
         order, _kmax, ku, reach = native.blk_widths(r, c, block, block, nbr)
         ts = stage("blk_sort", ts)
@@ -310,7 +311,7 @@ def _pack_general(r, c, v, m_pad, n_pad, bm, bn, dtype: torch.dtype, device, use
     block sort and threaded packer (f32, or bf16 directly), or the numpy
     packer in f32; cast on the host to the storage dtype."""
     nbr, nbc = m_pad // bm, n_pad // bn
-    ts = time.time()
+    ts = time.perf_counter()
     if use_native:
         order, kmax, _ku, _reach = native.blk_widths(r, c, bm, bn, nbc)
         ts = stage("blk_sort", ts)
@@ -396,6 +397,7 @@ class AcceleratedOperator:
         (f64 containers must not truncate inputs to f32)."""
         return torch.float64 if self.matrix.dtype == torch.float64 else torch.float32
 
+    @annotate("eigenex.embed")
     def embed(self, v) -> torch.Tensor:
         """Original-space (n,) or (n, k) vector(s) -> permuted,
         zero-padded tensor on the operator's device.  Complex inputs
@@ -418,6 +420,7 @@ class AcceleratedOperator:
             out = out[:, 0]
         return out.contiguous().to(self.device)
 
+    @annotate("eigenex.restore")
     def restore(self, V) -> np.ndarray:
         """Permuted-padded ROW-space (m_pad,) or (m_pad, k) result(s) ->
         original row coordinates, as a host array (complex when the operator
@@ -602,7 +605,7 @@ def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
     adjoint pack (rows and columns swapped, same block shape) tiles the same
     padded shape and the Gram pipeline chains A and A^H without re-padding."""
     m, n = shape
-    ts = time.time()
+    ts = time.perf_counter()
     if merge_duplicates:
         r, c, v = _canonicalize(r, c, v, shape)
     ts = stage("merge", ts)
@@ -643,7 +646,7 @@ def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
         bandwidth_after=bw,
         symmetric=False,
         complexified=False,
-        pack_seconds=time.time() - t0,
+        pack_seconds=time.perf_counter() - t0,
         pack_stages={k: round(s, 4) for k, s in stages.items()},
         kmax=mat.k_max,
     )
@@ -653,6 +656,7 @@ def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
     )
 
 
+@annotate("eigenex.accelerate")
 def accelerate(
     A,
     *,
@@ -708,14 +712,18 @@ def accelerate(
     device : where the packed blocks live (the card unless told otherwise).
 
     Returns an :class:`AcceleratedOperator`; ``.stats`` records fill,
-    slot counts, bytes, bandwidth before/after, and pack time.
+    slot counts, bytes, bandwidth before/after, and pack time
+    (``pack_seconds``, and ``pack_stages``: seconds by stage, each stage
+    also a span ``eigenex.accelerate.<stage>`` inside ``eigenex.accelerate``,
+    :mod:`~eigenex_tpu_torch.utils.profiling`).
     """
-    t0 = time.time()
+    t0 = time.perf_counter()
     stages: dict[str, float] = {}
 
     def _stage(name, t_start):
-        now = time.time()
+        now = time.perf_counter()
         stages[name] = stages.get(name, 0.0) + (now - t_start)
+        add_span(f"eigenex.accelerate.{name}", t_start, now)
         return now
 
     device = resolve_device(device)
@@ -735,7 +743,7 @@ def accelerate(
         )
     if merge_duplicates is None:
         merge_duplicates = True
-    ts = time.time()
+    ts = time.perf_counter()
     if merge_duplicates:
         r, c, v = _canonicalize(r, c, v, shape)
     ts = _stage("merge", ts)
@@ -810,7 +818,7 @@ def accelerate(
         bandwidth_after=bw_after,
         symmetric=bool(symmetric),
         complexified=complexified,
-        pack_seconds=time.time() - t0,
+        pack_seconds=time.perf_counter() - t0,
         pack_stages={k: round(s, 4) for k, s in stages.items()},
         **widths,
     )
