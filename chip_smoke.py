@@ -74,9 +74,12 @@ filter) through the SpMM kernels -- at full size:
 24. ``heisenberg_l24``   BASELINE config 3 at its published size, L = 24, the S_z = 0 sector
                          (2,704,156 rows, 35.2 M nnz), as ``benchmarks/bench_heisenberg.py``
                          runs it: native sector enumerator -> ``accelerate(symmetric=True)``
-                         (native RCM, native bf16 packer, 8.4 GiB) -> ``sym_bsr_spmv`` in its
-                         far-reach regime -> f32 Lanczos -> f64 Rayleigh refinement, held to
-                         the published E0; the SpMV time by ``utils.benchtime.chain_slope``.
+                         (native RCM; on the card the row-compressed bf16 storage, 0.21 GiB)
+                         -> ``csr_spmv`` -> f32 Lanczos -> f64 Rayleigh refinement, held to
+                         the published E0; the SpMV time by ``utils.benchtime.chain_slope``,
+                         one CUDA-graph replay against the eager product, and the 8.4 GiB
+                         half-storage pack of the same triplets (``block_matrix()``, the
+                         operand of phases 27 and 32) with ``sym_bsr_spmv`` timed beside.
 25. ``mesh_kernels``     the distributed layer on shards of the one card: every matvec mode
                          (allgather, colsplit, halo, sym_halo) split at 4 shards, and the 2x2
                          panel grid, of the f32 banded operator, its bf16 twin and the bf16 pack
@@ -150,16 +153,20 @@ on the CPU, and no kernel gives way to its plain version.  Without a CUDA
 device the script exits non-zero and prints no result.  The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, error, times and bound
-(``sym_bsr_spmv`` and ``sym_bsr_spmm`` twice each: their f32 and their bf16 main
-case, each with the launches of the phases on that storage).  The ``kernels``
+(``sym_bsr_spmv``, ``sym_bsr_spmm`` and ``csr_spmv`` twice each: their f32 and their bf16
+main case, each with the launches of the phases on that storage).  ``accelerate()`` stores
+the operators of phases 5 and 13 row-compressed on the card (fewer bytes than their block
+packs), so their solves launch ``csr_spmv``; the block filters and mesh phases on them take
+``block_matrix()``.  The ``kernels``
 line also gives each SpMV wrapper's host time per call.
 
 Phases 18-20 build their operator once, on the host, and move it to the card through the
 ``BlockTensor`` constructor, timing the two stages apart; phase 19 checks the card's default
 block shape on a small chain built on the card.  ``kernels`` adds ``bsr_spmv`` at the S_z = 0
 sector pack of phase 19, which the result line lists as a second ``bsr_spmv`` entry carrying
-that phase's launches; phase 24 adds ``sym_bsr_spmv`` at the L = 24 pack, a third
-``sym_bsr_spmv`` entry carrying that phase's launches; phase 27's launches join that entry.
+that phase's launches; phase 24 adds ``csr_spmv`` at the L = 24 row-compressed storage, a
+third ``csr_spmv`` entry carrying that phase's launches (phase 27's ``sym_bsr_spmv`` launches
+join the mesh entries).
 The mesh phases' solves (26-30) are main paths driven like the others, their launches
 counted from 0 for each solve; the products of phase 25 are comparisons, as phase 3's are.
 Phases 31-32 count the workers' launches in the workers (each sets its counts to 0 before
@@ -268,6 +275,7 @@ from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.solvers import chunk_graph, direct
 from eigenex_tpu_torch.sparse.bsr import BSRMatrix, bsr_from_coo_arrays
 from eigenex_tpu_torch.sparse.sym_bsr import SymBSRMatrix
+from eigenex_tpu_torch.sparse.sym_csr import SymCSRMatrix
 from eigenex_tpu_torch.utils import benchtime
 
 # ---------------------------------------------------------------------------
@@ -405,6 +413,7 @@ OPS_UNIT = {
     ("sym_bsr_spmv", "float32"): "f32_cuda_cores", ("sym_bsr_spmv", "bfloat16"): "f32_cuda_cores",
     ("bsr_spmm", "float32"): "tf32_tensor_cores", ("bsr_spmm", "bfloat16"): "bf16_tensor_cores",
     ("sym_bsr_spmm", "float32"): "tf32_tensor_cores", ("sym_bsr_spmm", "bfloat16"): "bf16_tensor_cores",
+    ("csr_spmv", "float32"): "f32_cuda_cores", ("csr_spmv", "bfloat16"): "f32_cuda_cores",
 }
 
 REPLACES = {
@@ -412,6 +421,7 @@ REPLACES = {
     "sym_bsr_spmv": "eigenex_tpu/ops/pallas_spmv.py:210",
     "bsr_spmm": "eigenex_tpu/ops/pallas_spmv.py:984",
     "sym_bsr_spmm": "eigenex_tpu/ops/pallas_spmv.py:849",
+    "csr_spmv": "none: row-compressed storage of low-fill symmetric operators, on the card only",
 }
 ALSO_REPLACES = {
     "bsr_spmv": ["eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)"],
@@ -426,6 +436,7 @@ ALSO_REPLACES = {
         "eigenex_tpu/ops/pallas_spmv.py:500 (_sym_spmm_ring_kernel)",
         "eigenex_tpu/ops/pallas_spmv.py:39 (_dot_mode/_sdot precision rule)",
     ],
+    "csr_spmv": [],
 }
 #: the cases whose times stand for a kernel in the result line: the shapes and
 #: storages its main paths give it, one entry of the line each, found by the words
@@ -439,8 +450,10 @@ ALSO_REPLACES = {
 #: block_heisenberg_bsr, and the shard-local containers of each mesh_modes run and of
 #: heisenberg_l24_mesh, and the reverse pieces ("<role>^H") of phase mesh_adjoint's
 #: modes (its sym_halo reverse product is the forward one).  sym_bsr_spmv: f32 and
-#: bf16 blocks of reach 1 (eigsh_banded, eigsh_accelerated), the L = 24 sector pack
-#: (heisenberg_l24) and the in-panel packs of the mesh phases.  bsr_spmm and
+#: bf16 blocks of reach 1 (eigsh_banded, derived_adjoint) and the in-panel packs of the
+#: mesh phases.  csr_spmv: the row-compressed operators accelerate() makes on the card,
+#: bf16 (eigsh_accelerated, expm_accelerated), f32 (the complex chain's embedding) and
+#: the L = 24 sector (heisenberg_l24).  bsr_spmm and
 #: sym_bsr_spmm: the f32 12-column panel of LOBPCG, the bf16 8-column block of the
 #: window filter (sym_bsr_spmm),
 #: and the mesh_filters phases' shard-local containers at those widths; phase
@@ -476,7 +489,6 @@ MAIN_CASES = {
                         phases={"heisenberg_l24_mesh": _HALF, "heisenberg_l24_multiprocess": _HALF})
                    for role in ("right", "right_adj"))],
     "sym_bsr_spmv": [dict(match=("banded", " f32")), dict(match=("banded", " bf16")),
-                     dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1}),
                      dict(match=(f"{_F32M} sym_halo main ",),
                           phases={"mesh_modes_sym_halo": 1, "multiprocess_banded_sym_halo": 1,
                                   "mesh_adjoint_sym_halo": 1}),
@@ -499,6 +511,9 @@ MAIN_CASES = {
                           phases={"mesh_filters_lobpcg": 1}),
                      dict(match=(f"{_BF16M} main ", f"p={WINDOW_WIDTH} "),
                           phases={"mesh_filters_window": 1, "mesh_filters_range": 1})],
+    "csr_spmv": [dict(match=("accelerated banded", " bf16")),
+                 dict(match=("complex chain embedding", " f32")),
+                 dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1})],
 }
 
 
@@ -797,6 +812,15 @@ def sym_work(sym) -> tuple[int, int]:
     return nbytes, 2 * (nbr + 2 * n_real) * b * b
 
 
+def csr_work(csr) -> tuple[int, int]:
+    """(bytes, flops) of one row-compressed SpMV: each stored entry's value and
+    int32 column and the int32 row pointers read once, x read and y written
+    once (the gathers of x are L2 traffic, not counted)."""
+    nbytes = (csr.nnz * (csr.val.element_size() + 4) + (csr.shape[0] + 1) * 4
+              + csr.shape[1] * 4 + csr.shape[0] * 4)
+    return nbytes, 2 * csr.nnz
+
+
 def bsr_spmm_work(bsr, p: int) -> tuple[int, int]:
     """(bytes, flops) of one general SpMM at width p: every stored slot read
     once for all p columns, X read and Y written once."""
@@ -904,13 +928,53 @@ def library_sym_ms(sym, x):
     return out
 
 
+def library_csr_ms(csr, x):
+    """``library_ms`` of the row-compressed product: the same rows as a
+    ``torch.sparse_csr_tensor`` (int64 indices, which PyTorch's CUDA product
+    takes)."""
+    ref = cuda_spmv.csr_spmv_plain(csr.astype(torch.float32), x)
+    lib = torch.sparse_csr_tensor(csr.rowptr.long(), csr.col.long(), csr.val, size=csr.shape)
+    ms, note = library_ms(lib, csr.dtype, x, ref)
+    if ms is None and csr.dtype != torch.float32:  # the values lifted to f32: 2 bytes more an entry
+        lib = torch.sparse_csr_tensor(csr.rowptr.long(), csr.col.long(), csr.val.float(),
+                                      size=csr.shape)
+        ms, lifted = library_ms(lib, torch.float32, x, ref)
+        note = f"{note}; {lifted} with the values lifted to f32" if ms is not None else note
+    del lib
+    return ms, note.replace("sparse_bsr_tensor", "sparse_csr_tensor")
+
+
+def graph_replay_equal(op, x) -> bool:
+    """One product of ``op`` captured into a CUDA graph (after an eager
+    warm-up on the capture's stream) and replayed, against an eager product."""
+    eager = op.matvec(x)
+    xs = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        op.matvec(xs)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with cuda_spmv.launch_tally(), torch.cuda.graph(graph):
+        ys = op.matvec(xs)
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(ys, eager))
+
+
+def spmv_kernel_of(acc) -> str:
+    """The SpMV kernel an accelerated symmetric operator's products launch."""
+    return "csr_spmv" if acc.stats.get("storage") == "row_compressed" else "sym_bsr_spmv"
+
+
 def check_kernel(name: str, case: str, op, x, peaks, plain_samples=(TIMED_LAUNCHES, 8)) -> dict:
     """One kernel on one operator: against its plain version, timed, bounded
     (``plain_samples``: samples and calls a sample of the plain version's
     time, fewer on the largest operators)."""
     is_sym = name == "sym_bsr_spmv"
-    wrapper = cuda_spmv.sym_bsr_spmv if is_sym else cuda_spmv.bsr_spmv
-    plain = cuda_spmv.sym_bsr_spmv_plain if is_sym else cuda_spmv.bsr_spmv_plain
+    wrapper, plain = {"bsr_spmv": (cuda_spmv.bsr_spmv, cuda_spmv.bsr_spmv_plain),
+                      "sym_bsr_spmv": (cuda_spmv.sym_bsr_spmv, cuda_spmv.sym_bsr_spmv_plain),
+                      "csr_spmv": (cuda_spmv.csr_spmv, cuda_spmv.csr_spmv_plain)}[name]
     before = cuda_spmv.launch_counts()[name]
     y = wrapper(op, x)
     torch.cuda.synchronize()
@@ -933,7 +997,8 @@ def check_kernel(name: str, case: str, op, x, peaks, plain_samples=(TIMED_LAUNCH
     out["kernel_ms"] = time_ms(lambda: wrapper(op, x))
     out["host_us_per_call"] = host_us_per_call(lambda: wrapper(op, x))
     out["plain_ms"] = time_ms(lambda: plain(op, x), count=plain_samples[0], batch=plain_samples[1])
-    nbytes, flops = sym_work(op) if is_sym else bsr_work(op)
+    nbytes, flops = (sym_work(op) if is_sym else csr_work(op) if name == "csr_spmv"
+                     else bsr_work(op))
     out["ops_unit"] = OPS_UNIT[name, out["storage"]]
     out["bound_ms"], out["bound_by"] = bound(nbytes, flops, peaks, out["ops_unit"])
     out["bytes"] = nbytes
@@ -942,6 +1007,8 @@ def check_kernel(name: str, case: str, op, x, peaks, plain_samples=(TIMED_LAUNCH
         out["library_ms"], out["library"] = library_sym_ms(op, x)
         if out["library_ms"] is not None:
             out["library"] += " on the operator expanded to full storage (about twice the blocks)"
+    elif name == "csr_spmv":
+        out["library_ms"], out["library"] = library_csr_ms(op, x)
     else:
         out["library_ms"], out["library"] = library_bsr_ms(op, x)
     out["launches"] = cuda_spmv.launch_counts()[name] - before  # this check's own launches
@@ -2195,15 +2262,19 @@ def sample_accelerate_kernels(dev) -> dict:
     chain = accelerate(sa.chain_triplets(rng), device=dev)
     ring = accelerate(sa.ring_triplets(rng), device=dev)
     mesh = card_mesh(dev, sa.MESH_SHARDS)
-    mop = mesh_operator(pad_bsr_for_mesh(chain.matrix, mesh.size), mesh, matvec_mode="sym_halo")
+    mop = mesh_operator(pad_bsr_for_mesh(chain.block_matrix(), mesh.size), mesh,
+                        matvec_mode="sym_halo")
     containers = [("chain pack", chain.matrix), ("ring embedding pack", ring.matrix)] + [
         (f"chain pack sym_halo shard {s} {role}", c)
         for s, parts in enumerate(shard_pieces(mop)) for role, c in parts.roles().items()]
     out = {}
     for what, c in containers:
         x = torch.randn(c.shape[1], generator=gen, device=dev)
-        shape = "x".join(map(str, (c.diag_data if isinstance(c, SymBSRMatrix) else c.data).shape))
-        kernel = "sym_bsr_spmv" if isinstance(c, SymBSRMatrix) else "bsr_spmv"
+        if isinstance(c, SymCSRMatrix):
+            shape, kernel = f"nnz={c.nnz}", "csr_spmv"
+        else:
+            shape = "x".join(map(str, (c.diag_data if isinstance(c, SymBSRMatrix) else c.data).shape))
+            kernel = "sym_bsr_spmv" if isinstance(c, SymBSRMatrix) else "bsr_spmv"
         out[f"{kernel} {what} {shape} {str(c.dtype).replace('torch.', '')}"] = rel_to(
             c.matvec(x), c._plain_matvec(x))
     del mop
@@ -2784,12 +2855,20 @@ def main() -> None:
             fail("eigsh_accelerated: restored eigenvectors are not finite (n, 2)")
         if not max(rr) <= ACCEL_RESID_LIMIT:
             fail(f"eigsh_accelerated: residual {max(rr):.3e} exceeds {ACCEL_RESID_LIMIT}")
-        if counts != only_kernel("sym_bsr_spmv", res.iterations):
+        acc_kernel = spmv_kernel_of(acc)
+        if counts != only_kernel(acc_kernel, res.iterations):
             fail(f"eigsh_accelerated: launches {counts} for {res.iterations} matvecs")
+        if acc_kernel == "csr_spmv":
+            # the row-compressed operator accelerate() made: the result line's bf16 case
+            x_a = acc.embed(np.random.default_rng(SEED + 8).standard_normal(n_a))
+            kernel_cases.append(check_kernel(
+                "csr_spmv", f"accelerated banded n={n_a} nnz={acc.matrix.nnz} row-compressed "
+                f"bf16 (main path)", acc.matrix, x_a, peaks))
+            del x_a
         if wanted("chunk_graphs"):
             graph_cases.append(chunk_graphs_case(
                 "eigsh_accelerated", solve_accelerated, lambda r: r.iterations,
-                lambda r: only_kernel("sym_bsr_spmv", r.iterations), replaying=False))
+                lambda r: only_kernel(acc_kernel, r.iterations), replaying=False))
 
         # -- 9. window_accelerated: the filter path held against the Lanczos path ----
         if wanted("window_accelerated"):
@@ -2871,13 +2950,13 @@ def main() -> None:
             fail(f"expm_accelerated: lanczos and taylor_auto differ by {agree:.3e} > {EXPM_AGREE}")
         if out["lanczos"][2] != EXPM_STEPS:
             fail(f"expm_accelerated: {out['lanczos'][2]} applications for {EXPM_STEPS} Lanczos steps")
-        if counts != only_kernel("sym_bsr_spmv", applied["matvec"]) or applied["matmat"]:
+        if counts != only_kernel(spmv_kernel_of(acc), applied["matvec"]) or applied["matmat"]:
             fail(f"expm_accelerated: launches {counts} for {applied['matvec']} applications")
         del acc_e, v_exp, out, y_l, y_t
 
     # -- 25. mesh_kernels: every shard-local product of every mode against its plain version --
     if wanted("mesh_kernels"):
-        mesh_kernels_phase(bsr32, acc.matrix, dev, gen, peaks, kernel_cases)
+        mesh_kernels_phase(bsr32, acc.block_matrix(), dev, gen, peaks, kernel_cases)
 
     # -- 29. mesh_filters: the block filters and LOBPCG over a 4-shard mesh -------------
     if wanted("mesh_filters"):
@@ -3169,8 +3248,16 @@ def main() -> None:
             fail(f"eigsh_complex_accelerated: {len(lam)} pairs after the dedup, expected one")
         if not max(rr) <= CHAIN_RESID_LIMIT:
             fail(f"eigsh_complex_accelerated: residual {max(rr):.3e} exceeds {CHAIN_RESID_LIMIT}")
-        if counts != only_kernel("sym_bsr_spmv", res.iterations):
+        if counts != only_kernel(spmv_kernel_of(acc_c), res.iterations):
             fail(f"eigsh_complex_accelerated: launches {counts} for {res.iterations} matvecs")
+        if spmv_kernel_of(acc_c) == "csr_spmv":
+            # the result line's f32 case of the row-compressed kernel
+            x_c = acc_c.embed(np.random.default_rng(SEED + 13).standard_normal(CHAIN_N)
+                              + 1j * np.random.default_rng(SEED + 14).standard_normal(CHAIN_N))
+            kernel_cases.append(check_kernel(
+                "csr_spmv", f"complex chain embedding n={acc_c.shape[0]} nnz={acc_c.matrix.nnz} "
+                f"row-compressed f32 (main path)", acc_c.matrix, x_c, peaks))
+            del x_c
 
     # -- 22. filter_complex: the window filter and KPM slicing on the real embedding --------
     if wanted("filter_complex"):
@@ -3180,7 +3267,8 @@ def main() -> None:
         window = (lam_ref[0] - 0.5 * (lam_ref[1] - lam_ref[0]), 0.5 * (lam_ref[2] + lam_ref[3]))
         inside = lam_ref[(lam_ref >= window[0]) & (lam_ref <= window[1])]
         applied = {"matvec": 0, "matmat": 0}
-        acc_f = dataclasses.replace(acc_c, matrix=counted(acc_c.matrix, applied))
+        # the filters run on the block pack (made on first need from a row-compressed pack)
+        acc_f = dataclasses.replace(acc_c, matrix=counted(acc_c.block_matrix(), applied))
         filt = dict(degree=FILTER_DEGREE, tol=FILTER_TOL, max_iterations=40)
 
         def solve_filters():
@@ -3773,11 +3861,12 @@ def main() -> None:
         host["accelerate"] = time.time() - t0
         calls = native.native_calls()
         st = acc24.stats
-        sym24 = acc24.matrix
+        main24 = acc24.matrix  # the storage accelerate() chose: row-compressed at L = 24
+        kernel24 = spmv_kernel_of(acc24)
         values = np.unique(v)  # a handful: J/2 and the diagonal's multiples of Jz/4
         lossless = bool(torch.equal(torch.as_tensor(values).to(torch.bfloat16).double(),
                                     torch.as_tensor(values)))
-        res, seconds, counts = drive("heisenberg_l24", sym24, lambda: eigsh(acc24, **L24_SOLVE))
+        res, seconds, counts = drive("heisenberg_l24", main24, lambda: eigsh(acc24, **L24_SOLVE))
         if args.profile:
             emit("profile_l24", solve="heisenberg_l24",
                  **profile_solve(lambda: eigsh(acc24, **L24_SOLVE)))
@@ -3791,45 +3880,67 @@ def main() -> None:
                      ms_per_matvec=seconds * 1e3 / max(res.iterations, 1))
         del res
         x24 = acc24.embed(np.random.default_rng(SEED + L24).standard_normal(dim))
-        per, chain = benchtime.chain_slope(lambda p, x: p.matvec(x), sym24, x24, **L24_CHAIN)
-        nbytes, flops = sym_work(sym24)
-        bound_ms, bound_by = bound(nbytes, flops, peaks, OPS_UNIT["sym_bsr_spmv", "bfloat16"])
+        per, chain = benchtime.chain_slope(lambda p, x: p.matvec(x), main24, x24, **L24_CHAIN)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30  # before the block pack beside it
+        nbytes, flops = (csr_work if kernel24 == "csr_spmv" else sym_work)(main24)
+        bound_ms, bound_by = bound(nbytes, flops, peaks, OPS_UNIT[kernel24, "bfloat16"])
         torch.cuda.empty_cache()
-        case = check_kernel("sym_bsr_spmv", f"L={L24} S_z=0 sector pack {sym24.n_block_rows} block rows "
-                            f"reach={sym24.band_reach} ku={st['ku']} bf16 (far-reach regime, main path)",
-                            sym24, x24, peaks, plain_samples=(5, 4))
-        kernel_cases.append(case)
+        replay_equal = graph_replay_equal(acc24.as_linear_operator(), x24)
+        # the half-storage block pack of the same triplets, made on first need: sym_bsr_spmv
+        # timed beside the main path, and the operand of the mesh phases below
+        t0 = time.time()
+        sym24 = acc24.block_matrix()
+        torch.cuda.synchronize()
+        block_pack_s = time.time() - t0
+        block_bytes = (sym24.diag_data.numel() + sym24.upper_data.numel()) * 2
+        block_case = check_kernel(
+            "sym_bsr_spmv", f"L={L24} S_z=0 sector pack {sym24.n_block_rows} block rows "
+            f"reach={sym24.band_reach} ku={sym24.upper_cols.shape[1]} bf16 (far-reach regime"
+            + (", main path)" if kernel24 == "sym_bsr_spmv" else ", beside the main path)"),
+            sym24, x24, peaks, plain_samples=(5, 4))
+        kernel_cases.append(block_case)
+        case = block_case
+        if kernel24 == "csr_spmv":
+            case = check_kernel("csr_spmv", f"L={L24} S_z=0 sector row-compressed nnz={main24.nnz} "
+                                f"bf16 (main path)", main24, x24, peaks, plain_samples=(5, 4))
+            kernel_cases.append(case)
+        acc24b = dataclasses.replace(acc24, matrix=sym24,
+                                     stats={**st, "storage": "block", "bytes": block_bytes})
         emit("heisenberg_l24", L=L24, sector_dim=dim, nnz=len(v), host_seconds=host,
              pack_seconds=st["pack_seconds"], pack_stages=st["pack_stages"], native_calls=calls,
-             dtype=st["dtype"], bf16_lossless=lossless, fill=st["fill"], ku=st["ku"],
-             band_reach=st["band_reach"], bandwidth_before=st["bandwidth_before"],
+             dtype=st["dtype"], bf16_lossless=lossless, storage=st["storage"],
+             storage_bytes=st.get("storage_bytes"), real_blocks=st.get("blocks"),
+             ku=sym24.upper_cols.shape[1], band_reach=sym24.band_reach,
+             bandwidth_before=st["bandwidth_before"],
              bandwidth_after=st["bandwidth_after"], pack_bytes=st["bytes"],
-             pack_gib=st["bytes"] / 2 ** 30, n_block_rows=sym24.n_block_rows, options=L24_SOLVE,
-             **solve, launches=counts, refine_seconds=refine_s, e0_f64=e0,
+             pack_gib=st["bytes"] / 2 ** 30, block_pack_gib=block_bytes / 2 ** 30,
+             block_pack_seconds_on_first_need=block_pack_s, n_block_rows=sym24.n_block_rows,
+             options=L24_SOLVE, **solve, launches=counts, refine_seconds=refine_s, e0_f64=e0,
              e0_published=L24_E0, e0_abs_err=abs(e0 - L24_E0), e0_limit=L24_E0_LIMIT,
              residual_f64=float(resid[0]), rel_residual_f64=rel_resid, resid_limit=L24_RESID_LIMIT,
-             spmv_ms_chain_slope=None if per is None else per * 1e3, chain_slope=chain,
-             spmv_bytes=nbytes, spmv_bound_ms=bound_ms, spmv_bound_by=bound_by,
+             spmv_kernel=kernel24, spmv_ms_chain_slope=None if per is None else per * 1e3,
+             chain_slope=chain, spmv_bytes=nbytes, spmv_bound_ms=bound_ms, spmv_bound_by=bound_by,
              spmv_kernel_ms_by_events=case["kernel_ms"], spmv_plain_ms=case["plain_ms"],
-             spmv_library_ms=case["library_ms"],
-             peak_device_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             spmv_library_ms=case["library_ms"], spmv_library=case["library"],
+             block_spmv_ms_by_events=block_case["kernel_ms"],
+             graph_replay_bit_equal=replay_equal, peak_device_gib=peak_gib,
              peak_host_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
         if wanted("chunk_graphs"):
             graph_cases.append(chunk_graphs_case(
                 "heisenberg_l24", lambda: eigsh(acc24, **L24_SOLVE), lambda r: r.iterations,
-                lambda r: only_kernel("sym_bsr_spmv", r.iterations), replaying=False))
-        # -- 27. heisenberg_l24_mesh: the same pack over a 4-shard mesh of the card ----------
+                lambda r: only_kernel(kernel24, r.iterations), replaying=False))
+        # -- 27. heisenberg_l24_mesh: the block pack over a 4-shard mesh of the card ----------
         l24_mesh = None
         if wanted("heisenberg_l24_mesh"):
-            l24_mesh = heisenberg_l24_mesh_phase(acc24, (r, c, v, dim), e0, solve, drive, dev,
+            l24_mesh = heisenberg_l24_mesh_phase(acc24b, (r, c, v, dim), e0, solve, drive, dev,
                                                  peaks, kernel_cases)
         # -- 32. heisenberg_l24_multiprocess: the same pack on 2 processes x 2 shards -------
         # (the workers load the pack from the disk: this process frees its copy first)
         l24_work = tempfile.TemporaryDirectory(dir=MP_WORK)
         l24_pack = None
         if wanted("heisenberg_l24_multiprocess"):
-            l24_pack = l24_pack_for_workers(acc24, Path(l24_work.name))
-        del acc24, sym24, x24
+            l24_pack = l24_pack_for_workers(acc24b, Path(l24_work.name))
+        del acc24, acc24b, sym24, main24, x24
         torch.cuda.empty_cache()
         if l24_pack is not None:
             heisenberg_l24_multiprocess_phase(l24_pack, (r, c, v, dim), e0, solve, l24_mesh,
@@ -3842,8 +3953,10 @@ def main() -> None:
                  f"expected {L24_DIM} rows in lossless bf16")
         if not solve["converged"]:
             fail(f"heisenberg_l24: not converged ({solve['termination']})")
-        if counts != only_kernel("sym_bsr_spmv", solve["matvecs"]):
+        if counts != only_kernel(kernel24, solve["matvecs"]):
             fail(f"heisenberg_l24: launches {counts} for {solve['matvecs']} matvecs")
+        if not replay_equal:
+            fail(f"heisenberg_l24: a CUDA graph replay of {kernel24} differs from the eager product")
         if not abs(e0 - L24_E0) <= L24_E0_LIMIT:
             fail(f"heisenberg_l24: E0 {e0!r} against the published {L24_E0}: "
                  f"{abs(e0 - L24_E0):.3e} exceeds {L24_E0_LIMIT}")

@@ -99,6 +99,7 @@ from .sparse.realify import (
     realify_coo,
 )
 from .sparse.sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
+from .sparse.sym_csr import SymCSRMatrix
 from .utils.exceptions import (
     ArnoldiError,
     BlockTensorError,
@@ -171,6 +172,7 @@ __all__ = [
     "ProductIndices",
     "Slice",
     "SymBSRMatrix",
+    "SymCSRMatrix",
     "TensorKroneckerProduct",
     "TensorSVDResult",
     "ThickRestartLanczosEigenSolver",

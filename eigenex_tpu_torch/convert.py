@@ -85,21 +85,28 @@ def coo_from_numpy(row, col, val, shape, device=None) -> COOMatrix:
 
 
 def accelerated_from_numpy(meta: dict, perm, *, data=None, bcols=None, diag=None, upper=None,
-                           ucols=None, row_perm=None, dtype=None, device=None):
+                           ucols=None, rowptr=None, col=None, val=None, row_perm=None,
+                           dtype=None, device=None):
     """An :class:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator`
     from the arrays of the JAX package's one: ``perm`` (and ``row_perm`` for
     a rectangular pack), the blocks -- ``data``/``bcols`` of a general pack
-    or ``diag``/``upper``/``ucols`` of a symmetric one -- and ``meta``, a
+    or ``diag``/``upper``/``ucols`` of a symmetric one; ``rowptr``/``col``/
+    ``val`` of this package's row-compressed storage -- and ``meta``, a
     dict with the keys of its ``save`` metadata (``orig_shape``,
     ``symmetric``, ``complexified``, ``stats``, ``shape``, ``band_reach``
     and the storage ``dtype`` name, which ``dtype`` overrides).  The kept
     host triplets of a fresh pack do not come across: the adjoint pack is
     then made from the blocks."""
     from .sparse.accelerate import AcceleratedOperator
+    from .sparse.sym_csr import SymCSRMatrix
 
     dtype = as_torch_dtype(meta["dtype"] if dtype is None else dtype)
     shape = tuple(meta["shape"])
-    if diag is not None:
+    device = resolve_device(device)
+    if rowptr is not None:
+        mat = SymCSRMatrix(torch.as_tensor(rowptr).to(device), torch.as_tensor(col).to(device),
+                           torch.as_tensor(val).to(dtype).to(device), shape)
+    elif diag is not None:
         mat = sym_bsr_from_numpy(diag, upper, ucols, shape, meta.get("band_reach", -1),
                                  dtype=dtype, device=device)
     else:

@@ -17,10 +17,15 @@ wrapper               replaces (Pallas kernel / entry point)      source
                       ``_sym_spmm_stream_kernel``,
                       ``_sym_spmm_ring_kernel`` /
                       ``sym_bsr_matmat_pallas``
+:func:`csr_spmv`      none (row-compressed symmetric operators)   ``csrc/csr_spmv.cu``
 ====================  ==========================================  =====================
 
 and the precision rule ``_dot_mode``/``_sdot`` that all of them share:
-f32 or bf16 block storage, f32 x, f32 accumulation, f32 output.  The SpMV
+f32 or bf16 block storage, f32 x, f32 accumulation, f32 output.
+:func:`csr_spmv` has no TPU counterpart: it multiplies a symmetric operator
+stored row-compressed (:class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`),
+which ``accelerate()`` picks on the card where the block pack would move more
+bytes; it keeps the same precision rule.  The SpMV
 kernels multiply with f32 FMAs on CUDA cores (``csrc/spmv_common.cuh``).
 The SpMM kernels take the ``(n, p)`` row-major panels the block solvers
 hold, for any p >= 1, and multiply on the tensor cores with ``mma.sync``,
@@ -86,6 +91,8 @@ __all__ = [
     "bsr_spmm_plain",
     "sym_bsr_spmm",
     "sym_bsr_spmm_plain",
+    "csr_spmv",
+    "csr_spmv_plain",
     "build_kernels",
     "LIBRARY_SOURCES",
     "kernel_storage",
@@ -106,7 +113,11 @@ KERNEL_SOURCES = {
     "sym_bsr_spmv": "sym_bsr_spmv.cu",
     "bsr_spmm": "bsr_spmm.cu",
     "sym_bsr_spmm": "sym_bsr_spmm.cu",
+    "csr_spmv": "csr_spmv.cu",
 }
+#: kernels whose operand is its own adjoint (symmetric storage): the backward
+#: of :class:`_KernelProduct` launches them on the same operand
+_SELF_ADJOINT = frozenset({"sym_bsr_spmv", "sym_bsr_spmm", "csr_spmv"})
 #: kernel name -> its launch counter
 _LAUNCH_COUNTERS = {name: f"launch.{name}" for name in KERNEL_SOURCES}
 _HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
@@ -270,6 +281,8 @@ _ARGTYPES = {
     # diag, upper, cols, col_ptr, slot_ids, X, Y, tbuf, nbr, ku, b, p, storage, stream
     "sym_bsr_spmm": ("eigenex_sym_bsr_spmm",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # rowptr, col, val, x, y, n_rows, group, storage, stream
+    "csr_spmv": ("eigenex_csr_spmv", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 
@@ -671,7 +684,92 @@ def _launch_sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# autograd: the four products differentiable in x (or X), not in the pack
+# kernel E: row-compressed SpMV of a symmetric operator, both triangles stored
+# ---------------------------------------------------------------------------
+#: lanes of the widest row group of :func:`csr_spmv` (a warp)
+_MAX_GROUP = 32
+#: entries a lane of :func:`csr_spmv` loads in one pass (``kEntries`` in csr_spmv.cu)
+_CSR_ENTRIES = 4
+
+
+def csr_group(nnz: int, n_rows: int) -> int:
+    """Lanes a row of :func:`csr_spmv`: the smallest power of two whose passes
+    of 4 entries a lane cover the operator's mean row length, between 1 and
+    32 (4 at a mean of 13)."""
+    mean = nnz / max(n_rows, 1)
+    group = 1
+    while group < _MAX_GROUP and _CSR_ENTRIES * group < mean:
+        group *= 2
+    return group
+
+
+def csr_spmv_plain(csr, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`csr_spmv`: gather + multiply + ``index_add_``
+    over the stored entries, accumulating in f32 for bf16/f16 storage.  Any
+    dtype, any device."""
+    acc = csr._acc_dtype
+    prod = csr.val.to(acc) * x.to(acc)[csr.col.long()]
+    y = torch.zeros(csr.shape[0], dtype=prod.dtype, device=prod.device)
+    return y.index_add_(0, csr.row_ids(), prod)
+
+
+def csr_spmv(csr, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` for a :class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`.
+
+    CUDA tensors launch the kernel of ``csrc/csr_spmv.cu`` (f32 or bf16
+    values, int32 ``rowptr`` and ``col``, f32 x) or raise; CPU tensors take
+    :func:`csr_spmv_plain`.  No scratch and no atomics: two calls on the same
+    input give bit-equal results."""
+    if not csr.val.is_cuda:
+        return csr_spmv_plain(csr, x)
+    return _product("csr_spmv", csr, x)
+
+
+def _check_csr(csr, what: str) -> int:
+    """The lanes a row of a container the row-compressed kernel takes, or
+    raise.  The indices are checked once on the device (one synchronisation
+    at the container's first launch), so that the kernel reads no entry
+    outside its arrays."""
+    n = csr.shape[0]
+    if csr.dtype not in _STORAGE:
+        raise EigenexError(f"{what}: value storage {csr.dtype} is not float32/bfloat16")
+    for name, t, size in (("rowptr", csr.rowptr, n + 1), ("col", csr.col, csr.val.shape[0])):
+        if t.dtype != torch.int32 or t.ndim != 1 or t.shape[0] != size:
+            raise EigenexError(f"{what}: {name} must be int32 of shape ({size},)")
+        if not t.is_contiguous() or t.device != csr.device:
+            raise EigenexError(f"{what}: {name} must be contiguous on the values' device")
+    if csr.val.ndim != 1 or not csr.val.is_contiguous():
+        raise EigenexError(f"{what}: val must be a contiguous vector")
+    nnz = csr.val.shape[0]
+    if nnz >= 2 ** 31 or n >= 2 ** 31:
+        raise EigenexError(f"{what}: {nnz} entries of {n} rows do not fit int32 indices")
+    rowptr = csr.rowptr
+    ok = (rowptr[0] == 0) & (rowptr[-1] == nnz) & (rowptr[1:] >= rowptr[:-1]).all()
+    if nnz:
+        ok &= (csr.col.min() >= 0) & (csr.col.max() < csr.shape[1])
+    if not bool(ok):
+        raise EigenexError(f"{what}: rowptr is not a row pointer of {nnz} entries, or a column "
+                           f"lies outside 0..{csr.shape[1] - 1}")
+    return csr_group(csr.val.shape[0], n)
+
+
+def _launch_csr_spmv(csr, x: torch.Tensor) -> torch.Tensor:
+    device = csr.device
+    group = csr.kernel_workspace("csr_spmv", lambda: _check_csr(csr, "csr_spmv"))
+    x = _kernel_vector(x, csr.shape[1], device, "csr_spmv")
+    y = torch.empty(csr.shape[0], dtype=torch.float32, device=device)
+    with _on_device(device) as stream:
+        code = _entry("csr_spmv")(
+            csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.val.data_ptr(), x.data_ptr(),
+            y.data_ptr(), csr.shape[0], group, _STORAGE[csr.dtype], stream,
+        )
+    _check_launch("csr_spmv", code)
+    _count_launch("csr_spmv")
+    return y
+
+
+# ---------------------------------------------------------------------------
+# autograd: the five products differentiable in x (or X), not in the operand
 # ---------------------------------------------------------------------------
 #: kernel name -> the function that launches it on (container, x);
 #: :class:`_KernelProduct` looks its launches up here when it runs
@@ -680,13 +778,14 @@ _LAUNCH = {
     "sym_bsr_spmv": _launch_sym_bsr_spmv,
     "bsr_spmm": _launch_bsr_spmm,
     "sym_bsr_spmm": _launch_sym_bsr_spmm,
+    "csr_spmv": _launch_csr_spmv,
 }
 
 
 class _KernelProduct(torch.autograd.Function):
     """y = A x by kernel ``name``; backward A^H g by the same kernel, on
     ``kernel_adjoint()``'s pack for the general kernels and on the same
-    pack for the symmetric ones (A = A^T)."""
+    operand for the symmetric ones (A = A^T)."""
 
     @staticmethod
     def forward(ctx, x, op, name):
@@ -696,7 +795,7 @@ class _KernelProduct(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        adj = ctx.op if ctx.name.startswith("sym") else ctx.op.kernel_adjoint()
+        adj = ctx.op if ctx.name in _SELF_ADJOINT else ctx.op.kernel_adjoint()
         return _LAUNCH[ctx.name](adj, g), None, None
 
 

@@ -96,8 +96,9 @@ def _resolve_operand(A, device) -> LinearOperator:
     from ..sparse.bsr import BSRMatrix
     from ..sparse.coo import COOMatrix
     from ..sparse.sym_bsr import SymBSRMatrix
+    from ..sparse.sym_csr import SymCSRMatrix
 
-    if isinstance(A, (COOMatrix, BSRMatrix, SymBSRMatrix)):
+    if isinstance(A, (COOMatrix, BSRMatrix, SymBSRMatrix, SymCSRMatrix)):
         if device is not None and A.device != torch.device(device):
             A = A.to(device)
         return A.as_linear_operator()
@@ -583,7 +584,7 @@ def _eigsh_accelerated_mesh(
         prepare_packed_mesh,
     )
 
-    mat = acc.matrix
+    mat = acc.block_matrix()
     mesh, matvec_mode = prepare_packed_mesh(mat, mesh, matvec_mode)
     axis = mesh.axis_names[0]
     if which == "SM" and sigma is None:
@@ -888,10 +889,11 @@ def _eigs_accelerated(
                 "(shift-invert over the packed mesh container: use eigsh "
                 "for Hermitian operators, or the manual mesh_operator route)"
             )
-        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+        pack = acc.block_matrix()
+        mesh, matvec_mode = prepare_packed_mesh(pack, mesh, matvec_mode)
         m = min(max_subspace or max(4 * k + 24, 48), acc.n_work)
         solver = DistributedKrylovSchurArnoldiSolver(
-            acc.matrix, mesh,
+            pack, mesh,
             KrylovSchurOptions(max_eigenvalues=k, tolerance=tol, max_subspace=m,
                                max_restarts=max_restarts, seed=seed, which=which),
             axis_name=mesh.axis_names[0], matvec_mode=matvec_mode,
@@ -1174,7 +1176,6 @@ def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
     row-partitioned over the mesh, padded to a common lcm(bm, bn) * shards
     grid so that the two chain exactly."""
     from ..sparse.accelerate import _padding_safe_v0, dedup_embedded_pairs
-    from ..sparse.sym_bsr import SymBSRMatrix
 
     if acc.complexified and acc.symmetric:
         raise EigenexError(
@@ -1195,7 +1196,7 @@ def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
                                       mesh=mesh, matvec_mode=matvec_mode)
     opA = mat.as_linear_operator()
     # A^H packed at the same block shape, so both matvecs reach the kernel
-    opH = opA if isinstance(mat, SymBSRMatrix) else acc.adjoint_matrix().as_linear_operator()
+    opH = opA if acc.adjoint_matrix() is mat else acc.adjoint_matrix().as_linear_operator()
     nrows, ncols = acc.orig_shape
     small = min(nrows, ncols)
     if k > small:
@@ -1245,10 +1246,9 @@ def _svds_accelerated_mesh(acc, k, *, tol, max_subspace, max_restarts, seed,
     """The mesh form of :func:`_svds_accelerated` (a real general pack)."""
     from ..parallel.distributed import _padding_safe_v0, mesh_operator, prepare_packed_mesh
     from ..sparse.bsr import BSRMatrix
-    from ..sparse.sym_bsr import SymBSRMatrix
 
     mat = acc.matrix
-    if isinstance(mat, SymBSRMatrix):
+    if acc.symmetric:
         raise EigenexError(
             "svds(mesh=) on a SYMMETRIC accelerated operand is "
             "redundant — use eigsh(acc, mesh=...); the mesh Gram "

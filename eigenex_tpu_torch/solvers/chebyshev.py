@@ -525,13 +525,13 @@ def _window_on_accelerated(acc, window, options, block_size, mesh=None,
 
     b = (2 if acc.complexified else 1) * block_size
     dtype = acc.as_linear_operator().dtype
-    operand, padded_n, kwargs = acc.matrix, acc.shape[0], {}
+    operand, padded_n, kwargs = acc.block_matrix(), acc.shape[0], {}
     if mesh is not None:
         from ..parallel.distributed import prepare_packed_mesh
 
-        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+        mesh, matvec_mode = prepare_packed_mesh(operand, mesh, matvec_mode)
         operand, _, padded_n, bounds = mesh_filter_operand(
-            acc.matrix, mesh, matvec_mode, options.spectral_bounds, options.seed)
+            operand, mesh, matvec_mode, options.spectral_bounds, options.seed)
         options = dataclasses.replace(options, spectral_bounds=bounds)
         kwargs = dict(orthonormalize=cholesky_qr2)
     X0 = _padding_safe_block(acc.n_work, padded_n, b, dtype, options.seed, acc.device)

@@ -255,7 +255,7 @@ def eigsh_range(
     if acc is not None and mesh is not None:
         from ..parallel.distributed import prepare_packed_mesh
 
-        mesh, matvec_mode = prepare_packed_mesh(acc.matrix, mesh, matvec_mode)
+        mesh, matvec_mode = prepare_packed_mesh(acc.block_matrix(), mesh, matvec_mode)
     if acc is None and mesh is None:
         A = as_filter_operator(A, device)  # validates the operand type early
     a, b_hi = float(interval[0]), float(interval[1])
@@ -266,7 +266,7 @@ def eigsh_range(
         # unpadded rows (counts then exclude the pads' zero eigenvalues);
         # counts scale by the probe support, not the padded dimension
         mu_pack = chebyshev_moments(
-            acc.matrix, n_moments, n_probes=n_probes,
+            acc.block_matrix(), n_moments, n_probes=n_probes,
             spectral_bounds=spectral_bounds, seed=seed, probe_rows=acc.n_work,
             mesh=mesh, matvec_mode=matvec_mode,
         )

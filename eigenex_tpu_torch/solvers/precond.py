@@ -27,9 +27,12 @@ def _extract_diagonal(A, device=None) -> torch.Tensor:
     from ..sparse.bsr import BSRMatrix
     from ..sparse.coo import COOMatrix
     from ..sparse.sym_bsr import SymBSRMatrix
+    from ..sparse.sym_csr import SymCSRMatrix
 
     if isinstance(A, COOMatrix):
         return A.diagonal()
+    if isinstance(A, SymCSRMatrix):
+        return A.gershgorin_discs()[0]
     if isinstance(A, BSRMatrix):
         nbr, kmax, bm, bn = A.data.shape
         if bm != bn:

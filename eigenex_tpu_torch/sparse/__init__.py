@@ -7,6 +7,7 @@ from .coo import COOBuilder, COOMatrix, coo_from_dense, coo_identity
 from .csr import CSRMatrix, csr_from_coo, csr_from_dense
 from .io import load_matrix_market, save_matrix_market
 from .sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
+from .sym_csr import SymCSRMatrix, sym_csr_from_triplets
 
 __all__ = [
     "AcceleratedOperator",
@@ -26,4 +27,6 @@ __all__ = [
     "csr_from_dense",
     "SymBSRMatrix",
     "sym_bsr_from_bsr",
+    "SymCSRMatrix",
+    "sym_csr_from_triplets",
 ]

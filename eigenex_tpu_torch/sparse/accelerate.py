@@ -19,6 +19,16 @@ module is the bridge from "born scalar" to the block kernels of
    (no per-matvec gather), and eigenvectors are unpermuted at the end
    (:meth:`AcceleratedOperator.restore`).
 
+On the card, a symmetric operator whose nonzeros fill few of its blocks is
+stored row-compressed instead (:class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`,
+both triangles, for the ``csr_spmv`` kernel): the real blocks the pack would
+hold are counted from the triplets, and the storage whose product reads fewer
+bytes is taken (:func:`symmetric_storage`).  The reference's 128x128 pack
+exists for the TPU's matrix unit; the card gathers x from L2 instead.  The
+CPU keeps the reference's block pack, and
+:meth:`AcceleratedOperator.block_matrix` packs it on first need for the
+routes that take only blocks.
+
 Padding rows/cols (to the block multiple) are structurally zero: with a
 zero-padded start vector the Krylov space never leaves the embedded
 subspace, so no spurious eigenvalues enter the computed spectrum
@@ -72,6 +82,7 @@ from .bsr import BSRMatrix, _pack_bsr_host
 from .coo import COOMatrix
 from .realify import realify_coo
 from .sym_bsr import SymBSRMatrix, sym_bsr_from_bsr
+from .sym_csr import SymCSRMatrix, sym_csr_from_triplets
 
 __all__ = [
     "AcceleratedOperator",
@@ -79,6 +90,7 @@ __all__ = [
     "band_permutation",
     "bipartite_band_permutation",
     "dedup_embedded_pairs",
+    "symmetric_storage",
 ]
 
 
@@ -264,6 +276,70 @@ def _no_stage(name, t_start):
     return time.perf_counter()
 
 
+def symmetric_storage(nnz: int, n_pad: int, blocks: int, block: int,
+                      value_bytes: int) -> tuple[str, dict]:
+    """(storage, bytes a product reads in each) of a symmetric operator on
+    the card: ``"row_compressed"`` (every stored entry of both triangles,
+    ``nnz``, as a value and an int32 column, and ``n_pad + 1`` int32 row
+    pointers) when that is fewer bytes than ``"block"`` (the ``blocks`` real
+    slots of the half-storage pack, block x block values each), else
+    ``"block"``."""
+    sizes = {"row_compressed": nnz * (value_bytes + 4) + (n_pad + 1) * 4,
+             "block": blocks * block * block * value_bytes}
+    return ("row_compressed" if sizes["row_compressed"] < sizes["block"] else "block"), sizes
+
+
+def _storage_rule_applies(device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether :func:`symmetric_storage` chooses the storage of a symmetric
+    pack: on the card, for the value types the row-compressed kernel takes.
+    The CPU keeps the reference's block pack."""
+    from ..ops.cuda_spmv import kernel_storage
+
+    return device.type == "cuda" and kernel_storage(dtype)
+
+
+def _block_census(r, c, block: int, nbr: int) -> tuple[int, int, int]:
+    """(blocks, ku, reach) of the half-storage pack these triplets would
+    make: the blocks a product reads (the ``nbr`` diagonal blocks and every
+    distinct strictly-upper block that holds an entry), the most upper blocks
+    of a block row (at least 1, as the packers make it) and the band reach.
+    The upper blocks are marked in a bitmap over the band reach where that is
+    at most a few bytes an entry (RCM-ordered operators), else counted by
+    ``np.unique``."""
+    key = r // block
+    dist = c // block - key
+    reach = int(dist.max()) if len(dist) else 0
+    np.multiply(key, reach, out=key)
+    key += dist  # block (br, br + dist) -> br * reach + dist, distinct for 0 < dist <= reach
+    key = key[dist > 0]
+    if nbr * reach > 4 * len(r) + 2 ** 20:
+        key = np.unique(key)
+    else:
+        seen = np.zeros(nbr * reach + 1, bool)
+        seen[key] = True
+        key = np.flatnonzero(seen)
+    per_row = np.bincount((key - 1) // max(reach, 1), minlength=1)
+    return nbr + len(key), max(int(per_row.max()), 1), reach
+
+
+def _pack_row_compressed(r, c, v, n_pad, dtype: torch.dtype, device, use_native,
+                         stage=_no_stage) -> SymCSRMatrix:
+    """Permuted triplets (both triangles) -> SymCSRMatrix.  Native: the
+    row-major (row, column) argsort as two stable threaded counting passes of
+    the CSR builder; numpy: ``lexsort``.  Values are cast on the host and the
+    arrays reach the device in one copy each."""
+    ts = time.perf_counter()
+    order = None
+    if use_native:  # two stable threaded passes: by column, then by row
+        _, by_col = native.build_csr(c, np.arange(len(c), dtype=np.int64), n_pad)
+        _, order = native.build_csr(r[by_col], by_col, n_pad)
+        del by_col
+    ts = stage("row_sort", ts)
+    mat = sym_csr_from_triplets(r, c, v, n_pad, dtype, device, order)
+    stage("device_put", ts)
+    return mat
+
+
 def _pack_symmetric(r, c, v, n_pad, block, dtype: torch.dtype, device, use_native,
                     stage=_no_stage):
     """Permuted triplets -> (SymBSRMatrix, skipped).  Native: one block sort,
@@ -351,7 +427,7 @@ class AcceleratedOperator:
     original-space vectors in and :meth:`restore` carries results back
     (one host-side permutation each -- never a per-matvec gather)."""
 
-    matrix: Any  # SymBSRMatrix | BSRMatrix, permuted + padded
+    matrix: Any  # SymBSRMatrix | SymCSRMatrix | BSRMatrix, permuted + padded
     perm: np.ndarray  # (n_work,) original COLUMN index at permuted position i
     orig_shape: tuple[int, int]  # user-facing shape (before the embedding)
     symmetric: bool
@@ -484,6 +560,24 @@ class AcceleratedOperator:
             out = out[:, 0]
         return out
 
+    def block_matrix(self):
+        """The operator as a block container, for the routes that take only
+        blocks (the mesh, the block filters and KPM): ``matrix`` itself when
+        it is one; for a row-compressed operator the half-storage pack that
+        ``accelerate`` makes of the same triplets on the CPU, packed on first
+        need on the operator's device and cached (it then sits beside the
+        row-compressed storage)."""
+        if not isinstance(self.matrix, SymCSRMatrix):
+            return self.matrix
+        cached = self.__dict__.get("_block_cache")
+        if cached is None:
+            r, c, v = self.matrix.triplets()
+            use_native = native.native_available() and np.isrealobj(v)
+            cached, _ = _pack_symmetric(r, c, v, self.shape[0], self.stats.get("block", 128),
+                                        self.matrix.dtype, self.device, use_native)
+            object.__setattr__(self, "_block_cache", cached)
+        return cached
+
     def adjoint_matrix(self):
         """A^H of the packed container at the SAME (bm, bn) block shape, so
         the ``svds`` Gram pipeline's second matvec reaches the general SpMV
@@ -495,7 +589,7 @@ class AcceleratedOperator:
         cached = self.__dict__.get("_adjoint_cache")
         if cached is not None:
             return cached
-        if isinstance(self.matrix, SymBSRMatrix):
+        if isinstance(self.matrix, (SymBSRMatrix, SymCSRMatrix)):
             return self.matrix
         if self.host_triplets is None:
             adj = self.matrix.kernel_adjoint()
@@ -517,7 +611,9 @@ class AcceleratedOperator:
         """Write the packed operator (blocks, permutations, metadata) as a
         ``.npz`` in the JAX package's format: bf16 blocks as a uint16 view
         (npz has no bf16), the metadata as JSON bytes.  The pack is the
-        largest set-up cost and is deterministic: pack once, reload."""
+        largest set-up cost and is deterministic: pack once, reload.  A
+        row-compressed operator is written as ``rowptr``/``col``/``val`` with
+        ``kind`` "csr", which only this package reads."""
         import json
 
         def host(a: torch.Tensor) -> np.ndarray:
@@ -527,12 +623,13 @@ class AcceleratedOperator:
             return a.numpy()
 
         sym = isinstance(self.matrix, SymBSRMatrix)
+        csr = isinstance(self.matrix, SymCSRMatrix)
         meta = dict(
             orig_shape=list(self.orig_shape),
             symmetric=self.symmetric,
             complexified=self.complexified,
             stats=self.stats,
-            kind="sym" if sym else "gen",
+            kind="csr" if csr else "sym" if sym else "gen",
             dtype=str(self.matrix.dtype).replace("torch.", ""),
             shape=list(self.matrix.shape),
             band_reach=getattr(self.matrix, "band_reach", -1),
@@ -541,7 +638,10 @@ class AcceleratedOperator:
                       meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
         if self.row_perm is not None:
             arrays["row_perm"] = np.asarray(self.row_perm)
-        if sym:
+        if csr:
+            arrays.update(rowptr=host(self.matrix.rowptr), col=host(self.matrix.col),
+                          val=host(self.matrix.val))
+        elif sym:
             arrays.update(diag=host(self.matrix.diag_data), upper=host(self.matrix.upper_data),
                           ucols=host(self.matrix.upper_cols))
         else:
@@ -559,7 +659,7 @@ class AcceleratedOperator:
         with np.load(path) as z:
             arrays = {name: z[name] for name in z.files if name != "meta"}
             meta = json.loads(bytes(z["meta"]).decode())
-        for name in ("data", "diag", "upper"):  # bf16 blocks are stored as uint16
+        for name in ("data", "diag", "upper", "val"):  # bf16 values are stored as uint16
             a = arrays.get(name)
             if a is not None and a.dtype == np.uint16:
                 arrays[name] = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -640,6 +740,7 @@ def _accelerate_rectangular(r, c, v, shape, *, dtype, general_block, reorder,
         nnz=len(v),
         slots=int(slots),
         fill=float(len(v) / max(slots, 1)),
+        storage="block",
         bytes=int(slots * (torch.finfo(target).bits // 8)),
         dtype=str(target).replace("torch.", ""),
         bandwidth_before=-1,
@@ -782,10 +883,26 @@ def accelerate(
     else:
         target = as_torch_dtype(dtype)
 
+    storage, compared = "block", {}
     if symmetric:
         # pad to 32 BLOCK rows, as the JAX package does, so that packed
         # operators have the same shape in both packages
         n_pad = -(-n_work // (32 * block)) * (32 * block)
+        nbr = n_pad // block
+        if _storage_rule_applies(device, target):
+            # the storage whose product reads fewer bytes, from the real
+            # blocks the block pack would hold
+            blocks, ku, reach = _block_census(r, c, block, nbr)
+            storage, sizes = symmetric_storage(nnz, n_pad, blocks, block,
+                                               torch.finfo(target).bits // 8)
+            compared = dict(blocks=blocks, storage_bytes=sizes)
+            ts = _stage("blk_count", ts)
+    if storage == "row_compressed":
+        mat = _pack_row_compressed(r, c, v, n_pad, target, device, use_native, _stage)
+        # fill, ku and reach of the block pack the rule compared, as the CPU reports them
+        slots, applied = nnz, (nbr + 2 * nbr * ku) * block * block
+        widths = dict(ku=ku, band_reach=reach, block=block)
+    elif symmetric:
         mat, skipped = _pack_symmetric(r, c, v, n_pad, block, target, device, use_native, _stage)
         if skipped is not None:
             # the count of strictly-lower-block triplets the native pack
@@ -812,7 +929,9 @@ def accelerate(
         nnz=nnz,
         slots=int(slots),
         fill=float(nnz / max(applied, 1)),
-        bytes=int(slots * (torch.finfo(target).bits // 8)),
+        storage=storage,
+        bytes=int(compared["storage_bytes"][storage] if storage == "row_compressed"
+                  else slots * (torch.finfo(target).bits // 8)),
         dtype=str(target).replace("torch.", ""),
         bandwidth_before=bw_before,
         bandwidth_after=bw_after,
@@ -821,6 +940,7 @@ def accelerate(
         pack_seconds=time.perf_counter() - t0,
         pack_stages={k: round(s, 4) for k, s in stages.items()},
         **widths,
+        **compared,
     )
     return AcceleratedOperator(
         matrix=mat,

@@ -16,6 +16,7 @@ from eigenex_tpu_torch import eigsh
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
 from eigenex_tpu_torch.sparse.sym_bsr import sym_bsr_from_bsr
+from eigenex_tpu_torch.utils.exceptions import EigenexError
 
 pytestmark = pytest.mark.cuda
 
@@ -179,7 +180,7 @@ def test_every_solver_matvec_is_a_kernel_launch(card):
     res = eigsh(sym, k=2, which="LA", tol=1e-5, seed=0)
     assert res.converged
     assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": res.iterations,
-                                         "bsr_spmm": 0, "sym_bsr_spmm": 0}
+                                         "bsr_spmm": 0, "sym_bsr_spmm": 0, "csr_spmv": 0}
 
 
 @pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
@@ -271,7 +272,7 @@ def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
     res = eigs(acc, k=2, tol=1e-5, seed=1)
     assert res.converged
     assert cuda_spmv.launch_counts() == {"bsr_spmv": res.iterations, "sym_bsr_spmv": 0,
-                                         "bsr_spmm": 0, "sym_bsr_spmm": 0}
+                                         "bsr_spmm": 0, "sym_bsr_spmm": 0, "csr_spmv": 0}
     X, lam = res.eigenvectors, np.asarray(res.eigenvalues, np.complex128)
     assert X.shape == (n, 2) and np.isfinite(X).all()
 
@@ -579,3 +580,85 @@ def test_krylov_schur_and_gmres_with_graphs_are_the_eager_solves(card):
     assert eager.inner_stats == graphed.inner_stats
     assert counts["captures"] >= 1 and counts["replays"] >= 1
     assert launches["bsr_spmv"] == graphed.inner_stats["matvecs"]
+
+
+# ---------------------------------------------------------------------------
+# row-compressed storage (eigenex_tpu_torch.sparse.sym_csr) and csr_spmv
+# ---------------------------------------------------------------------------
+def row_compressed_case(per_row, storage, device):
+    """A SymCSRMatrix on the card, ending in padding rows: the L = 14
+    Heisenberg sector (``per_row`` None), a chain (1) or a random operator of
+    about 2 ``per_row`` entries a row."""
+    from eigenex_tpu_torch.block.hamiltonians import heisenberg_sector_coo
+    from eigenex_tpu_torch.sparse.sym_csr import sym_csr_from_triplets
+
+    rng = np.random.default_rng(4)
+    if per_row is None:
+        coo = heisenberg_sector_coo(14, 7, 1.0, 1.0, False, device="cpu")
+        r, c, v, n = coo.row.numpy(), coo.col.numpy(), coo.val.numpy(), coo.shape[0]
+    else:
+        n = 5000 if per_row == 1 else 3000
+        r = np.repeat(np.arange(n), per_row)
+        c = (r + 1) if per_row == 1 else rng.integers(0, n, len(r))
+        keep = (r < c) & (c < n)
+        key = np.unique(r[keep] * n + c[keep])
+        r, c = key // n, key % n
+        v = np.round(rng.standard_normal(len(r)) * 32) / 32
+        r, c, v = (np.concatenate([r, c, np.arange(n)]), np.concatenate([c, r, np.arange(n)]),
+                   np.concatenate([v, v, np.full(n, 2.0)]))
+    return sym_csr_from_triplets(r, c, v, n + 512, storage, device)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_row,group", [(1, 1), (None, 2), (10, 4), (35, 8), (50, 16),
+                                           (80, 32)])
+def test_csr_spmv_matches_its_plain_version_and_replays_bit_equal(card, storage, per_row, group):
+    csr = row_compressed_case(per_row, storage, card)
+    assert cuda_spmv.csr_group(csr.nnz, csr.shape[0]) == group
+    x = torch.randn(csr.shape[1], device=card, generator=torch.Generator(card).manual_seed(3))
+    cuda_spmv.reset_launch_counts()
+    y = cuda_spmv.csr_spmv(csr, x)
+    assert cuda_spmv.launch_counts()["csr_spmv"] == 1
+    ref = cuda_spmv.csr_spmv_plain(csr.astype(torch.float32), x)
+    assert float(torch.linalg.vector_norm(y - ref) / torch.linalg.vector_norm(ref)) <= 1e-5
+    assert torch.equal(y, cuda_spmv.csr_spmv(csr, x))  # no atomics: bit-equal re-runs
+    op = csr.as_linear_operator()
+    assert op.capturable
+    xs = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with cuda_spmv.launch_tally() as tally, torch.cuda.graph(graph):
+        ys = op.matvec(xs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert tally["csr_spmv"] == 1 and torch.equal(ys, y)
+    with pytest.raises(EigenexError):
+        cuda_spmv.csr_spmv(csr, x.double())
+    with pytest.raises(EigenexError):
+        cuda_spmv.csr_spmv(csr, x.cpu())
+
+
+def test_a_low_fill_sector_is_stored_row_compressed_on_the_card(card):
+    """accelerate() on the card stores the L = 14 sector row-compressed: every
+    solver matvec is one csr_spmv launch, a thick restart with graphs is the
+    eager solve, and the block pack made on first need gives the same
+    products through sym_bsr_spmv."""
+    from eigenex_tpu_torch import accelerate
+    from eigenex_tpu_torch.block.hamiltonians import heisenberg_sector_coo
+    from eigenex_tpu_torch.sparse.sym_csr import SymCSRMatrix
+
+    coo = heisenberg_sector_coo(14, 7, 1.0, 1.0, False, device="cpu")
+    acc = accelerate(coo, symmetric=True, device=card)
+    assert isinstance(acc.matrix, SymCSRMatrix) and acc.stats["storage"] == "row_compressed"
+    assert acc.matrix.dtype == torch.bfloat16
+    assert acc.stats["bytes"] < acc.stats["storage_bytes"]["block"]
+    v0 = np.random.default_rng(5).standard_normal(acc.orig_shape[0])
+    eager, graphed, launches, counts = graph_and_eager(
+        lambda: eigsh(acc, k=2, which="SA", v0=v0, tol=1e-7, max_subspace=20))
+    assert np.array_equal(eager.eigenvalues, graphed.eigenvalues)
+    assert counts["replays"] >= 1
+    assert launches == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0, "sym_bsr_spmm": 0,
+                        "csr_spmv": graphed.iterations}
+    block = acc.block_matrix()
+    x = acc.embed(np.random.default_rng(6).standard_normal(acc.orig_shape[0]))
+    y, yb = acc.matrix.matvec(x), block.matvec(x)
+    assert float(torch.linalg.vector_norm(y - yb) / torch.linalg.vector_norm(yb)) <= 1e-6

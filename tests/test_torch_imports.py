@@ -136,7 +136,8 @@ def test_importing_the_port_is_light():
         "assert callable(ext.lobpcg) and callable(ext.eigsh_window) and callable(ext.eigsh_range)\n"
         "assert callable(ext.eigs) and callable(ext.gmres_solve) and callable(ext.minres_solve)\n"
         "assert 'scipy' not in sys.modules\n"
-        "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm'}\n"
+        "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm',\n"
+        "                                 'csr_spmv'}\n"
         "assert set(k.LIBRARY_SOURCES) == {'tridiag_solve'} and not direct._lib\n"
         "assert callable(ext.svds) and callable(ext.expm_multiply)\n"
         "assert callable(ext.tridiagonal_shift_invert_operator)\n"

@@ -212,7 +212,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert not Xt.is_contiguous()
     assert torch.equal(psym.matmat(Xt), sym_bsr_spmm_plain(psym, X))
     assert launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0,
-                               "sym_bsr_spmm": 0}
+                               "sym_bsr_spmm": 0, "csr_spmv": 0}
 
 
 def test_sym_spmm_plain_against_to_dense_any_reach():

@@ -243,7 +243,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(sym_bsr_spmv(psym, x), sym_bsr_spmv_plain(psym, x))
     assert torch.equal(bsr_spmv(pbsr, x), bsr_spmv_plain(pbsr, x))
     assert torch.equal(psym.matvec(x), sym_bsr_spmv_plain(psym, x))
-    assert launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0, "sym_bsr_spmm": 0}
+    assert launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0, "sym_bsr_spmm": 0,
+                               "csr_spmv": 0}
 
 
 # -- the column index of the kernel's second pass ---------------------------------

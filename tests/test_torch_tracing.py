@@ -200,7 +200,8 @@ def test_graph_and_launch_counts_are_views_of_the_one_store():
     assert tally["sym_bsr_spmv"] == 1
     cuda_spmv.count_replayed_launches(tally)
     cuda_spmv.count_replayed_launches(tally)
-    assert cuda_spmv.launch_counts() == dict(bsr_spmv=0, sym_bsr_spmv=3, bsr_spmm=0, sym_bsr_spmm=0)
+    assert cuda_spmv.launch_counts() == dict(bsr_spmv=0, sym_bsr_spmv=3, bsr_spmm=0, sym_bsr_spmm=0,
+                                             csr_spmv=0)
     assert profiling.counters("launch.") == {"launch.sym_bsr_spmv": 3}
     cuda_spmv.reset_launch_counts()
     assert not any(cuda_spmv.launch_counts().values()) and chunk_graph.graph_counts()["replays"] == 3
