@@ -13,7 +13,8 @@ A :class:`ChunkGraphs` set lives for one solve (:func:`solve_graphs`, which
 solves open; an inner GMRES solve joins the set of the solve around it) and
 is freed at its end: its graphs, its private memory pool and the state
 buffers they hold.  Unlike the reference's jit cache, nothing outlives the
-call, so no basis stays pinned on the card between solves.
+call but the thread's side stream, so no basis stays pinned on the card
+between solves.
 
 A graph reads and writes fixed addresses, so a chunk runs on state tensors
 the solver keeps for the whole solve (restarts are written into them with
@@ -21,11 +22,13 @@ the solver keeps for the whole solve (restarts are written into them with
 the graph bakes in: ``(k_start, num_steps, shift, breakdown_threshold,
 deflate)``, the reference's static arguments plus the traced values that
 are constants of a solve here.  The first time a key is seen the body runs
-eagerly, on the set's own stream (the warm-up: the kernels' per-stream
+eagerly, on a side stream (the warm-up: the kernels' per-stream
 workspaces and the cuBLAS workspace of that stream are made here, never in
 the graph's pool); the second time the body is captured on that stream and
-the graph replayed; after that it is only replayed.  Only operators that say
-so (``LinearOperator.capturable``: the block containers on CUDA in a kernel
+the graph replayed; after that it is only replayed.  The side stream is the
+calling thread's, one a device, kept from one solve to the next so that
+those workspaces are made once.  Only operators that say so
+(``LinearOperator.capturable``: the block containers on CUDA in a kernel
 storage, and the shifted operator of a GMRES solve on one) are captured, and
 only on CUDA; everything else runs the body eagerly on the same buffers.
 Nothing falls back: a failed capture raises.
@@ -148,6 +151,19 @@ def _identity(value):
     return value if isinstance(value, (int, float, complex)) else ("id", id(value))
 
 
+def _thread_stream(device) -> torch.cuda.Stream:
+    """This thread's side stream on ``device``, made at its first solve and
+    kept for the next ones: PyTorch keeps a cuBLAS workspace (32 MiB on
+    this card) for every stream that runs a cuBLAS call, so a new stream a
+    solve would add one a solve, until its pool of streams comes round."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    streams = _local.__dict__.setdefault("streams", {})
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(index)
+    return streams[index]
+
+
 class _Graph:
     """One captured chunk: the graph, the launches and host counts one replay
     stands for, and what it reads and writes (kept alive with it)."""
@@ -167,7 +183,8 @@ class _Graph:
 
 
 class ChunkGraphs:
-    """The graphs, state buffers and side stream of one solve."""
+    """The graphs, state buffers and memory pool of one solve, on the
+    calling thread's side stream."""
 
     def __init__(self):
         self._graphs: dict = {}
@@ -218,7 +235,7 @@ class ChunkGraphs:
 
     def _side_stream(self, device):
         if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
+            self._stream = _thread_stream(device)
             self._pool = torch.cuda.graph_pool_handle()
         return self._stream
 

@@ -233,11 +233,11 @@ def counters(prefix: str = "") -> dict:
 
 
 def reset_counters(prefix: str = "") -> None:
-    """Set the counters whose names start with ``prefix`` to zero."""
+    """Set the counters whose names start with ``prefix`` to zero: they are
+    forgotten, so :func:`counters` lists only what was counted since."""
     with _counters_lock:
-        for k in _counters:
-            if k.startswith(prefix):
-                _counters[k] = 0
+        for k in [k for k in _counters if k.startswith(prefix)]:
+            del _counters[k]
 
 
 class PhaseTimer:

@@ -7,6 +7,8 @@ Run from the repository root on the CPU:
     python tests/cpu_studies.py rehearse                        # the card phases' API at a tenth of the size
     python tests/cpu_studies.py tridiag                         # two tridiagonal solvers at config 1's shift
     JAX_PLATFORMS=cpu python tests/cpu_studies.py ks-ritz      # what eigs(tol=) bounds on a non-normal operand
+    python tests/cpu_studies.py ks-convdiff [--nx 316] [--count 48] [--seed 18] [--out f.json]
+    JAX_PLATFORMS=cpu python tests/cpu_studies.py ks-convdiff-ref --indices 3,7 [--nx 316]
 
 ``ks-tail``: f32 ``eigs(k=4, which="LM", tol=1e-6)`` on the upwind
 convection-diffusion COO at nx = 100 (BASELINE config 2's operator), start
@@ -20,8 +22,20 @@ sigma = -1e-6 (condition 3.6e6).  ``ks-ritz``: f32 ``eigs(k=2, tol=1e-5,
 accelerate=True)`` on config 2 at nx = 40, seeds 0-39, in both packages: the
 returned eigenvectors' residuals over |lambda|, their residuals' component in
 span(X) over sqrt(k) tol max|lambda|, the same with the Schur vectors of
-span(X) or swapped columns in X's place, and, in the port, the values of the
-leading Schur block that the stop test reads against those returned.
+span(X) or swapped columns in X's place.
+``ks-convdiff``: BASELINE config 2's request, ``eigs(k=4, which="LM",
+tol=1e-6, max_restarts=400, v0)``, on the benchmark cell's path
+(``eigbench/configs/convdiff_316.py``'s operand, ``accelerate``, then
+``eigs`` on the float32 general pack; on the card where there is one), from
+``--count`` float32 start vectors drawn on the host from (``--seed``,
+index), so that any machine can draw any one of them again; imports no JAX.
+Per vector: restarts, matvecs, the kept dimension at each restart (from
+the trace: the subspace less the steps of the next chunk), and the
+returned pairs' largest backward error and shortfall as
+``eigbench/reference/convection_diffusion.judge`` computes them; then the
+distribution.  ``ks-convdiff-ref``: the JAX package's ``eigs`` on the CPU
+from the vectors of the given indices, on the same float32 triplets and
+``accelerate=True``, read the same way.
 """
 
 import dataclasses
@@ -167,7 +181,6 @@ def ks_ritz():
     import scipy.sparse as sp
 
     from eigenex_tpu.solvers.api import eigs as j_eigs
-    from eigenex_tpu_torch.solvers import krylov_schur
 
     torch.set_num_threads(1)  # as the port's tests run: f32 Krylov-Schur here follows any rounding change
     r, c, v, n = cs.convection_diffusion_coo(40)
@@ -181,41 +194,125 @@ def ks_ritz():
         return np.max(np.linalg.norm(np.linalg.qr(X)[0].conj().T @ R, axis=0)
                       / np.linalg.norm(X, axis=0))
 
-    leading = {}
-    ordered_schur = krylov_schur._ordered_schur
+    for package in ("port", "reference"):
+        rows = []
+        for seed in range(40):
+            if package == "port":
+                res = ext.eigs(trip, k=k, tol=tol, seed=seed, accelerate=True, device="cpu")
+            else:
+                res = j_eigs(trip, k=k, tol=tol, seed=seed, accelerate=True)
+            lam = np.asarray(res.eigenvalues, np.complex128)
+            X = np.asarray(res.eigenvectors, np.complex128)
+            limit = np.sqrt(k) * tol * np.abs(lam).max()
+            residual = np.max(np.linalg.norm(A @ X - X * lam[None, :], axis=0)
+                              / np.linalg.norm(X, axis=0) / np.abs(lam))
+            rows.append((residual, in_span(lam, X) / limit,
+                         in_span(lam, np.linalg.qr(X)[0]) / limit, in_span(lam, X[:, ::-1]) / limit))
+        a = np.asarray(rows)
+        print(f"{package}, seeds 0-39: eigenvector residual / |lambda| max {a[:, 0].max():.2e}; "
+              f"in span(X) / limit max {a[:, 1].max():.2e}; Schur vectors in X's place "
+              f"min {a[:, 2].min():.2e}; swapped columns min {a[:, 3].min():.2e}")
 
-    def recorded(H, n_wanted, which="LM"):
-        T, Q, wanted = ordered_schur(H, n_wanted, which)
-        leading["values"] = np.diag(T)[:k].copy()
-        return T, Q, wanted
 
-    krylov_schur._ordered_schur = recorded
-    try:
-        for package in ("port", "reference"):
-            rows = []
-            for seed in range(40):
-                if package == "port":
-                    res = ext.eigs(trip, k=k, tol=tol, seed=seed, accelerate=True, device="cpu")
-                else:
-                    res = j_eigs(trip, k=k, tol=tol, seed=seed, accelerate=True)
-                lam = np.asarray(res.eigenvalues, np.complex128)
-                X = np.asarray(res.eigenvectors, np.complex128)
-                limit = np.sqrt(k) * tol * np.abs(lam).max()
-                residual = np.max(np.linalg.norm(A @ X - X * lam[None, :], axis=0)
-                                  / np.linalg.norm(X, axis=0) / np.abs(lam))
-                rows.append((residual, in_span(lam, X) / limit,
-                             in_span(lam, np.linalg.qr(X)[0]) / limit, in_span(lam, X[:, ::-1]) / limit))
-                if package == "port" and seed == 1:
-                    print(f"port, seed 1: returned {np.round(lam, 3)}, leading Schur block "
-                          f"{np.round(leading['values'], 3)}")
-            a = np.asarray(rows)
-            print(f"{package}, seeds 0-39: eigenvector residual / |lambda| max {a[:, 0].max():.2e}; "
-                  f"in span(X) / limit max {a[:, 1].max():.2e}; Schur vectors in X's place "
-                  f"min {a[:, 2].min():.2e}; swapped columns min {a[:, 3].min():.2e}")
-    finally:
-        krylov_schur._ordered_schur = ordered_schur
+def _convdiff_args():
+    import argparse
+
+    ap = argparse.ArgumentParser(prog=f"cpu_studies.py {sys.argv[1]}")
+    ap.add_argument("--nx", type=int, default=316)
+    ap.add_argument("--count", type=int, default=48)
+    ap.add_argument("--seed", type=int, default=18)
+    ap.add_argument("--indices", default="")
+    ap.add_argument("--out", default="")
+    return ap.parse_args(sys.argv[2:])
+
+
+CONVDIFF_REQUEST = {"k": 4, "which": "LM", "tol": 1e-6, "max_restarts": 400}
+
+
+def convdiff_start(n: int, seed: int, index: int) -> np.ndarray:
+    """Start vector ``index`` of ``seed``: float32, drawn on the host."""
+    return np.random.default_rng([seed, index]).standard_normal(n).astype(np.float32)
+
+
+def _convdiff_reading(params, index, res, wall, m=48) -> dict:
+    from eigbench.reference import convection_diffusion
+
+    lam = None if res.eigenvalues is None else np.asarray(res.eigenvalues)
+    X = None if res.eigenvectors is None else np.asarray(res.eigenvectors)
+    numbers, _ = convection_diffusion.judge(params, CONVDIFF_REQUEST, [(lam, X)], "cpu", 0)
+    steps = np.diff(np.asarray(res.trace.iterations))
+    return dict(index=index, converged=bool(res.converged), restarts=len(steps),
+                matvecs=int(res.iterations), kept=[int(m - s) for s in steps],
+                resid=numbers["resid"][0], shortfall=numbers["shortfall"][0], wall_s=round(wall, 3))
+
+
+def _convdiff_row(r: dict) -> None:
+    print(f"{r['index']:3d} converged={r['converged']!s:5} restarts={r['restarts']:4d} "
+          f"matvecs={r['matvecs']:6d} kept={sorted(set(r['kept']))} resid={r['resid']:.3e} "
+          f"shortfall={r['shortfall']:+.3e} {r['wall_s']:.2f}s", flush=True)
+
+
+def _convdiff_report(rows: list, out: str, **head) -> None:
+    import json
+    import statistics
+
+    restarts = [r["restarts"] for r in rows]
+    failed = [r["index"] for r in rows if not r["converged"]]
+    print(f"{len(rows)} vectors: restarts median {statistics.median(restarts)}, min {min(restarts)}, "
+          f"max {max(restarts)}; unconverged {len(failed)} {failed}; largest resid "
+          f"{max(r['resid'] for r in rows):.3e}")
+    if out:
+        pathlib.Path(out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(out).write_text(json.dumps(dict(head, rows=rows)) + "\n")
+
+
+def ks_convdiff():
+    import time
+
+    from eigbench import core
+
+    args = _convdiff_args()
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    params = {"nx": args.nx, "conv": 0.4}
+    config = core.load_module(ROOT / "eigbench" / "configs" / "convdiff_316.py", "config")
+    acc = config.pack(config.operand(params), device)
+    n = args.nx * args.nx
+    indices = [int(i) for i in args.indices.split(",")] if args.indices else range(args.count)
+    rows = []
+    for i in indices:
+        v0 = torch.as_tensor(convdiff_start(n, args.seed, i), device=device)
+        t0 = time.perf_counter()
+        res = ext.eigs(acc, v0=v0, **CONVDIFF_REQUEST)
+        rows.append(_convdiff_reading(params, i, res, time.perf_counter() - t0))
+        _convdiff_row(rows[-1])
+    print(f"device {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
+    _convdiff_report(rows, args.out, nx=args.nx, seed=args.seed, device=device)
+
+
+def ks_convdiff_ref():
+    import time
+
+    import jax.numpy as jnp
+
+    from eigbench import core
+    from eigenex_tpu.solvers.api import eigs as j_eigs
+
+    args = _convdiff_args()
+    params = {"nx": args.nx, "conv": 0.4}
+    config = core.load_module(ROOT / "eigbench" / "configs" / "convdiff_316.py", "config")
+    r, c, v, shape = config.operand(params)
+    trip = (r, c, v.astype(np.float32), shape)
+    rows = []
+    for i in [int(i) for i in args.indices.split(",")]:
+        t0 = time.perf_counter()
+        res = j_eigs(trip, v0=jnp.asarray(convdiff_start(shape[0], args.seed, i)),
+                     accelerate=True, **CONVDIFF_REQUEST)
+        rows.append(_convdiff_reading(params, i, res, time.perf_counter() - t0))
+        _convdiff_row(rows[-1])
+    _convdiff_report(rows, args.out, nx=args.nx, seed=args.seed, device="cpu", package="eigenex_tpu")
 
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    {"ks-tail": ks_tail, "rehearse": rehearse, "tridiag": tridiag, "ks-ritz": ks_ritz}[sys.argv[1]]()
+    {"ks-tail": ks_tail, "rehearse": rehearse, "tridiag": tridiag, "ks-ritz": ks_ritz,
+     "ks-convdiff": ks_convdiff, "ks-convdiff-ref": ks_convdiff_ref}[sys.argv[1]]()

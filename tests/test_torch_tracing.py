@@ -164,6 +164,34 @@ def test_restart_spans_equal_the_restart_counter_and_the_trace(front_end):
                                              "solver.iterations": res.iterations}
 
 
+def test_krylov_schur_counts_and_project_spans_agree_with_the_solve():
+    """``ks.steps`` sums the chunks' steps (the result's iterations),
+    ``ks.kept`` the kept dimension of each restart (the subspace less the
+    next chunk's steps), one ``eigenex.ks.project`` a projected problem,
+    inside ``eigenex.ritz``; ``ks.host_ms`` lies inside those spans, and is
+    counted with no span recorded too."""
+    A = spread_matrix(200)
+    v0 = np.random.default_rng(3).standard_normal(200)
+    kwargs = dict(k=3, max_subspace=16, tol=1e-8, v0=v0, device="cpu")
+    with profiling.record_spans():
+        res = ext.eigs(A, **kwargs)
+    records = by_name(profiling.spans())
+    counted = profiling.counters()
+    kept = 16 - np.diff(res.trace.iterations)
+    assert res.converged and counted["solver.restarts"] == len(kept) >= 2
+    assert counted["ks.steps"] == res.iterations
+    assert counted["ks.kept"] == kept.sum()
+    project = records["eigenex.ks.project"]
+    assert len(project) == len(res.trace.iterations)
+    index = {r["index"]: r for rs in records.values() for r in rs}
+    assert {index[r["parent"]]["name"] for r in project} == {"eigenex.ritz"}
+    span_ms = sum(r["end_ns"] - r["start_ns"] for r in project) * 1e-6
+    assert 0 < counted["ks.host_ms"] <= span_ms
+    ext.eigs(A, **kwargs)
+    assert profiling.spans() == [] and profiling.counters()["ks.host_ms"] > counted["ks.host_ms"]
+    assert profiling.counters()["ks.steps"] == 2 * res.iterations
+
+
 def test_an_accelerated_solve_spans_build_pack_embed_and_restore():
     with profiling.record_spans():
         coo = heisenberg_sector_coo(10, 5, device="cpu")
@@ -226,7 +254,9 @@ def context(cuda: bool) -> core.Context:
 
 COUNTS = {"solver.solves": 4, "solver.restarts": 54, "solver.iterations": 512,
           "solver.launches": 512, "graph.replays": 50, "graph.warmups": 8, "graph.eager": 0,
-          "graph.capture_ms": 100.0, "launch.sym_bsr_spmv": 600}
+          "graph.capture_ms": 100.0, "launch.sym_bsr_spmv": 600, "ks.steps": 2000, "ks.kept": 648,
+          "ks.host_ms": 27.0}
+KS_METRICS = ["ks_matvecs_per_solve", "ks_kept_per_restart", "ks_host_ms_per_restart"]
 
 
 @pytest.mark.parametrize("metric, expected", [
@@ -234,6 +264,9 @@ COUNTS = {"solver.solves": 4, "solver.restarts": 54, "solver.iterations": 512,
     ("replay_share", 100.0 * 50 / 58),
     ("capture_ms", 25.0),
     ("launches_per_matvec", 1.0),
+    ("ks_matvecs_per_solve", 500.0),
+    ("ks_kept_per_restart", 12.0),
+    ("ks_host_ms_per_restart", 0.5),
 ])
 def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
     for name, n in COUNTS.items():
@@ -244,7 +277,18 @@ def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
 
 
 @pytest.mark.parametrize("metric", ["restarts_per_solve", "replay_share", "capture_ms",
-                                    "launches_per_matvec"])
+                                    "launches_per_matvec"] + KS_METRICS)
 def test_each_counter_reader_gives_none_without_counts(metric):
+    reader = core.load_module(core.BENCH / "metrics" / f"{metric}.py", "metric")
+    assert reader.read(context(True)) is None
+
+
+@pytest.mark.parametrize("metric", KS_METRICS)
+def test_ks_readers_give_none_for_a_program_without_ks_counts(metric):
+    """A program that counts solves and restarts but keeps no ``ks.*``
+    count (the port before these counters) gives no reading, not a zero."""
+    for name, n in COUNTS.items():
+        if not name.startswith("ks."):
+            profiling.count(name, n)
     reader = core.load_module(core.BENCH / "metrics" / f"{metric}.py", "metric")
     assert reader.read(context(True)) is None
