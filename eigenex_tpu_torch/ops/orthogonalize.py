@@ -7,6 +7,13 @@ lanczos.hpp:411-426, the full modified-GS of Arnoldi arnoldi.hpp:380-383)
 as a pair of matrix-vector products -- classical Gram-Schmidt applied
 **twice** (CGS2, "twice is enough": Giraud et al.).
 
+The port's solver chunks run CGS2 over the live rows only: step ``k``
+passes ``V[:k + 1]``, a view of the preallocated basis whose row count is
+a host integer, so no pass reads the rows above ``k``.  The JAX chunks
+pass the whole basis with a ``mask``, because their ``k`` is traced; the
+``mask=`` argument stays here for that surface and for callers outside
+the solvers.
+
 These are plain ``V.conj() @ v`` products outside any hand-written
 kernel and stay ``torch.mv``.  Their f32 grade follows the process-wide
 ``torch.set_float32_matmul_precision``: a caller's ``"high"`` would take

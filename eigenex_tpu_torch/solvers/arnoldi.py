@@ -8,8 +8,8 @@ eigenvector lift V y :841-851 and phase fixing :853-865).  Thick-restart
 Lanczos (:mod:`eigenex_tpu_torch.solvers.restart`), Krylov-Schur
 (:mod:`eigenex_tpu_torch.solvers.krylov_schur`) and GMRES
 (:mod:`eigenex_tpu_torch.solvers.gmres`) are built on the same chunk: the
-per-step masked CGS2 against the whole basis computes exactly the
-Hessenberg column.
+per-step CGS2 over the live basis rows computes exactly the Hessenberg
+column.
 
 Same execution model as :mod:`eigenex_tpu_torch.solvers.lanczos`:
 preallocated ``(m+1, n)`` basis and ``(m+1, m)`` Hessenberg updated in
@@ -35,6 +35,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
+from ..utils import profiling
 from ..utils.exceptions import ArnoldiError
 from ..utils.precision import highest_f32_matmul
 from ..utils.profiling import annotate
@@ -154,11 +155,13 @@ def _arnoldi_chunk_body(
 ) -> ArnoldiState:
     """The hot loop of updateArnoldiSteps (arnoldi.hpp:312-396): matvec +
     shift (:369-372), deflation (:373-375), full GS Hessenberg column
-    (:377-384) via masked CGS2, residue (:348,385).
+    (:377-384) via CGS2 over the live rows, residue (:348,385).
 
     ``k_start`` and the bound on ``num_steps`` come from the caller, as
     in the Lanczos chunk: step ``j`` works on row ``k_start + j`` for as
-    long as neither device flag is set, and is a no-op afterwards.
+    long as neither device flag is set, and is a no-op afterwards.  Step
+    ``kh`` projects against ``V[:kh + 1]`` alone, so the rows above it
+    (zeros, or stale rows after a restart) are never read.
     ``comm``: as for the Lanczos chunk (the JAX body's ``axis_name``)."""
     V, H = state.V, state.H
     k, breakdown, failed, residue_prev = state.k, state.breakdown, state.failed, state.residue
@@ -166,7 +169,6 @@ def _arnoldi_chunk_body(
     dtype = V.dtype
     rdt = residue_prev.dtype
     dev = V.device
-    row_ids = torch.arange(m + 1, device=dev)
     thr = torch.full((), breakdown_threshold, dtype=rdt, device=dev)
     one = torch.ones((), dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=rdt, device=dev)
@@ -180,7 +182,7 @@ def _arnoldi_chunk_body(
             w = w + shift * vk
         if deflate is not None:
             w = project_out(deflate, w, comm=comm)
-        w, h_col = cgs2(V, w, mask=row_ids <= kh, comm=comm)
+        w, c = cgs2(V[:kh + 1], w, comm=comm)
         if deflate is not None:
             # re-deflate after the O(1)-coefficient projection: it
             # reintroduces a deflate component proportional to the basis'
@@ -192,7 +194,7 @@ def _arnoldi_chunk_body(
         # arnoldi.hpp:277-288): non-finite Hessenberg column or residue
         # means the matvec overflowed -- terminate, don't iterate garbage.
         failed_now = torch.logical_not(
-            torch.isfinite(residue) & torch.all(torch.isfinite(h_col))
+            torch.isfinite(residue) & torch.all(torch.isfinite(c))
         )
         broke = torch.logical_not(failed_now) & (residue <= thr)
         ok = torch.logical_not(broke | failed_now)
@@ -200,7 +202,9 @@ def _arnoldi_chunk_body(
         # the next row is zero on breakdown/failure and never read;
         # selection keeps NaNs out
         v_next = torch.where(ok, w / safe.to(dtype), torch.zeros_like(w))
-        # column k of H: projection coefficients + subdiagonal residue
+        # column k of H: the kh + 1 projection coefficients, the
+        # subdiagonal residue, zeros below
+        h_col = torch.nn.functional.pad(c, (0, m - kh))
         h_col[kh + 1] = torch.where(ok, residue, zero).to(dtype)
         h_col = torch.where(failed_now, torch.zeros_like(h_col), h_col)
         # in-place writes (the JAX chunk's H.at[:, k].set / V.at[k+1].set);
@@ -232,7 +236,15 @@ def _arnoldi_chunk(
     terms: ``state``'s tensors are updated in place and ``state`` returned,
     through a CUDA graph of :func:`_arnoldi_chunk_body` where the operator is
     capturable on the card.  Outside a set, and on a mesh (``comm``), it is
-    the body."""
+    the body.
+
+    The chunk's CGS2 work is counted here, which replays pass through too:
+    ``cgs2.rows`` adds the rows one pass reads at each step (``kh + 1`` at
+    step ``kh``), ``cgs2.steps`` the steps; on a mesh each shard counts its
+    own chunk."""
+    k_start, num_steps = int(k_start), int(num_steps)
+    profiling.count("cgs2.rows", num_steps * (2 * k_start + num_steps + 1) // 2)
+    profiling.count("cgs2.steps", num_steps)
 
     def body():
         return _arnoldi_chunk_body(op, state, shift, breakdown_threshold, deflate,
@@ -242,7 +254,7 @@ def _arnoldi_chunk(
     if graphs is None or comm is not None:
         with annotate("eigenex.chunk.eager"):
             return body()
-    key = (int(k_start), int(num_steps), shift, float(breakdown_threshold), deflate)
+    key = (k_start, num_steps, shift, float(breakdown_threshold), deflate)
     return graphs.run(op, state, key, body)
 
 

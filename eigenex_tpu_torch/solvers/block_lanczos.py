@@ -9,10 +9,11 @@ degenerate/clustered eigenvalues (a multiplicity-m eigenvalue needs m
 independent directions, which one Krylov vector can never provide).
 
 Structure mirrors the Lanczos engine of this package: preallocated basis
-rows updated in place, masked-CGS2 block orthogonalization (two
-(m, n) x (n, b) products per pass), thin QR of each residual block for
-the next basis block, and the band-projected matrix assembled in the
-Hessenberg buffer; the host loop symmetrizes and eigh's it every check.
+rows updated in place, block CGS2 over the filled rows only (two
+(k, n) x (n, b) products per pass at k filled rows), thin QR of each
+residual block for the next basis block, and the band-projected matrix
+assembled in the Hessenberg buffer; the host loop symmetrizes and eigh's
+it every check.
 
 A chunk follows the masked-step convention of
 :mod:`eigenex_tpu_torch.solvers.lanczos`: ``k``, ``breakdown`` and
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
+from ..utils import profiling
 from ..utils.exceptions import LanczosError
 from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_matrix
@@ -116,7 +118,10 @@ def _block_chunk(
 ) -> BlockLanczosState:
     """Run up to ``num_steps`` block steps from row ``k_start`` (the value
     of ``state.k`` when the chunk begins, read by the caller, which also
-    bounds ``num_steps`` so that the last step starts at ``k <= m``)."""
+    bounds ``num_steps`` so that the last step starts at ``k <= m``).
+    A step at ``kh`` projects against the filled rows ``V[:kh]`` alone, and
+    the chunk counts its CGS2 work at its end (``cgs2.rows``: ``kh`` a
+    step; ``cgs2.steps``: its block steps)."""
     b = block_size
     V, H = state.V, state.H
     k, breakdown, failed = state.k, state.breakdown, state.failed
@@ -124,9 +129,9 @@ def _block_chunk(
     dtype = V.dtype
     dev = V.device
     rdt = real_dtype_of(dtype)
-    row_ids = torch.arange(m + b, device=dev)
     thr = torch.as_tensor(breakdown_threshold, dtype=rdt, device=dev)
     has_shift = not (isinstance(shift, (int, float, complex)) and shift == 0)
+    rows_read = 0
 
     for kh in range(int(k_start), int(k_start) + b * int(num_steps), b):
         active = torch.logical_not(breakdown | failed)
@@ -134,13 +139,14 @@ def _block_chunk(
         W = op.matmat(Qj.T).T  # (b, n)
         if has_shift:
             W = W + shift * Qj
-        mask = (row_ids < kh)[:, None]
-        # block CGS2: two projection passes against all filled rows
+        # block CGS2: two projection passes against the filled rows
+        filled = V[:kh]
         C_total = torch.zeros((m + b, b), dtype=dtype, device=dev)
         for _ in range(2):
-            C = torch.where(mask, V.conj() @ W.T, torch.zeros((), dtype=dtype, device=dev))
-            W = W - C.T @ V
-            C_total = C_total + C
+            C = filled.conj() @ W.T
+            W = W - C.T @ filled
+            C_total[:kh] += C
+        rows_read += kh
         # thin QR of the residual block: W.T = Q R
         Q, R = torch.linalg.qr(W.T)  # (n, b), (b, b)
         # phase-fix so R has non-negative real diagonal (deterministic):
@@ -173,6 +179,8 @@ def _block_chunk(
         breakdown = breakdown | (active & broke)
         failed = failed | (active & failed_now)
 
+    profiling.count("cgs2.rows", rows_read)
+    profiling.count("cgs2.steps", int(num_steps))
     return BlockLanczosState(V=V, H=H, k=k, breakdown=breakdown, failed=failed)
 
 

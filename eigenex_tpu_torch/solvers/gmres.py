@@ -3,9 +3,9 @@
 Counterpart of ``eigenex_tpu/solvers/gmres.py``: GMRES(m) is the
 shift-invert inner solve for *Arnoldi* eigenproblems and general linear
 systems.  Each cycle builds the Krylov basis and Hessenberg with the
-Arnoldi chunk (:mod:`eigenex_tpu_torch.solvers.arnoldi`, masked CGS2 on
-the device; on the card one CUDA graph replayed every cycle, the cycle's
-state written anew into the same tensors), solves the tiny (m+1, m)
+Arnoldi chunk (:mod:`eigenex_tpu_torch.solvers.arnoldi`, CGS2 over the
+live rows on the device; on the card one CUDA graph replayed every cycle,
+the cycle's state written anew into the same tensors), solves the tiny (m+1, m)
 least-squares problem on the host in float64 by SVD (``numpy.linalg.lstsq``;
 it stays right when the Hessenberg loses rank at breakdown, where the card's
 QR-only ``torch.linalg.lstsq`` would not), and updates the iterate with one

@@ -12,8 +12,10 @@ Execution model, kept from the JAX package:
   writes the row **in place** (``index_copy_``): a chunk mutates the
   tensors of the state it is given and hands the same tensors back.
 - The per-step selective reorthogonalisation loop of k sequential dots
-  (lanczos.hpp:411-426) is masked **CGS2**: two basis products
-  (:func:`eigenex_tpu_torch.ops.orthogonalize.cgs2`).
+  (lanczos.hpp:411-426) is **CGS2 over the live rows**: two basis
+  products against ``V[:k + 1]``
+  (:func:`eigenex_tpu_torch.ops.orthogonalize.cgs2`), never against the
+  rows above ``k``.
 - The host drives fixed-size step *chunks* and synchronises with the
   device **once per chunk**, not per matvec.  Inside a chunk ``k``,
   ``breakdown`` and ``failed`` are 0-d device tensors; a step after
@@ -44,6 +46,7 @@ import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
+from ..utils import profiling
 from ..utils.exceptions import LanczosError
 from ..utils.precision import highest_f32_matmul
 from ..utils.prng import make_generator, random_vector
@@ -82,8 +85,8 @@ class LanczosOptions:
     min_iterations / max_iterations: iteration bounds; UNLIMITED = -1
         means no minimum / run to the full subspace (lanczos.hpp:493).
     max_subspace: preallocation bound on the Krylov dimension (capped at n).
-    reorthogonalize_interval: CGS2 against the whole basis every this
-        many steps; 1 = full reorthogonalisation, 0 = never
+    reorthogonalize_interval: CGS2 against every basis row built so far
+        every this many steps; 1 = full reorthogonalisation, 0 = never
         (cf. reorthogonalizeInterval lanczos.hpp:411-426).
     max_eigenvalues: how many eigenpairs to return (lanczos.hpp:786-795).
     eigenvalue_indices: which (sorted-ascending) Ritz indices to track
@@ -250,8 +253,9 @@ def _lanczos_chunk(
     """Run up to ``num_steps`` Lanczos three-term-recurrence steps.
 
     Implements the hot loop of updateLanczosSteps (lanczos.hpp:371-450):
-    matvec + shift (:389-392), recurrence (:404-407), masked-CGS2
-    reorthogonalisation (:411-426), beta breakdown check (:429-437).
+    matvec + shift (:389-392), recurrence (:404-407), reorthogonalisation
+    by CGS2 over the live rows ``V[:kh + 1]`` (:411-426), beta breakdown
+    check (:429-437).
 
     ``k_start`` is the value of ``state.k`` when the chunk begins, read
     by the caller, which also bounds ``num_steps`` so that
@@ -266,18 +270,21 @@ def _lanczos_chunk(
     basis rows and vectors are this shard's column panel, the operator is
     the shard-local one, and every inner product is completed with
     ``comm.psum`` -- the single-device chunk with collectives injected.
+
+    The chunk is never captured in a graph, so it counts its CGS2 work once
+    at its end (``cgs2.rows``: the rows one pass reads, summed over the
+    steps that run CGS2; ``cgs2.steps``: its steps).
     """
     V, alpha, beta = state.V, state.alpha, state.beta
     k, breakdown, failed = state.k, state.breakdown, state.failed
-    m = alpha.shape[0]
     rdt = alpha.dtype
     dtype = V.dtype
     dev = V.device
-    row_ids = torch.arange(m + 1, device=dev)
     thr = torch.as_tensor(breakdown_threshold, dtype=rdt, device=dev)
     one = torch.ones((), dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=rdt, device=dev)
     has_shift = not (isinstance(shift, (int, float, complex)) and shift == 0)
+    rows_read = 0
 
     for kh in range(int(k_start), int(k_start) + int(num_steps)):
         active = torch.logical_not(breakdown | failed)
@@ -286,13 +293,14 @@ def _lanczos_chunk(
         if has_shift:
             w = w + shift * vk
         if reorthogonalize_interval == 1:
-            # fused path: the masked-CGS2 coefficients against rows <= k
+            # fused path: the CGS2 coefficients against rows <= k
             # CONTAIN the recurrence -- c[k] = <v_k, w> is alpha_k and
             # c[k-1] the beta_prev term -- so no separate alpha dot-product
             # and no explicit three-term subtraction (it is the k, k-1 part
             # of the projection).  Numerically this is exactly Arnoldi's
             # Hessenberg-column CGS2 specialised to a Hermitian operator.
-            w, c = cgs2(V, w, mask=row_ids <= kh, comm=comm)
+            w, c = cgs2(V[:kh + 1], w, comm=comm)
+            rows_read += kh + 1
             alpha_k = _real(c[kh]).to(rdt)
             if deflate is not None:
                 # deflate AFTER the projection: the CGS coefficients are
@@ -312,7 +320,8 @@ def _lanczos_chunk(
             if kh > 0:
                 w = w - beta[kh - 1].to(dtype) * V[kh - 1]
             if reorthogonalize_interval > 0 and (kh + 1) % reorthogonalize_interval == 0:
-                w, _c = cgs2(V, w, mask=row_ids <= kh, comm=comm)
+                w, _c = cgs2(V[:kh + 1], w, comm=comm)
+                rows_read += kh + 1
         beta_k = norm_psum(w, comm).to(rdt)
         # NaN/Inf guard (cf. the reference's failure-first design,
         # lanczos.hpp:316-347,433-437): a non-finite alpha/beta means the
@@ -333,6 +342,8 @@ def _lanczos_chunk(
         breakdown = breakdown | (active & broke)
         failed = failed | (active & failed_now)
 
+    profiling.count("cgs2.rows", rows_read)
+    profiling.count("cgs2.steps", int(num_steps))
     return LanczosState(V=V, alpha=alpha, beta=beta, k=k, breakdown=breakdown, failed=failed)
 
 

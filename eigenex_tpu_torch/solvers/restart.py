@@ -10,7 +10,7 @@ and iteration continues with the arrowhead-projected matrix.
 
 The engine is the *Arnoldi* chunk
 (:func:`eigenex_tpu_torch.solvers.arnoldi.arnoldi_steps`) -- its
-per-step masked CGS2 against the whole basis computes exactly the
+per-step CGS2 over the live basis rows computes exactly the
 projected-matrix column needed after a restart; Hermiticity is recovered
 on the host by symmetrising the tiny projected matrix before its
 ``eigh`` in float64.  One chunk fills the subspace, so the host and the

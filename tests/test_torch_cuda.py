@@ -569,6 +569,46 @@ def test_a_chunk_graph_replays_bit_equal_and_counts_its_launches(card, monkeypat
     assert workspaces == [(1, 1)]
 
 
+def test_a_chunk_from_a_restarted_state_replays_bit_equal_to_eager(card):
+    """A chunk from k = 5, its basis rows above the live ones NaN (stale rows
+    after a restart): CGS2 reads only ``V[:kh + 1]``, so the warm-up, the
+    capture's replay and two replays are bit-equal to one another and to the
+    body run eagerly outside any graph set, and finite."""
+    from eigenex_tpu_torch.solvers import chunk_graph
+    from eigenex_tpu_torch.solvers.arnoldi import (_arnoldi_chunk, _arnoldi_chunk_body,
+                                                   arnoldi_steps, init_arnoldi_state)
+
+    op = sym_bsr_from_bsr(banded(16, 128, 4, card)).as_linear_operator()
+    first, steps = 5, 15
+    state = arnoldi_steps(op, init_arnoldi_state(op, first + steps, seed=5,
+                                                 breakdown_threshold=1e-6),
+                          first, breakdown_threshold=1e-6)
+    state.V[first + 1:] = float("nan")
+    start = [t.clone() for t in chunk_graph.state_tensors(state)]
+
+    def from_start():
+        for buffer, value in zip(chunk_graph.state_tensors(state), start):
+            buffer.copy_(value)
+
+    chunk_graph.reset_graph_counts()
+    outs = []
+    with chunk_graph.solve_graphs():
+        for _ in range(4):
+            from_start()
+            out = _arnoldi_chunk(op, state, 0.0, 1e-6, None, k_start=first, num_steps=steps)
+            outs.append([t.clone() for t in chunk_graph.state_tensors(out)])
+    from_start()  # the body returns its scalars as new tensors
+    out = _arnoldi_chunk_body(op, state, 0.0, 1e-6, None, k_start=first, num_steps=steps)
+    outs.append([t.clone() for t in chunk_graph.state_tensors(out)])
+    torch.cuda.synchronize()
+    assert int(outs[0][2]) == first + steps
+    assert torch.isfinite(outs[0][0]).all() and torch.isfinite(outs[0][1]).all()
+    for run in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, outs[0]))
+    counts = chunk_graph.graph_counts()
+    assert (counts["warmups"], counts["captures"], counts["replays"]) == (1, 1, 3)
+
+
 def graph_and_eager(solve):
     """The solve eagerly, then with graphs (counts from 0): both results,
     the graph run's launches and its graph counts."""

@@ -9,13 +9,14 @@ Every returned pair is held to its backward error ||A x - lam x|| /
 (|lam| ||x||) on the float64 operator, as the cell's judge
 (``eigbench/reference/convection_diffusion.py``) computes it, at most
 2 tol: the stop test bounds beta |y[k-1]|, the residual of each returned
-Ritz vector in the Arnoldi relation, by tol max |lambda(H)|, and the true
-residual adds the relation's own rounding (the float32 products, the
-orthogonalisation and the restarts' basis compression, each near 1e-7 of
-||A||).  The operator is far from normal, so float32 moves its top values
-by far more than their gaps: the eigenvalues are held only to lie near
-the top of the spectrum (``shortfall``), except in float64 at nx = 20,
-where they are held to SciPy ARPACK's from the same start vector.
+Ritz vector in the Arnoldi relation, by (tol - u) max |lambda(H)|, with u
+the unit roundoff, and the true residual adds the relation's own rounding
+(the float32 products, the orthogonalisation and the restarts' basis
+compression, each near 1e-7 of ||A||).  The operator is far from
+normal, so float32 moves its top values by far more than their gaps: the
+eigenvalues are held only to lie near the top of the spectrum
+(``shortfall``), except in float64 at nx = 20, where they are held to
+SciPy ARPACK's from the same start vector.
 """
 
 import numpy as np

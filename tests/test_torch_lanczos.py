@@ -8,19 +8,25 @@ kept, so the two recurrences differ by rounding order only); eigenvalues to
 1e-10, the correctness target of BASELINE.json.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from eigenex_tpu.solvers import arnoldi as ja
+from eigenex_tpu.solvers import block_lanczos as jb
 from eigenex_tpu.solvers import lanczos as jl
 from eigenex_tpu.sparse.bsr import bsr_from_dense as j_bsr_from_dense
 from eigenex_tpu_torch.core.operators import LinearOperator, aslinearoperator
 from eigenex_tpu_torch.solvers import arnoldi as ta
+from eigenex_tpu_torch.solvers import block_lanczos as tb
 from eigenex_tpu_torch.solvers import lanczos as tl
 from eigenex_tpu_torch.sparse.bsr import bsr_from_dense
+from eigenex_tpu_torch.utils import profiling
 from eigenex_tpu_torch.utils.exceptions import LanczosError
+from eigenex_tpu_torch.utils.tolerance import default_breakdown_threshold
 
 torch.set_num_threads(1)
 
@@ -191,3 +197,93 @@ def test_arnoldi_steps_match_reference():
     np.testing.assert_allclose(ts.H.numpy(), np.asarray(js.H), rtol=0, atol=1e-12)
     np.testing.assert_allclose(ts.V.numpy(), np.asarray(js.V), rtol=0, atol=1e-11)
     assert abs(float(ts.residue) - float(js.residue)) < 1e-12
+
+
+BLOCK = 4
+CHUNKS = ["arnoldi", "lanczos", "lanczos_every_3", "block_lanczos"]
+
+
+def chunk_case(kind, first, steps, arnoldi_chunk=ta._arnoldi_chunk_body):
+    """On a dense f64 operator of n = 96: the port's state after ``first``
+    steps of chunk ``kind`` (block Lanczos: with ``first`` filled rows), the
+    basis rows that state holds, the rows ``steps`` more steps leave filled,
+    a function that runs those steps as one chunk on a given state, and the
+    outputs of the JAX package's masked chunks over the same steps."""
+    A, _, _ = operator_pair(n=96, seed=5)
+    jop, top = jl.aslinearoperator(jnp.asarray(A)), aslinearoperator(A, device="cpu")
+    bd = default_breakdown_threshold(torch.float64)
+    if kind == "block_lanczos":
+        v0 = np.random.default_rng(6).standard_normal((BLOCK, 96))
+        js = jb.init_block_lanczos_state(jop, 40, BLOCK, jnp.asarray(v0))
+        js = jb.block_lanczos_steps(jop, js, first // BLOCK - 1, block_size=BLOCK)
+        state = tb.init_block_lanczos_state(top, 40, BLOCK, v0)
+        state = tb.block_lanczos_steps(top, state, first // BLOCK - 1, block_size=BLOCK)
+        js = jb.block_lanczos_steps(jop, js, steps, block_size=BLOCK)
+        live = first + BLOCK * steps
+        return (state, first, live,
+                lambda st: tb._block_chunk(top, st, 0.0, bd, k_start=first, num_steps=steps,
+                                           block_size=BLOCK),
+                (js.V[:live], js.H))
+    v0 = start(96, 7)
+    if kind == "arnoldi":
+        state = ta.arnoldi_steps(top, ta.init_arnoldi_state(top, 16, torch.as_tensor(v0)), first)
+        js = ja.arnoldi_steps(jop, ja.init_arnoldi_state(jop, 16, jnp.asarray(v0)), first)
+        js = ja.arnoldi_steps(jop, js, steps)
+        return (state, first + 1, first + steps + 1,
+                lambda st: arnoldi_chunk(top, st, 0.0, bd, None, k_start=first,
+                                         num_steps=steps),
+                (js.V[:first + steps + 1], js.H, js.residue))
+    every = 3 if kind == "lanczos_every_3" else 1
+    state = tl.lanczos_steps(top, tl.init_lanczos_state(top, 16, torch.as_tensor(v0)), first,
+                             reorthogonalize_interval=every)
+    js = jl.lanczos_steps(jop, jl.init_lanczos_state(jop, 16, jnp.asarray(v0)), first,
+                          reorthogonalize_interval=every)
+    js = jl.lanczos_steps(jop, js, steps, reorthogonalize_interval=every)
+    return (state, first + 1, first + steps + 1,
+            lambda st: tl._lanczos_chunk(top, st, 0.0, bd, None, k_start=first, num_steps=steps,
+                                         reorthogonalize_interval=every),
+            (js.V[:first + steps + 1], js.alpha, js.beta))
+
+
+def outputs(kind, state, live):
+    if kind == "block_lanczos":
+        return state.V[:live], state.H
+    if kind == "arnoldi":
+        return state.V[:live], state.H, state.residue
+    return state.V[:live], state.alpha, state.beta
+
+
+@pytest.mark.parametrize("kind", CHUNKS)
+def test_a_chunk_reads_no_basis_row_above_the_live_ones(kind):
+    """Rows above the live basis hold NaN, as stale rows after a restart may:
+    the chunk's output is finite, equal to the run with those rows zeroed,
+    and within 1e-6 of the JAX package's masked chunk over the same steps."""
+    first = 8 if kind == "block_lanczos" else 5
+    state, filled, live, run, reference = chunk_case(kind, first, 3)
+    got = {}
+    for name, fill in (("zeroed", 0.0), ("stale", float("nan"))):
+        st = dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+                                           for f in dataclasses.fields(state)})
+        st.V[filled:] = fill
+        out = run(st)
+        assert out.host_flags() == (live - (0 if kind == "block_lanczos" else 1), False, False)
+        got[name] = outputs(kind, out, live)
+    for stale, zeroed, ref in zip(got["stale"], got["zeroed"], reference):
+        assert torch.isfinite(stale).all()
+        assert torch.equal(stale, zeroed)
+        ref = np.asarray(ref)
+        assert np.linalg.norm(stale.numpy() - ref) <= 1e-6 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("kind, first, steps, rows", [
+    ("arnoldi", 3, 5, 4 + 5 + 6 + 7 + 8),
+    ("lanczos", 3, 5, 4 + 5 + 6 + 7 + 8),
+    ("lanczos_every_3", 3, 5, 6),  # CGS2 at step 5 alone, over rows 0..5
+    ("block_lanczos", 4, 2, 4 + 8),  # block steps at k = 4 and 8, over rows < k
+])
+def test_a_chunk_counts_the_rows_its_cgs2_reads(kind, first, steps, rows):
+    # Arnoldi through its dispatch, which counts where graph replays pass too
+    state, _, _, run, _ = chunk_case(kind, first, steps, arnoldi_chunk=ta._arnoldi_chunk)
+    profiling.reset_counters("cgs2.")
+    run(state)
+    assert profiling.counters("cgs2.") == {"cgs2.rows": rows, "cgs2.steps": steps}

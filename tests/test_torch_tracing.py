@@ -255,7 +255,7 @@ def context(cuda: bool) -> core.Context:
 COUNTS = {"solver.solves": 4, "solver.restarts": 54, "solver.iterations": 512,
           "solver.launches": 512, "graph.replays": 50, "graph.warmups": 8, "graph.eager": 0,
           "graph.capture_ms": 100.0, "launch.sym_bsr_spmv": 600, "ks.steps": 2000, "ks.kept": 648,
-          "ks.host_ms": 27.0}
+          "ks.host_ms": 27.0, "cgs2.rows": 12880, "cgs2.steps": 160}
 KS_METRICS = ["ks_matvecs_per_solve", "ks_kept_per_restart", "ks_host_ms_per_restart"]
 
 
@@ -267,6 +267,7 @@ KS_METRICS = ["ks_matvecs_per_solve", "ks_kept_per_restart", "ks_host_ms_per_res
     ("ks_matvecs_per_solve", 500.0),
     ("ks_kept_per_restart", 12.0),
     ("ks_host_ms_per_restart", 0.5),
+    ("cgs2_rows_per_step", 80.5),
 ])
 def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
     for name, n in COUNTS.items():
@@ -277,7 +278,7 @@ def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
 
 
 @pytest.mark.parametrize("metric", ["restarts_per_solve", "replay_share", "capture_ms",
-                                    "launches_per_matvec"] + KS_METRICS)
+                                    "launches_per_matvec", "cgs2_rows_per_step"] + KS_METRICS)
 def test_each_counter_reader_gives_none_without_counts(metric):
     reader = core.load_module(core.BENCH / "metrics" / f"{metric}.py", "metric")
     assert reader.read(context(True)) is None
@@ -291,4 +292,14 @@ def test_ks_readers_give_none_for_a_program_without_ks_counts(metric):
         if not name.startswith("ks."):
             profiling.count(name, n)
     reader = core.load_module(core.BENCH / "metrics" / f"{metric}.py", "metric")
+    assert reader.read(context(True)) is None
+
+
+def test_cgs2_reader_gives_none_for_a_program_without_cgs2_counts():
+    """A program whose passes read the whole basis under a mask keeps no
+    ``cgs2.*`` count: no reading, not a zero."""
+    for name, n in COUNTS.items():
+        if not name.startswith("cgs2."):
+            profiling.count(name, n)
+    reader = core.load_module(core.BENCH / "metrics" / "cgs2_rows_per_step.py", "metric")
     assert reader.read(context(True)) is None
