@@ -258,30 +258,6 @@ def _arnoldi_chunk(
     return graphs.run(op, state, key, body)
 
 
-def _restart_into(state: ArnoldiState, V, H: torch.Tensor, k: int) -> ArnoldiState:
-    """A restarted state written into ``state``'s own tensors with ``copy_``
-    (basis, projected matrix, ``k``, the flags cleared; ``residue`` kept),
-    so that the chunk graphs of the solve keep their addresses.  A basis in
-    per-shard panels (the mesh solvers, whose chunks return new tensors and
-    run eagerly) is bound anew, as are its scalars."""
-    if not isinstance(state.V, torch.Tensor):
-        dev = H.device
-        return ArnoldiState(
-            V=V,
-            H=H,
-            k=torch.full((), k, dtype=torch.int64, device=dev),
-            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
-            residue=state.residue,
-            failed=torch.zeros((), dtype=torch.bool, device=dev),
-        )
-    state.V.copy_(V)
-    state.H.copy_(H)
-    state.k.fill_(k)
-    state.breakdown.zero_()
-    state.failed.zero_()
-    return state
-
-
 def arnoldi_steps(
     op: LinearOperator,
     state: ArnoldiState,

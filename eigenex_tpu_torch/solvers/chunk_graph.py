@@ -9,19 +9,19 @@ Here a CUDA graph of the body stands for the compiled program: one replay
 launches every kernel of the chunk.
 
 A :class:`ChunkGraphs` set lives for one solve (:func:`solve_graphs`, which
-``compute()`` of the thick-restart and Krylov-Schur solvers and the GMRES
-solves open; an inner GMRES solve joins the set of the solve around it) and
-is freed at its end: its graphs, its private memory pool and the state
-buffers they hold.  Unlike the reference's jit cache, nothing outlives the
-call but the thread's side stream, so no basis stays pinned on the card
-between solves.
+the restart loop of thick restart and Krylov-Schur,
+``restart._RestartedArnoldi.compute``, and the GMRES solves open; an inner
+GMRES solve joins the set of the solve around it) and is freed at its end:
+its graphs, its private memory pool and the state buffers they hold.
+Unlike the reference's jit cache, nothing outlives the call but the
+thread's side stream, so no basis stays pinned on the card between solves.
 
 A graph reads and writes fixed addresses, so a chunk runs on state tensors
-the solver keeps for the whole solve (restarts are written into them with
-``copy_``).  A key is the operator, the six state tensors, and the values
-the graph bakes in: ``(k_start, num_steps, shift, breakdown_threshold,
-deflate)``, the reference's static arguments plus the traced values that
-are constants of a solve here.  The first time a key is seen the body runs
+the solver keeps for the whole solve (``restart._restart_into`` writes a
+restart's kept rows into them in place).  A key is the operator, the six
+state tensors, and the values the graph bakes in: ``(k_start, num_steps,
+shift, breakdown_threshold, deflate)``, the reference's static arguments
+plus the traced values that are constants of a solve here.  The first time a key is seen the body runs
 eagerly, on a side stream (the warm-up: the kernels' per-stream
 workspaces and the cuBLAS workspace of that stream are made here, never in
 the graph's pool); the second time the body is captured on that stream and

@@ -22,19 +22,13 @@ reads leading Schur vectors and returns other pairs; it holds them to
 rounding that a true residual adds to its estimate.  On the non-normal
 operator of BASELINE config 2 in float32 the reference's restart can
 stall or return pairs far above ``tol`` (``tests/cpu_studies.py
-ks-convdiff``).  No solve calls ``_ordered_schur`` or
-``_restart_coefficients``: they are the reference's restart pieces, kept
-for the parity tests that hold them to it.
+ks-convdiff``).
 
-One chunk fills the subspace, so the host and the device synchronise
-once per restart; the restarts are written into the one state of the
-solve, whose chunks replay CUDA graphs on the card
-(:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  All small-matrix work
-(Schur form, ordering, Ritz pairs, estimates) is host LAPACK on float64 /
-complex128 copies of the Hessenberg; the device does the Arnoldi chunk
-and the (p, m) x (m, n) basis compression.  The loop's spans and its
-``solver.restarts`` count are those of
-:mod:`eigenex_tpu_torch.solvers.restart`; besides, the span
+The restart loop, its chunks, spans and ``solver.restarts`` count are
+those of thick-restart Lanczos (:mod:`eigenex_tpu_torch.solvers.restart`);
+this solver brings its projected problem and its extraction.  All
+small-matrix work (Schur form, ordering, Ritz pairs, estimates) is host
+LAPACK on float64 / complex128 copies of the Hessenberg.  The span
 ``eigenex.ks.project`` covers the projected problem of each restart, and
 the counters ``ks.steps`` (Arnoldi steps), ``ks.kept`` (the kept dimension
 of each restart) and ``ks.host_ms`` (host ms inside that span) are kept
@@ -49,33 +43,24 @@ import time
 import numpy as np
 import torch
 
-from ..core.operators import aslinearoperator
 from ..utils.exceptions import ArnoldiError
 from ..utils import profiling
-from ..utils.precision import highest_f32_matmul
 from ..utils.profiling import annotate
-from ..utils.tolerance import default_breakdown_threshold, default_tolerance
-from ..utils.trace import ConvergenceTrace, Severity
-from . import chunk_graph
-from .arnoldi import (ArnoldiResult, ArnoldiState, _hessenberg, _lift_ritz, _restart_into,
-                      arnoldi_steps, init_arnoldi_state)
-from .lanczos import LanczosOptions
-from .restart import _compress_basis
+from .arnoldi import ArnoldiResult, _hessenberg, _lift_ritz
+from .restart import ThickRestartOptions, _RestartedArnoldi
 
 __all__ = ["KrylovSchurArnoldiSolver", "KrylovSchurOptions"]
 
 
 @dataclasses.dataclass(frozen=True)
-class KrylovSchurOptions(LanczosOptions):
-    """Arnoldi options plus restart knobs; ``eigenvalue_indices`` refer to
+class KrylovSchurOptions(ThickRestartOptions):
+    """Restart options plus ``which``; ``eigenvalue_indices`` refer to
     the ``which``-ordered spectrum (|lambda|-descending dominant pairs by
     default).  ``which`` follows the scipy ``eigs`` convention:
     "LM"/"SM" (largest/smallest magnitude), "LR"/"SR" (largest/smallest
     real part), "LI"/"SI" (largest/smallest imaginary part) -- the restart
     compression keeps, and convergence tracks, that end of the spectrum."""
 
-    num_kept: int | None = None
-    max_restarts: int = 100
     which: str = "LM"
 
 
@@ -96,53 +81,6 @@ def _which_key(evals: np.ndarray, which: str) -> np.ndarray:
     raise ArnoldiError(
         f"which must be one of 'LM','SM','LR','SR','LI','SI', got {which!r}"
     )
-
-
-def _ordered_schur(H: np.ndarray, n_wanted: int, which: str = "LM"):
-    """The reference's ordering: complex Schur form of H with (at least)
-    the ``n_wanted`` most-wanted values (per ``which``) ordered into the
-    leading block, by a cutoff taken from ``eigvals``.  Returns (T, Q,
-    evals_sorted_wanted_first).  The solver orders by
-    :func:`_wanted_schur`."""
-    from scipy.linalg import schur
-
-    evals = np.linalg.eigvals(H.astype(np.complex128))
-    keys = _which_key(evals, which)
-    order = np.argsort(keys, kind="stable")
-    wanted_first = evals[order]
-    scale = float(np.max(np.abs(evals))) if len(evals) else 1.0
-    cutoff = keys[order[min(n_wanted, len(evals)) - 1]] if len(evals) else 0.0
-    eps = 1e-12 * max(scale, 1.0)
-    T, Q, sdim = schur(
-        H.astype(np.complex128),
-        output="complex",
-        sort=lambda x: bool(_which_key(np.asarray([x]), which)[0] <= cutoff + eps),
-    )
-    return T, Q, wanted_first
-
-
-def _restart_coefficients(Q: np.ndarray, pk: int, m: int, complex_basis: bool) -> np.ndarray:
-    """The reference's restart coefficients (the solver compresses onto the
-    leading block of :func:`_wanted_schur` instead): the orthonormal (k, p')
-    coefficient matrix a restart compresses the basis with.  A complex
-    basis keeps the leading ``pk`` Schur vectors.  A
-    real basis keeps the real span of {Re q_i, Im q_i}, whose rank can reach
-    2 pk: truncating it would break the Arnoldi decomposition, so the number
-    of kept Schur vectors is reduced until the whole span fits ``m - 2``."""
-    if complex_basis:
-        return Q[:, :pk]
-    for pk_try in range(pk, 0, -1):
-        Qk = Q[:, :pk_try]
-        if np.allclose(Qk.imag, 0, atol=1e-14):
-            cand = np.ascontiguousarray(Qk.real)
-        else:
-            span = np.concatenate([Qk.real, Qk.imag], axis=1)
-            u, s, _ = np.linalg.svd(span, full_matrices=False)
-            rank = int(np.sum(s > (s[0] if s.size else 1) * 1e-10))
-            cand = u[:, :rank]
-        if cand.shape[1] <= m - 2:
-            return cand
-    return np.zeros((Q.shape[0], 0))  # pathological; restart from the residual alone
 
 
 def _schur_blocks(T: np.ndarray) -> list[tuple[int, int]]:
@@ -291,177 +229,59 @@ def _leading_pairs(T: np.ndarray, count: int, which: str):
     return np.asarray(thetas, np.complex128), np.asarray(Z).T.reshape(k, len(thetas))
 
 
-class KrylovSchurArnoldiSolver:
+class KrylovSchurArnoldiSolver(_RestartedArnoldi):
     """Dominant-eigenpair solver with bounded memory via Krylov-Schur
     restarts; drop-in alternative to :class:`ArnoldiEigenSolver` when the
     spectrum is clustered or the basis must stay small."""
 
-    def __init__(self, operator=None, options: KrylovSchurOptions | None = None):
-        self.operator = aslinearoperator(operator) if operator is not None else None
-        self.options = options or KrylovSchurOptions()
-        self.trace = ConvergenceTrace()
-        self._initial_vector = None
-        self._result: ArnoldiResult | None = None
+    _options_type = KrylovSchurOptions
+    _result_type = ArnoldiResult
+    _error = ArnoldiError
+    _step = "Arnoldi"
 
-    def set_initial_vector(self, v0):
-        self._initial_vector = v0
-        return self
-
-    @highest_f32_matmul()
-    @chunk_graph.solve_graphs()
-    def compute(self, operator=None) -> ArnoldiResult:
-        if operator is not None:
-            self.operator = aslinearoperator(operator)
-        op = self.operator
-        if op is None:
-            raise ArnoldiError("no operator set")
-        if op.shape[0] != op.shape[1]:
-            raise ArnoldiError(f"requires a square operator, got {op.shape}")
+    def _project(self, state, k, beta, p, tol):
+        """The ordered Schur form and the pairs the extraction returns, each
+        with its Ritz estimate ||A V y - theta V y|| = beta |y[k-1]|.  A
+        pair's true residual adds the Arnoldi relation's own rounding, near
+        the basis dtype's unit roundoff of max |lambda(H)|: the stop test
+        leaves that much of tol for it (half of tol where tol is that small)."""
         o = self.options
-        n = op.shape[1]
-        nev = o.max_eigenvalues
-        m = min(o.max_subspace, n)
-        if m < nev + 2:
-            raise ArnoldiError(f"max_subspace={m} too small for {nev} eigenpairs")
-        p = o.num_kept if o.num_kept is not None else min(max(2 * nev, nev + 8), m - 2)
-        p = min(p, m - 2)
-        tol = o.tolerance if o.tolerance is not None else default_tolerance(op.dtype)
-        bd = (
-            o.breakdown_threshold
-            if o.breakdown_threshold is not None
-            else default_breakdown_threshold(op.dtype)
-        )
-        self.trace = ConvergenceTrace()
-        t0 = time.perf_counter()
+        H = _hessenberg(state.H, k)
+        with annotate("eigenex.ks.project"):
+            t_project = time.perf_counter()
+            T, Q, kept, values = _wanted_schur(H, min(p, k - 1), o.which)
+            nev_eff = min(o.max_eigenvalues, k)
+            lead = max(kept, nev_eff)
+            theta, Z = _leading_pairs(T[:lead, :lead], nev_eff, o.which)
+            Y = Q[:, :lead] @ Z
+            resid = np.abs(beta * Y[k - 1, :nev_eff])
+            scale = max(float(np.max(np.abs(values))), 1e-300)
+            slack = min(torch.finfo(state.V.dtype).eps / 2, tol / 2)
+            done = nev_eff == o.max_eigenvalues and bool(np.all(resid <= (tol - slack) * scale))
+            profiling.count("ks.host_ms", (time.perf_counter() - t_project) * 1e3)
+        # The leading blocks of the Schur form span an invariant subspace of
+        # H, so A (Q1^T V) = (Q1^T V) T11 + r (beta Q[k-1, :kept]): the basis
+        # compresses onto Q1 with T11 as its projected matrix and beta
+        # Q[k-1, :kept] as the coupling row, no extra matvec.
+        restart = Q[:, :kept], T[:kept, :kept], beta * Q[k - 1, :kept]
+        return theta[:nev_eff], resid, done, restart, (theta, Y)
 
-        state = init_arnoldi_state(op, m, self._initial_vector, seed=o.seed, breakdown_threshold=bd)
-        # a returned pair's true residual is its Ritz estimate plus the
-        # Arnoldi relation's own rounding, near the basis dtype's unit
-        # roundoff of max |lambda(H)|: the stop test leaves that much of tol
-        # for it (half of tol where tol itself is that small)
-        slack = min(torch.finfo(state.V.dtype).eps / 2, tol / 2)
-        k = 0
-        total = 0
-        termination = "max_restarts"
-        converged = False
+    def _extract(self, state, k, terms):
+        """The pairs the last stop test read; after a numerical failure, the
+        most wanted pairs of the last chunk's Hessenberg."""
+        o = self.options
+        if terms is None:
+            T, Q, _, _ = _wanted_schur(_hessenberg(state.H, k), k, o.which)
+            theta, Z = _leading_pairs(T, min(o.max_eigenvalues, k), o.which)
+            Y = Q @ Z
+        else:
+            theta, Y = terms
+        sel = np.argsort(_which_key(theta[:o.max_eigenvalues], o.which), kind="stable")
+        vecs = _lift_ritz(state.V, Y[:, sel], k) if o.compute_eigenvectors else None
+        return theta[sel] - complex(o.eigenvalue_shift), vecs
 
-        for restart in range(o.max_restarts + 1):
-            k0 = k
-            state = self._run_arnoldi_chunk(op, state, m - k0, bd)
-            # the host/device synchronisation point, once per restart
-            with annotate("eigenex.wait"):
-                k, has_broken, has_failed = state.host_flags()
-            total += k - k0
-            profiling.count("ks.steps", k - k0)
-            if has_failed:
-                termination = "numerical_failure"
-                converged = False
-                self.trace.log(
-                    Severity.ERROR,
-                    f"numerical failure at {total} iterations: non-finite "
-                    "Hessenberg (operator overflow or NaN)",
-                )
-                if k == 0:
-                    raise ArnoldiError("numerical failure on the first Arnoldi step")
-                break
-            with annotate("eigenex.ritz"):
-                H = _hessenberg(state.H, k)
-                with annotate("eigenex.wait"):
-                    beta = float(self.state_residue(state))
-                with annotate("eigenex.ks.project"):
-                    t_project = time.perf_counter()
-                    T, Q, kept, values = _wanted_schur(H, min(p, k - 1), o.which)
-                    nev_eff = min(nev, k)
-                    lead = max(kept, nev_eff)
-                    theta, Z = _leading_pairs(T[:lead, :lead], nev_eff, o.which)
-                    Y = Q[:, :lead] @ Z
-                    # the pairs the extraction returns, each with its Ritz
-                    # estimate ||A V y - theta V y|| = beta |y[k-1]|
-                    resid = np.abs(beta * Y[k - 1, :nev_eff])
-                    scale = max(float(np.max(np.abs(values))), 1e-300)
-                    profiling.count("ks.host_ms", (time.perf_counter() - t_project) * 1e3)
-                self.trace.record(
-                    total, theta[:nev_eff], float(np.max(resid)) if nev_eff else np.nan,
-                    time.perf_counter() - t0,
-                )
+    def _chunk_ran(self, steps):
+        profiling.count("ks.steps", steps)
 
-            if has_broken:
-                termination = "breakdown"
-                converged = True
-                self.trace.log(Severity.INFO, f"breakdown at {total} iterations")
-                break
-            if nev_eff == nev and np.all(resid <= (tol - slack) * scale):
-                termination = "converged"
-                converged = True
-                self.trace.log(
-                    Severity.INFO,
-                    f"converged after {restart} restarts / {total} iterations "
-                    f"(max residual {float(np.max(resid)):.3e})",
-                )
-                break
-            if restart == o.max_restarts:
-                self.trace.log(Severity.WARN, f"stopped at max_restarts={o.max_restarts}")
-                break
-
-            # ---- Krylov-Schur restart ----
-            # The leading blocks of the Schur form span an invariant subspace
-            # of H, so A (Q1^T V) = (Q1^T V) T11 + r (beta Q[k-1, :kept]): the
-            # basis compresses onto Q1 with T11 as its projected matrix and
-            # beta Q[k-1, :kept] as the coupling row, no extra matvec.
-            with annotate("eigenex.restart"):
-                H_new = np.zeros((m + 1, m), H.dtype)
-                H_new[:kept, :kept] = T[:kept, :kept]
-                H_new[kept, :kept] = beta * Q[k - 1, :kept]
-                dev = state.V.device
-                state = _restart_into(
-                    state, _compress_basis(state.V, Q[:, :kept], state.V[k].clone()),
-                    torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), kept)
-                k = kept
-            profiling.count("solver.restarts")
-            profiling.count("ks.kept", kept)
-
-        # ---- extraction: the pairs the last stop test read ----
-        with annotate("eigenex.extract"):
-            if termination == "numerical_failure":
-                T, Q, _, _ = _wanted_schur(_hessenberg(state.H, k), k, o.which)
-                theta, Z = _leading_pairs(T, min(nev, k), o.which)
-                Y = Q @ Z
-            sel = np.argsort(_which_key(theta[:nev], o.which), kind="stable")
-            evals_out = theta[sel] - complex(o.eigenvalue_shift)
-            vecs = None
-            if o.compute_eigenvectors:
-                vecs = _lift_ritz(state.V, Y[:, sel], k)
-        self._result = ArnoldiResult(
-            eigenvalues=evals_out,
-            eigenvectors=vecs,
-            iterations=total,
-            converged=converged,
-            termination=termination,
-            trace=self.trace,
-        )
-        return self._result
-
-    def _run_arnoldi_chunk(self, op, state, num_steps, breakdown_threshold):
-        """One Arnoldi chunk (the distributed solver runs it over a mesh)."""
-        return arnoldi_steps(
-            op, state, num_steps, shift=self.options.eigenvalue_shift,
-            breakdown_threshold=breakdown_threshold,
-        )
-
-    @staticmethod
-    def state_residue(state: ArnoldiState) -> float:
-        """||w|| after the last orthogonalisation: the beta of the residual
-        bound and of the coupling row."""
-        return float(state.residue)
-
-    @property
-    def eigenvalues(self):
-        if self._result is None:
-            raise ArnoldiError("compute() has not been run")
-        return self._result.eigenvalues
-
-    @property
-    def eigenvectors(self):
-        if self._result is None:
-            raise ArnoldiError("compute() has not been run")
-        return self._result.eigenvectors
+    def _restarted(self, kept):
+        profiling.count("ks.kept", kept)

@@ -1,4 +1,5 @@
-"""Thick-restart Lanczos (TRLM) for Hermitian operators.
+"""Restarted Arnoldi: the restart loop of thick-restart Lanczos and
+Krylov-Schur, and thick-restart Lanczos (TRLM) for Hermitian operators.
 
 Counterpart of ``eigenex_tpu/solvers/restart.py``.  The reference can
 only grow its Krylov basis until memory/iteration limits
@@ -6,25 +7,28 @@ only grow its Krylov basis until memory/iteration limits
 ``max_subspace`` while retaining the convergence of a long run: when the
 subspace fills, the best ``num_kept`` Ritz vectors are compressed into
 the leading basis slots (one matmul), the residual vector is appended,
-and iteration continues with the arrowhead-projected matrix.
+and iteration continues with the arrowhead-projected matrix.  Hermiticity
+is recovered on the host by symmetrising the tiny projected matrix before
+its ``eigh`` in float64; convergence uses the Lanczos residual bound
+|beta_m y_{m,i}| <= tol * scale rather than the reference's
+successive-value test.
 
-The engine is the *Arnoldi* chunk
-(:func:`eigenex_tpu_torch.solvers.arnoldi.arnoldi_steps`) -- its
-per-step CGS2 over the live basis rows computes exactly the
-projected-matrix column needed after a restart; Hermiticity is recovered
-on the host by symmetrising the tiny projected matrix before its
-``eigh`` in float64.  One chunk fills the subspace, so the host and the
-device synchronise once per restart.  A solve keeps one state and writes
-each restart into it, so that on the card every restart's chunk (the same
+:class:`_RestartedArnoldi` is the loop of both restarted solvers; each
+brings its projected problem and its extraction (Krylov-Schur:
+:mod:`eigenex_tpu_torch.solvers.krylov_schur`).  The engine is the
+*Arnoldi* chunk (:func:`eigenex_tpu_torch.solvers.arnoldi.arnoldi_steps`),
+whose per-step CGS2 over the live basis rows computes exactly the
+projected-matrix column needed after a restart.  One chunk fills the
+subspace, so the host and the device synchronise once per restart.  A
+solve keeps one state and :func:`_restart_into` writes each restart into
+it in place, so that on the card every restart's chunk (the same
 ``(k_start, num_steps)`` each time) replays one CUDA graph
 (:mod:`eigenex_tpu_torch.solvers.chunk_graph`).  Each pass of the loop runs
 under spans (:mod:`eigenex_tpu_torch.utils.profiling`): ``eigenex.wait``
 where the host waits for the device, ``eigenex.ritz`` for the projected
 eigenproblem and the convergence test, ``eigenex.restart`` for the
 restart itself (counted in ``solver.restarts``), ``eigenex.extract`` for
-the Ritz vectors at the end.  Convergence uses the Lanczos
-residual bound |beta_m y_{m,i}| <= tol * scale rather than the
-reference's successive-value test.
+the Ritz vectors at the end.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ..utils.profiling import annotate
 from ..utils.tolerance import default_breakdown_threshold, default_tolerance
 from ..utils.trace import ConvergenceTrace, Severity
 from . import chunk_graph
-from .arnoldi import ArnoldiState, _restart_into, arnoldi_steps, init_arnoldi_state
+from .arnoldi import ArnoldiState, arnoldi_steps, init_arnoldi_state
 from .lanczos import LanczosOptions, LanczosResult, _ritz_vectors
 
 __all__ = ["ThickRestartLanczosEigenSolver", "ThickRestartOptions"]
@@ -63,17 +67,45 @@ class ThickRestartOptions(LanczosOptions):
 
 
 @torch.no_grad()
-def _compress_basis(V: torch.Tensor, Yk, r: torch.Tensor) -> torch.Tensor:
-    """V_new[0:p] = Yk^T V[:m];  V_new[p] = r;  rest zero -- one matmul
-    (one a panel for a basis in per-shard column panels)."""
-    if not isinstance(V, torch.Tensor):
-        return V.map(lambda piece, r_piece: _compress_basis(piece, Yk, r_piece), r)
-    Yk = torch.as_tensor(np.asarray(Yk)).to(device=V.device, dtype=V.dtype)
-    m, p = Yk.shape
-    out = torch.zeros_like(V)
-    out[:p] = Yk.T @ V[:m]
-    out[p] = r
-    return out
+def _restart_into(state: ArnoldiState, Yk, block, row) -> ArnoldiState:
+    """A restart written into ``state``'s own tensors, so that the solve's
+    chunk graphs keep their addresses: ``V[:p] = Yk^T V[:m]`` for the (m, p)
+    coefficients ``Yk``, ``V[p] = V[m]`` (the residual row), ``block`` and
+    the coupling ``row`` under it as the projected matrix, ``k = p``, the
+    flags cleared.  The rows above p stay as they are: step ``kh`` reads
+    ``V[:kh + 1]`` alone, so none is read before it is written.  A basis in
+    per-shard panels (the mesh solvers, whose chunks return new tensors and
+    run eagerly) is written panel by panel, and the state bound anew."""
+    m = state.H.shape[1]
+    p = Yk.shape[1]
+    H = np.zeros((m + 1, m), np.result_type(block, row))
+    H[:p, :p] = block
+    H[p, :p] = row
+    H = torch.as_tensor(H).to(device=state.V.device, dtype=state.H.dtype)
+
+    def write(V):
+        Y = torch.as_tensor(np.asarray(Yk)).to(device=V.device, dtype=V.dtype)
+        kept = Y.T @ V[:Y.shape[0]]  # every row read before one is written
+        V[:p].copy_(kept)
+        V[p].copy_(V[Y.shape[0]])
+        return V
+
+    if not isinstance(state.V, torch.Tensor):
+        dev = H.device
+        return ArnoldiState(
+            V=state.V.map(write),
+            H=H,
+            k=torch.full((), p, dtype=torch.int64, device=dev),
+            breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+            residue=state.residue,
+            failed=torch.zeros((), dtype=torch.bool, device=dev),
+        )
+    write(state.V)
+    state.H.copy_(H)
+    state.k.fill_(p)
+    state.breakdown.zero_()
+    state.failed.zero_()
+    return state
 
 
 def _projected(H: torch.Tensor, k: int) -> np.ndarray:
@@ -83,20 +115,24 @@ def _projected(H: torch.Tensor, k: int) -> np.ndarray:
     return (Hk + Hk.conj().T) / 2
 
 
-class ThickRestartLanczosEigenSolver:
-    """Hermitian eigensolver with bounded memory via thick restarts.
+class _RestartedArnoldi:
+    """The restart loop: a chunk fills the subspace, the host solves the
+    projected problem, and its kept part starts the next chunk.  A solver
+    brings ``_project`` (the tracked values, their Ritz estimates, the stop
+    test, and the restart's coefficients, block and coupling row),
+    ``_extract``, and the types of its options, result and errors."""
 
-    Drop-in alternative to :class:`LanczosEigenSolver` when
-    ``max_subspace`` is far below what plain Lanczos would need (clustered
-    spectra, huge n).  Tracks the ``eigenvalue_indices`` of the ascending
-    Ritz ordering (negatives from the top), like the plain solver."""
+    _options_type = ThickRestartOptions
+    _result_type = LanczosResult
+    _error = LanczosError
+    _step = "Lanczos"  # the step a failure on the first one names
 
-    def __init__(self, operator=None, options: ThickRestartOptions | None = None):
+    def __init__(self, operator=None, options=None):
         self.operator = aslinearoperator(operator) if operator is not None else None
-        self.options = options or ThickRestartOptions()
+        self.options = options or self._options_type()
         self.trace = ConvergenceTrace()
         self._initial_vector = None
-        self._result: LanczosResult | None = None
+        self._result = None
 
     def set_initial_vector(self, v0):
         self._initial_vector = v0
@@ -104,20 +140,20 @@ class ThickRestartLanczosEigenSolver:
 
     @highest_f32_matmul()
     @chunk_graph.solve_graphs()
-    def compute(self, operator=None) -> LanczosResult:
+    def compute(self, operator=None):
         if operator is not None:
             self.operator = aslinearoperator(operator)
         op = self.operator
         if op is None:
-            raise LanczosError("no operator set")
+            raise self._error("no operator set")
         if op.shape[0] != op.shape[1]:
-            raise LanczosError(f"requires a square operator, got {op.shape}")
+            raise self._error(f"requires a square operator, got {op.shape}")
         o = self.options
         n = op.shape[1]
         nev = o.max_eigenvalues
         m = min(o.max_subspace, n)
         if m < nev + 2:
-            raise LanczosError(f"max_subspace={m} too small for {nev} eigenpairs")
+            raise self._error(f"max_subspace={m} too small for {nev} eigenpairs")
         p = o.num_kept if o.num_kept is not None else min(max(2 * nev, nev + 8), m - 2)
         p = min(p, m - 2)
         tol = o.tolerance if o.tolerance is not None else default_tolerance(op.dtype)
@@ -126,15 +162,14 @@ class ThickRestartLanczosEigenSolver:
             if o.breakdown_threshold is not None
             else default_breakdown_threshold(op.dtype)
         )
-        tracked = o.tracked_indices()
         self.trace = ConvergenceTrace()
         t0 = time.perf_counter()
 
         state = init_arnoldi_state(op, m, self._initial_vector, seed=o.seed, breakdown_threshold=bd)
         k = 0
-        total_iters = 0
+        total = 0
         termination = "max_restarts"
-        converged = False
+        terms = None
 
         for restart in range(o.max_restarts + 1):
             k0 = k
@@ -142,89 +177,68 @@ class ThickRestartLanczosEigenSolver:
             # the host/device synchronisation point, once per restart
             with annotate("eigenex.wait"):
                 k, has_broken, has_failed = state.host_flags()
-            total_iters += k - k0
+            total += k - k0
+            self._chunk_ran(k - k0)
             if has_failed:
                 termination = "numerical_failure"
-                converged = False
+                terms = None
                 self.trace.log(
                     Severity.ERROR,
-                    f"numerical failure at {total_iters} total iterations: "
-                    "non-finite projection (operator overflow or NaN)",
+                    f"numerical failure at {total} iterations: non-finite "
+                    "projected matrix (operator overflow or NaN)",
                 )
                 if k == 0:
-                    raise LanczosError("numerical failure on the first Lanczos step")
+                    raise self._error(f"numerical failure on the first {self._step} step")
                 break
             with annotate("eigenex.ritz"):
-                Hk = _projected(state.H, k)
-                theta, Y = np.linalg.eigh(Hk)
                 with annotate("eigenex.wait"):
-                    beta_m = float(self.state_residue(state))
-                # Lanczos residual bound per Ritz pair: |beta_m y_{m-1,i}|
-                resid = np.abs(beta_m * Y[k - 1, :])
-                idx = [i if i >= 0 else k + i for i in tracked]
-                idx = [i for i in idx if 0 <= i < k]
-                spread = float(theta[-1] - theta[0]) if k > 1 else 1.0
-                scale = max(spread, float(np.max(np.abs(theta))) if k else 1.0, 1e-300)
-                cur = theta[idx] if idx else np.zeros(0)
-                self.trace.record(total_iters, cur,
-                                  float(np.max(resid[idx]) if idx else np.nan),
-                                  time.perf_counter() - t0)
+                    beta = float(self.state_residue(state))
+                values, estimates, done, kept, terms = self._project(state, k, beta, p, tol)
+                worst = float(np.max(estimates)) if len(estimates) else np.nan
+                self.trace.record(total, values, worst, time.perf_counter() - t0)
 
             if has_broken:
                 termination = "breakdown"
-                converged = True
-                self.trace.log(Severity.INFO, f"breakdown at {total_iters} total iterations")
+                self.trace.log(Severity.INFO, f"breakdown at {total} iterations")
                 break
-            if idx and np.all(resid[idx] <= tol * scale):
+            if done:
                 termination = "converged"
-                converged = True
                 self.trace.log(
                     Severity.INFO,
-                    f"converged after {restart} restarts / {total_iters} iterations "
-                    f"(max residual bound {float(np.max(resid[idx])):.3e})",
+                    f"converged after {restart} restarts / {total} iterations "
+                    f"(max residual estimate {worst:.3e})",
                 )
                 break
             if restart == o.max_restarts:
                 self.trace.log(Severity.WARN, f"stopped at max_restarts={o.max_restarts}")
                 break
 
-            # ---- thick restart: keep the tracked pairs + nearest extras ----
             with annotate("eigenex.restart"):
-                keep = self._select_keep(theta, idx, p, k)
-                r = state.V[k].clone()  # unit residual direction
-                V_new = _compress_basis(state.V, Y[:, keep], r)
-                pk = len(keep)
-                H_new = np.zeros((m + 1, m), Hk.dtype)
-                H_new[:pk, :pk] = np.diag(theta[keep])
-                # arrowhead coupling row: <r, A u_i> = beta_m y_{m-1,i}
-                H_new[pk, :pk] = beta_m * Y[k - 1, keep]
-                dev = state.V.device
-                state = _restart_into(
-                    state, V_new, torch.as_tensor(H_new).to(device=dev, dtype=state.H.dtype), pk)
-                k = pk
+                state = _restart_into(state, *kept)
+                k = kept[0].shape[1]
             profiling.count("solver.restarts")
+            self._restarted(k)
 
-        # ---- extraction ----
         with annotate("eigenex.extract"):
-            theta, Y = np.linalg.eigh(_projected(state.H, k))
-            sel = [i if i >= 0 else k + i for i in tracked]
-            sel = [i for i in sel if 0 <= i < k] or list(range(min(nev, k)))
-            evals = theta[sel] - np.real(o.eigenvalue_shift)
-            vecs = None
-            if o.compute_eigenvectors:
-                vecs = _ritz_vectors(state.V, Y[:, sel], k)
-        self._result = LanczosResult(
+            evals, vecs = self._extract(state, k, terms)
+        self._result = self._result_type(
             eigenvalues=evals,
             eigenvectors=vecs,
-            iterations=total_iters,
-            converged=converged,
+            iterations=total,
+            converged=termination in ("breakdown", "converged"),
             termination=termination,
             trace=self.trace,
         )
         return self._result
 
+    def _chunk_ran(self, steps: int) -> None:
+        """Told the steps of each chunk, once the host has them."""
+
+    def _restarted(self, kept: int) -> None:
+        """Told the kept dimension of each restart, once it is written."""
+
     def _run_arnoldi_chunk(self, op, state, num_steps, breakdown_threshold):
-        """One Arnoldi chunk."""
+        """One Arnoldi chunk (the distributed solvers run it over a mesh)."""
         return arnoldi_steps(
             op,
             state,
@@ -236,8 +250,57 @@ class ThickRestartLanczosEigenSolver:
     @staticmethod
     def state_residue(state: ArnoldiState) -> float:
         """||w|| after the last orthogonalisation: the beta_m of the
-        residual bound and of the arrowhead coupling row."""
+        residual bound and of the coupling row."""
         return float(state.residue)
+
+    @property
+    def eigenvalues(self):
+        if self._result is None:
+            raise self._error("compute() has not been run")
+        return self._result.eigenvalues
+
+    @property
+    def eigenvectors(self):
+        if self._result is None:
+            raise self._error("compute() has not been run")
+        return self._result.eigenvectors
+
+
+class ThickRestartLanczosEigenSolver(_RestartedArnoldi):
+    """Hermitian eigensolver with bounded memory via thick restarts.
+
+    Drop-in alternative to :class:`LanczosEigenSolver` when
+    ``max_subspace`` is far below what plain Lanczos would need (clustered
+    spectra, huge n).  Tracks the ``eigenvalue_indices`` of the ascending
+    Ritz ordering (negatives from the top), like the plain solver."""
+
+    def _tracked(self, k: int) -> list[int]:
+        """The tracked indices that lie in [0, k), negatives from the top."""
+        idx = [i if i >= 0 else k + i for i in self.options.tracked_indices()]
+        return [i for i in idx if 0 <= i < k]
+
+    def _project(self, state, k, beta_m, p, tol):
+        """``eigh`` of the symmetrised projected matrix; each tracked pair's
+        Lanczos residual bound |beta_m y_{m-1,i}| against tol times the
+        spread of the Ritz values.  A restart keeps the tracked pairs and
+        their nearest neighbours, with the arrowhead coupling row <r, A u_i>
+        = beta_m y_{m-1,i}."""
+        theta, Y = np.linalg.eigh(_projected(state.H, k))
+        resid = np.abs(beta_m * Y[k - 1, :])
+        idx = self._tracked(k)
+        spread = float(theta[-1] - theta[0]) if k > 1 else 1.0
+        scale = max(spread, float(np.max(np.abs(theta))) if k else 1.0, 1e-300)
+        done = bool(idx) and bool(np.all(resid[idx] <= tol * scale))
+        keep = self._select_keep(theta, idx, p, k)
+        kept = Y[:, keep], np.diag(theta[keep]), beta_m * Y[k - 1, keep]
+        return theta[idx] if idx else np.zeros(0), resid[idx], done, kept, None
+
+    def _extract(self, state, k, terms):
+        o = self.options
+        theta, Y = np.linalg.eigh(_projected(state.H, k))
+        sel = self._tracked(k) or list(range(min(o.max_eigenvalues, k)))
+        vecs = _ritz_vectors(state.V, Y[:, sel], k) if o.compute_eigenvectors else None
+        return theta[sel] - np.real(o.eigenvalue_shift), vecs
 
     @staticmethod
     def _select_keep(theta: np.ndarray, tracked_idx: list[int], p: int, k: int) -> list[int]:
@@ -261,15 +324,3 @@ class ThickRestartLanczosEigenSolver:
                 keep.append(grow_hi)
                 grow_hi += 1
         return sorted(set(keep))
-
-    @property
-    def eigenvalues(self):
-        if self._result is None:
-            raise LanczosError("compute() has not been run")
-        return self._result.eigenvalues
-
-    @property
-    def eigenvectors(self):
-        if self._result is None:
-            raise LanczosError("compute() has not been run")
-        return self._result.eigenvectors

@@ -58,7 +58,7 @@ def ks_tail():
 
     import eigenex_tpu.solvers.arnoldi as ja
     import eigenex_tpu_torch.solvers.arnoldi as pa
-    import eigenex_tpu_torch.solvers.krylov_schur as pks
+    import eigenex_tpu_torch.solvers.restart as prs
     from eigenex_tpu.solvers.api import eigs as j_eigs
     from eigenex_tpu.sparse.coo import COOMatrix as JCOO
 
@@ -92,21 +92,22 @@ def ks_tail():
     diff = np.linalg.norm(Hj - Hp, axis=0) / np.linalg.norm(Hj, axis=0)
     print(f"first fill: Hessenberg column 0 parts at {diff[0]:.2e}, columns "
           f"{diff.min():.1e}-{diff.max():.1e}")
-    own = pks._compress_basis
+    own = prs._restart_into
 
-    def reference_order(V, Yk, r):
-        Yk = torch.as_tensor(np.asarray(Yk)).to(device=V.device, dtype=V.dtype)
-        out = torch.zeros_like(V)
-        out[: Yk.shape[1]] = (V[: Yk.shape[0]].T @ Yk).T
-        out[Yk.shape[1]] = r
-        return out
+    def reference_order(state, Yk, block, row):
+        # the port's restart write, its kept rows the reference's product (V^T Yk)^T
+        Y = torch.as_tensor(np.asarray(Yk)).to(device=state.V.device, dtype=state.V.dtype)
+        kept = (state.V[: Y.shape[0]].T @ Y).T
+        state = own(state, Yk, block, row)
+        state.V[: Y.shape[1]] = kept
+        return state
 
-    pks._compress_basis = reference_order
+    prs._restart_into = reference_order
     try:
         got2 = ext.eigs(pcoo, k=4, which="LM", tol=1e-6, v0=torch.as_tensor(v0), max_restarts=400,
                         device="cpu")
     finally:
-        pks._compress_basis = own
+        prs._restart_into = own
     print(f"port with the reference's compression order: {len(got2.trace.residuals) - 1} restarts")
     for k in range(4):
         vp = v0.copy()

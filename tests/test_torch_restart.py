@@ -93,3 +93,43 @@ def test_configuration_errors():
         tr.ThickRestartLanczosEigenSolver().compute()
     with pytest.raises(LanczosError):
         tr.ThickRestartLanczosEigenSolver(top).eigenvalues
+
+
+@pytest.mark.parametrize("solver", ["thick_restart", "krylov_schur"])
+def test_rows_above_the_kept_ones_are_never_read(solver, monkeypatch):
+    """A restart writes rows [:p + 1] of the basis in place and leaves the
+    rows above as they were.  Filled with NaN right after each restart,
+    they change nothing: the eigenvalues, iterations and trace are those of
+    the solve that leaves them be."""
+    from eigenex_tpu_torch.solvers import krylov_schur as tks
+
+    rng = np.random.default_rng(6)
+    A = rng.standard_normal((160, 160))
+    if solver == "thick_restart":
+        A = (A + A.T) / 2
+        make = lambda: tr.ThickRestartLanczosEigenSolver(torch.as_tensor(A), tr.ThickRestartOptions(
+            max_eigenvalues=3, tolerance=1e-10, max_subspace=20, max_restarts=200))
+    else:
+        make = lambda: tks.KrylovSchurArnoldiSolver(torch.as_tensor(A), tks.KrylovSchurOptions(
+            max_eigenvalues=4, tolerance=1e-10, max_subspace=24, max_restarts=200))
+    v0 = torch.as_tensor(rng.standard_normal(160))
+    plain = make().set_initial_vector(v0).compute()
+    write, poisoned_rows = tr._restart_into, []
+
+    def poisoned(state, Yk, block, row):
+        state = write(state, Yk, block, row)
+        state.V[Yk.shape[1] + 1:] = float("nan")
+        poisoned_rows.append(state.V.shape[0] - Yk.shape[1] - 1)
+        return state
+
+    monkeypatch.setattr(tr, "_restart_into", poisoned)
+    res = make().set_initial_vector(v0).compute()
+    assert len(poisoned_rows) >= 3 and min(poisoned_rows) > 0
+    assert plain.converged and res.termination == plain.termination
+    np.testing.assert_array_equal(res.eigenvalues, plain.eigenvalues)
+    assert res.iterations == plain.iterations
+    assert res.trace.iterations == plain.trace.iterations
+    np.testing.assert_array_equal(res.trace.residuals, plain.trace.residuals)
+    for got, want in zip(res.trace.ritz_values, plain.trace.ritz_values, strict=True):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(res.eigenvectors.numpy(), plain.eigenvectors.numpy())
