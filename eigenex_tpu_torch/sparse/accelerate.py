@@ -65,6 +65,8 @@ package loads in the other.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
 from typing import Any
 
@@ -75,7 +77,7 @@ from .. import native
 from ..core.operators import LinearOperator
 from ..utils.device import resolve_device
 from ..utils.exceptions import EigenexError
-from ..utils.profiling import add_span, annotate
+from ..utils.profiling import add_span, annotate, count
 from ..utils.prng import make_generator, random_vector
 from ..utils.tolerance import as_torch_dtype
 from .bsr import BSRMatrix, _pack_bsr_host
@@ -416,6 +418,46 @@ def _padding_safe_v0(orig_n: int, padded_n: int, dtype, seed: int, device) -> to
     return out
 
 
+#: one D2H copy through a staging buffer at a time (the buffer is reused)
+_STAGING_LOCK = threading.Lock()
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A tensor, detached, or a host array as a tensor over its memory (a
+    copy only where torch cannot map it: read-only or negatively strided)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    a = np.asarray(a)
+    if not a.flags.writeable or min(a.strides, default=0) < 0:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
+def _moved(v: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``v`` on ``device``: as it is when it is there, else moved once (the
+    bytes of a move from a device to the host are counted)."""
+    if v.device == device:
+        return v
+    if device.type == "cpu":
+        count("accelerate.d2h_bytes", v.numel() * v.element_size())
+    return v.to(device)
+
+
+def _host_counted(method):
+    """Count the host ms spent inside ``method`` as ``accelerate.host_ms``,
+    with no profiler running too."""
+
+    @functools.wraps(method)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return method(*args, **kwargs)
+        finally:
+            count("accelerate.host_ms", (time.perf_counter() - t0) * 1e3)
+
+    return timed
+
+
 @dataclasses.dataclass(frozen=True)
 class AcceleratedOperator:
     """A scalar-sparse operator repacked for the block kernels.
@@ -425,7 +467,8 @@ class AcceleratedOperator:
     permutation; a rectangular operator has a row permutation of its own,
     ``matrix`` = ``P_r A P^T``.  Solvers run here; :meth:`embed` carries
     original-space vectors in and :meth:`restore` carries results back
-    (one host-side permutation each -- never a per-matvec gather)."""
+    (one index operation each, on the vectors' device -- never a
+    per-matvec gather)."""
 
     matrix: Any  # SymBSRMatrix | SymCSRMatrix | BSRMatrix, permuted + padded
     perm: np.ndarray  # (n_work,) original COLUMN index at permuted position i
@@ -473,92 +516,140 @@ class AcceleratedOperator:
         (f64 containers must not truncate inputs to f32)."""
         return torch.float64 if self.matrix.dtype == torch.float64 else torch.float32
 
+    # -- the boundary between original and permuted coordinates -----------
+    # Vectors cross it by one gather (:meth:`_gather`) and one scatter
+    # (:meth:`_scatter`), as index operations on the device the vectors
+    # live on: the host sees only the answer, once.
+
     @annotate("eigenex.embed")
+    @_host_counted
     def embed(self, v) -> torch.Tensor:
         """Original-space (n,) or (n, k) vector(s) -> permuted,
         zero-padded tensor on the operator's device.  Complex inputs
-        realify to [Re v; Im v] first when the operator was complexified."""
-        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        squeeze = v.ndim == 1
-        if squeeze:
-            v = v[:, None]
+        realify to [Re v; Im v] first when the operator was complexified.
+        A tensor already on that device stays there; anything else is
+        moved there once."""
+        v = _as_tensor(v)
         if v.shape[0] != self.orig_shape[1]:
             raise EigenexError(
                 f"embed expects length {self.orig_shape[1]}, got {v.shape[0]}"
             )
-        if self.complexified:
-            v = np.concatenate([v.real, v.imag], axis=0)
-        elif np.iscomplexobj(v):
+        if v.is_complex() and not self.complexified:
             raise EigenexError("complex vector for a real operator")
-        out = torch.zeros((self.shape[1], v.shape[1]), dtype=self._embed_dtype)
-        out[: self.n_work] = torch.as_tensor(v[self.perm]).to(self._embed_dtype)
-        if squeeze:
-            out = out[:, 0]
-        return out.contiguous().to(self.device)
+        v = _moved(v, self.device)
+        if self.complexified:
+            v = torch.cat([v.real, v.imag] if v.is_complex() else [v, torch.zeros_like(v)])
+        return self._gather(v, rows=False)
 
     @annotate("eigenex.restore")
+    @_host_counted
     def restore(self, V) -> np.ndarray:
         """Permuted-padded ROW-space (m_pad,) or (m_pad, k) result(s) ->
-        original row coordinates, as a host array (complex when the operator
-        was complexified).  For a square operator rows and columns share one
-        permutation, so this inverts :meth:`embed`."""
-        V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
-        squeeze = V.ndim == 1
-        if squeeze:
-            V = V[:, None]
+        original row coordinates, as a new host array (complex when the
+        operator was complexified).  For a square operator rows and columns
+        share one permutation, so this inverts :meth:`embed`."""
+        V = _as_tensor(V)
         if V.shape[0] != self.shape[0]:
             raise EigenexError(
                 f"restore expects length {self.shape[0]}, got {V.shape[0]}"
             )
-        rp = self._row_perm
-        out = np.zeros((len(rp), V.shape[1]), V.dtype)
-        out[rp] = V[: len(rp)]
+        out = self._scatter(V, rows=True)
         if self.complexified:
             n = self.orig_shape[0]
             out = out[:n] + 1j * out[n:]
-        if squeeze:
-            out = out[:, 0]
         return out
 
     # -- the svds pipeline (rectangular operands) -------------------------
+    @_host_counted
     def embed_left(self, v) -> torch.Tensor:
         """Original ROW-space vector(s) -> permuted, zero-padded tensor over
         the operator's OUTPUT side: the input side of A^H in the ``svds``
         Gram pipeline (the rectangular analog of :meth:`embed`)."""
-        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        squeeze = v.ndim == 1
-        if squeeze:
-            v = v[:, None]
+        v = _as_tensor(v)
         if v.shape[0] != self.orig_shape[0]:
             raise EigenexError(
                 f"embed_left expects length {self.orig_shape[0]}, got {v.shape[0]}"
             )
-        if np.iscomplexobj(v):
+        if v.is_complex():
             raise EigenexError("complex vector for a real operator")
-        rp = self._row_perm
-        out = torch.zeros((self.shape[0], v.shape[1]), dtype=self._embed_dtype)
-        out[: len(rp)] = torch.as_tensor(v[rp]).to(self._embed_dtype)
-        if squeeze:
-            out = out[:, 0]
-        return out.contiguous().to(self.device)
+        return self._gather(_moved(v, self.device), rows=True)
 
+    @_host_counted
     def restore_right(self, V) -> np.ndarray:
         """Permuted-padded COLUMN-space result(s) -> original column space:
         the right singular vectors of the ``svds`` pipeline (the rectangular
         analog of :meth:`restore`)."""
-        V = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else np.asarray(V)
-        squeeze = V.ndim == 1
-        if squeeze:
-            V = V[:, None]
+        V = _as_tensor(V)
         if V.shape[0] != self.shape[1]:
             raise EigenexError(
                 f"restore_right expects length {self.shape[1]}, got {V.shape[0]}"
             )
-        out = np.zeros((self.n_work, V.shape[1]), V.dtype)
-        out[self.perm] = V[: self.n_work]
-        if squeeze:
-            out = out[:, 0]
+        return self._scatter(V, rows=False)
+
+    def _gather(self, v: torch.Tensor, rows: bool) -> torch.Tensor:
+        """Original-order ``v`` -> permuted order (``rows``: the row side's
+        permutation), zero-padded to that side's padded length, in the embed
+        dtype, on ``v``'s device."""
+        index = self._index(rows, inverse=False, device=v.device)
+        out = torch.zeros((self.shape[0 if rows else 1],) + tuple(v.shape[1:]),
+                          dtype=self._embed_dtype, device=v.device)
+        out[: len(index)] = v.index_select(0, index)
         return out
+
+    def _scatter(self, V: torch.Tensor, rows: bool) -> np.ndarray:
+        """Permuted-padded ``V`` -> original order, as a new host array: a
+        gather by the inverse permutation on ``V``'s device, which writes each
+        row once (no atomics, so re-runs are bit-equal), then one copy to the
+        host."""
+        out = V.index_select(0, self._index(rows, inverse=True, device=V.device))
+        if out.device.type == "cpu":
+            return out.numpy()  # index_select made it: nothing else holds it
+        count("accelerate.d2h_bytes", out.numel() * out.element_size())
+        return self._copy_to_host(out)
+
+    def _copy_to_host(self, out: torch.Tensor) -> np.ndarray:
+        """A device tensor -> a new NumPy array the caller owns, through a
+        pinned staging buffer kept on the operator and reused (grown when a
+        result is larger): one DMA copy, then one host copy out of it, so
+        no result ever pins memory of its own.  The host copy is torch's,
+        on the intra-op threads: writing a fresh array faults in its pages,
+        and that work splits across cores."""
+        nbytes = out.numel() * out.element_size()
+        with _STAGING_LOCK:
+            staging = self.__dict__.get("_staging")
+            if staging is None or staging.numel() < nbytes:
+                staging = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                object.__setattr__(self, "_staging", staging)
+            host = staging[:nbytes].view(out.dtype).view(out.shape)
+            host.copy_(out)
+            res = np.empty(tuple(out.shape), host.numpy().dtype)
+            torch.from_numpy(res).copy_(host)
+            return res
+
+    def _index(self, rows: bool, inverse: bool, device: torch.device) -> torch.Tensor:
+        """The permutation (``rows``: the row side's) or its inverse as an
+        index on ``device``, uploaded for one call and freed with it.  Its host
+        copy is made on first use and kept: int32 (int64 past 2**31 rows),
+        pinned where it goes to the card, so the upload does not block the
+        host.  Nothing is kept on the card: a resident index would add to
+        every solve's peak device memory."""
+        rows = rows and self.row_perm is not None  # square: one permutation
+        cache = self.__dict__.get("_index_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_index_cache", cache)
+        host = cache.get((rows, inverse))
+        if host is None:
+            perm = np.asarray(self.row_perm if rows else self.perm)
+            if inverse:
+                inv = np.empty_like(perm)
+                inv[perm] = np.arange(len(perm))
+                perm = inv
+            host = torch.from_numpy(perm.astype(np.int32 if len(perm) < 2**31 else np.int64))
+        if device.type == "cuda" and not host.is_pinned():
+            host = host.pin_memory()
+        cache[(rows, inverse)] = host
+        return host.to(device, non_blocking=True)
 
     def block_matrix(self):
         """The operator as a block container, for the routes that take only

@@ -22,6 +22,7 @@ import torch
 import eigenex_tpu.native as j_native
 import eigenex_tpu_torch.native as t_native
 
+import _embed_reference as embed_reference
 from _reference_native import NOT_LOADED, ensure_reference_native
 
 ensure_reference_native()
@@ -510,3 +511,17 @@ def test_eigsh_accelerate_complex_hermitian(numpy_route, route):
     for j in range(2):
         z = rt.eigenvectors[:, j]
         assert np.linalg.norm(H @ z - rt.eigenvalues[j] * z) < 1e-8
+
+
+@pytest.mark.parametrize("ndim", [1, 2])
+@pytest.mark.parametrize("source", ["numpy", "cpu"], ids=["numpy", "host_torch"])
+@pytest.mark.parametrize("container", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("kind", ["square", "rectangular", "complexified"])
+def test_boundary_methods_equal_the_numpy_reference(kind, container, source, ndim):
+    """``embed``/``embed_left``/``restore``/``restore_right`` give the bytes,
+    dtypes and shapes of the host NumPy gather and scatter
+    (``tests/_embed_reference.py``), raise its messages, and return a new
+    array from every restore; the card's inputs in ``test_torch_cuda.py``."""
+    acc = embed_reference.operator(kind, container, "cpu")
+    embed_reference.check_against_reference(acc, source, ndim)

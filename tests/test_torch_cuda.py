@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _embed_reference as embed_reference
 from eigenex_tpu_torch import eigsh
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
@@ -736,3 +737,51 @@ def test_a_low_fill_sector_is_stored_row_compressed_on_the_card(card):
     x = acc.embed(np.random.default_rng(6).standard_normal(acc.orig_shape[0]))
     y, yb = acc.matrix.matvec(x), block.matvec(x)
     assert float(torch.linalg.vector_norm(y - yb) / torch.linalg.vector_norm(yb)) <= 1e-6
+
+
+@pytest.mark.parametrize("ndim", [1, 2])
+@pytest.mark.parametrize("kind", ["square", "rectangular", "complexified"])
+def test_boundary_methods_on_card_tensors_equal_the_numpy_reference(card, kind, ndim):
+    """The boundary methods of a pack on the card, given tensors on the card,
+    against the host NumPy gather and scatter: bytes, dtypes, shapes, the
+    error messages, and restores that return arrays of their own though they
+    share one pinned staging buffer."""
+    acc = embed_reference.operator(kind, torch.float32, card)
+    embed_reference.check_against_reference(acc, str(card), ndim)
+
+
+def test_an_accelerated_solve_copies_only_its_answer_to_the_host(card, monkeypatch):
+    """On the card an embed of a card ``v0`` copies nothing to the host and a
+    restore copies its k answers once; a solve and its restore leave no
+    permutation on the card; and ``eigsh`` gives the bytes and iterations of
+    the host route, to which the same start vector goes through NumPy."""
+    from eigenex_tpu_torch import accelerate
+    from eigenex_tpu_torch.block.hamiltonians import heisenberg_sector_coo
+    from eigenex_tpu_torch.sparse.accelerate import AcceleratedOperator
+    from eigenex_tpu_torch.utils import profiling
+
+    acc = accelerate(heisenberg_sector_coo(14, 7, 1.0, 1.0, False, device="cpu"),
+                     symmetric=True, device=card)
+    n = acc.orig_shape[0]
+    v0 = torch.randn(n, generator=torch.Generator(card).manual_seed(3), device=card)
+    solve = dict(k=4, which="SA", tol=1e-8, max_subspace=20, v0=v0)
+    eigsh(acc, **solve)  # the first solve makes the cached host index and the workspaces
+    torch.cuda.synchronize(card)
+    profiling.reset_counters("accelerate.")
+    acc.embed(v0)
+    assert profiling.counters("accelerate.").get("accelerate.d2h_bytes", 0) == 0
+    acc.restore(torch.zeros((acc.shape[0], 4), device=card))
+    assert profiling.counters("accelerate.")["accelerate.d2h_bytes"] == 4 * n * 4
+    before = torch.cuda.memory_allocated(card)
+    got = eigsh(acc, **solve)
+    torch.cuda.synchronize(card)
+    assert torch.cuda.memory_allocated(card) == before
+    monkeypatch.setattr(AcceleratedOperator, "embed",
+                        lambda self, v: embed_reference.embed(self, v).to(self.device))
+    monkeypatch.setattr(AcceleratedOperator, "restore", embed_reference.restore)
+    want = eigsh(acc, **solve)
+    assert got.iterations == want.iterations and got.converged
+    assert got.eigenvalues.tobytes() == want.eigenvalues.tobytes()
+    assert got.eigenvectors.dtype == want.eigenvectors.dtype
+    assert got.eigenvectors.tobytes() == want.eigenvectors.tobytes()
+

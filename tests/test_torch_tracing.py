@@ -217,6 +217,22 @@ def test_an_accelerated_solve_spans_build_pack_embed_and_restore():
     assert all(r["solve"] == solve["solve"] for r in records["eigenex.cgs2"])
 
 
+def test_an_accelerated_solve_counts_its_boundary_host_time_and_no_copy_off_the_cpu():
+    """``accelerate.host_ms`` grows with each accelerated solve, with no span
+    recorded; nothing crosses a device boundary for an operator on the CPU,
+    so ``accelerate.d2h_bytes`` stays 0."""
+    coo = heisenberg_sector_coo(10, 5, device="cpu")
+    acc = ext.accelerate(coo, symmetric=True, device="cpu")
+    v0 = np.random.default_rng(5).standard_normal(coo.shape[0])
+    ext.eigsh(acc, k=2, which="SA", max_subspace=20, v0=v0)
+    first = profiling.counters("accelerate.")
+    assert first["accelerate.host_ms"] > 0
+    ext.eigsh(acc, k=2, which="SA", max_subspace=20, v0=torch.as_tensor(v0))
+    counted = profiling.counters("accelerate.")
+    assert counted["accelerate.host_ms"] > first["accelerate.host_ms"]
+    assert counted.get("accelerate.d2h_bytes", 0) == 0 and profiling.spans() == []
+
+
 def test_graph_and_launch_counts_are_views_of_the_one_store():
     profiling.count("graph.replays", 3)
     profiling.count("graph.capture_ms", 2.5)
@@ -255,7 +271,7 @@ def context(cuda: bool) -> core.Context:
 COUNTS = {"solver.solves": 4, "solver.restarts": 54, "solver.iterations": 512,
           "solver.launches": 512, "graph.replays": 50, "graph.warmups": 8, "graph.eager": 0,
           "graph.capture_ms": 100.0, "launch.sym_bsr_spmv": 600, "ks.steps": 2000, "ks.kept": 648,
-          "ks.host_ms": 27.0, "cgs2.rows": 12880, "cgs2.steps": 160}
+          "ks.host_ms": 27.0, "cgs2.rows": 12880, "cgs2.steps": 160, "accelerate.host_ms": 10.0}
 KS_METRICS = ["ks_matvecs_per_solve", "ks_kept_per_restart", "ks_host_ms_per_restart"]
 
 
@@ -268,6 +284,7 @@ KS_METRICS = ["ks_matvecs_per_solve", "ks_kept_per_restart", "ks_host_ms_per_res
     ("ks_kept_per_restart", 12.0),
     ("ks_host_ms_per_restart", 0.5),
     ("cgs2_rows_per_step", 80.5),
+    ("embed_restore_ms", 2.5),
 ])
 def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
     for name, n in COUNTS.items():
@@ -278,7 +295,8 @@ def test_each_counter_reader_from_counts_set_by_hand(metric, expected):
 
 
 @pytest.mark.parametrize("metric", ["restarts_per_solve", "replay_share", "capture_ms",
-                                    "launches_per_matvec", "cgs2_rows_per_step"] + KS_METRICS)
+                                    "launches_per_matvec", "cgs2_rows_per_step",
+                                    "embed_restore_ms"] + KS_METRICS)
 def test_each_counter_reader_gives_none_without_counts(metric):
     reader = core.load_module(core.BENCH / "metrics" / f"{metric}.py", "metric")
     assert reader.read(context(True)) is None
@@ -302,4 +320,14 @@ def test_cgs2_reader_gives_none_for_a_program_without_cgs2_counts():
         if not name.startswith("cgs2."):
             profiling.count(name, n)
     reader = core.load_module(core.BENCH / "metrics" / "cgs2_rows_per_step.py", "metric")
+    assert reader.read(context(True)) is None
+
+
+def test_embed_restore_reader_gives_none_for_a_program_without_accelerate_counts():
+    """A program that counts solves but keeps no ``accelerate.host_ms``
+    (the port before that counter) gives no reading, not a zero."""
+    for name, n in COUNTS.items():
+        if not name.startswith("accelerate."):
+            profiling.count(name, n)
+    reader = core.load_module(core.BENCH / "metrics" / "embed_restore_ms.py", "metric")
     assert reader.read(context(True)) is None
