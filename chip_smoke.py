@@ -36,7 +36,9 @@ filter) through the SpMM kernels -- at full size:
                          ``eigs(k=4, which="LM", accelerate=True)``: a (3124, 5, 32, 128)
                          f32 general pack on the general SpMV kernel.
 12. ``eigs_sigma``       GMRES shift-invert ``eigs(sigma=...)`` on the same stencil at a
-                         reduced nx = 128 (every outer matvec is a whole inner solve).
+                         reduced nx = 128 (every outer matvec is a whole inner solve); the
+                         benchmark times the same request in its cell ``convdiff_128.sigma``
+                         (``eigbench/traffic/sigma.json``), from seeded start vectors.
 13. ``eigsh_complex_accelerated``  a complex Hermitian hopping chain at n = 2^18 through
                          the real embedding (n = 2^19, f32) on the symmetric SpMV kernel.
 14. ``expm_accelerated`` ``expm_multiply`` on the bf16 accelerated operator of phase 5,
@@ -324,7 +326,10 @@ EIGS_BELOW_TOP = 5e-2      # each Re(lambda) at least the closed-form top minus 
                            # symmetrizer's condition is ~1e58), and f64 ARPACK already misses the
                            # closed form by 0.04-0.08 at nx = 80-100 (PERF.md)
 SIGMA_NX = 128             # phase eigs_sigma: the same stencil at n = 16,384 (reduced: one outer
-                           # matvec is a whole GMRES solve)
+                           # matvec is a whole GMRES solve).  This request (SIGMA_NX, CD_CONV, SIGMA,
+                           # SIGMA_K, SIGMA_TOL, SIGMA_INNER_TOL) is the benchmark cell
+                           # convdiff_128.sigma's: keep it equal to eigbench/traffic/sigma.json and
+                           # eigbench/configs/convdiff_128.py
 SIGMA = 8.5                # its shift: just above the spectrum (real parts <= 7.67), where GMRES(48)
                            # converges in one cycle; at an interior 7.5 it stagnates and every
                            # solve falls back to CGLS, which misses an f32 target (PERF.md)

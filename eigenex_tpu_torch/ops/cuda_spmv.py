@@ -121,10 +121,12 @@ _SELF_ADJOINT = frozenset({"sym_bsr_spmv", "sym_bsr_spmm", "csr_spmv"})
 #: kernel name -> its launch counter
 _LAUNCH_COUNTERS = {name: f"launch.{name}" for name in KERNEL_SOURCES}
 _HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
-#: sources that bind a CUDA library rather than hold a kernel of their own ->
-#: their file under ``csrc/``; built by :func:`build_kernels` like the kernels
+#: sources outside the SpMV family, whose launches are not counted here ->
+#: their file under ``csrc/``: a CUDA library's binding or a solver's kernel;
+#: built by :func:`build_kernels` like the kernels
 LIBRARY_SOURCES = {
     "tridiag_solve": "tridiag_solve.cu",  # cuSPARSE gtsv2 (solvers/direct.py)
+    "arnoldi_step": "arnoldi_step.cu",  # an Arnoldi step's tail (ops/arnoldi_step.py)
 }
 #: extra ``nvcc`` arguments of one source: the libraries it links
 _LINK_FLAGS = {"tridiag_solve": ("-lcusparse",)}

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
+from ..ops import arnoldi_step
 from ..ops.orthogonalize import cgs2, norm_psum, project_out
 from ..utils import profiling
 from ..utils.exceptions import ArnoldiError
@@ -165,17 +166,13 @@ def _arnoldi_chunk_body(
     ``comm``: as for the Lanczos chunk (the JAX body's ``axis_name``)."""
     V, H = state.V, state.H
     k, breakdown, failed, residue_prev = state.k, state.breakdown, state.failed, state.residue
-    m = H.shape[1]
-    dtype = V.dtype
     rdt = residue_prev.dtype
-    dev = V.device
-    thr = torch.full((), breakdown_threshold, dtype=rdt, device=dev)
-    one = torch.ones((), dtype=rdt, device=dev)
-    zero = torch.zeros((), dtype=rdt, device=dev)
     has_shift = not (isinstance(shift, (int, float, complex)) and shift == 0)
+    # the step's tail (flags, guards, the column of H and the next row of V)
+    # in one launch on the card where the basis is real, on one device
+    tail = arnoldi_step.step_tail if comm is None else arnoldi_step.step_tail_plain
 
     for kh in range(int(k_start), int(k_start) + int(num_steps)):
-        active = torch.logical_not(breakdown | failed)
         vk = V[kh]
         w = op.matvec(vk)
         if has_shift:
@@ -190,31 +187,8 @@ def _arnoldi_chunk_body(
             # geometrically (cf. arnoldi.hpp:373-375)
             w = project_out(deflate, w, comm=comm)
         residue = norm_psum(w, comm).to(rdt)
-        # NaN/Inf guard (cf. the reference's residue-breakdown exits,
-        # arnoldi.hpp:277-288): non-finite Hessenberg column or residue
-        # means the matvec overflowed -- terminate, don't iterate garbage.
-        failed_now = torch.logical_not(
-            torch.isfinite(residue) & torch.all(torch.isfinite(c))
-        )
-        broke = torch.logical_not(failed_now) & (residue <= thr)
-        ok = torch.logical_not(broke | failed_now)
-        safe = torch.where(ok, residue, one)
-        # the next row is zero on breakdown/failure and never read;
-        # selection keeps NaNs out
-        v_next = torch.where(ok, w / safe.to(dtype), torch.zeros_like(w))
-        # column k of H: the kh + 1 projection coefficients, the
-        # subdiagonal residue, zeros below
-        h_col = torch.nn.functional.pad(c, (0, m - kh))
-        h_col[kh + 1] = torch.where(ok, residue, zero).to(dtype)
-        h_col = torch.where(failed_now, torch.zeros_like(h_col), h_col)
-        # in-place writes (the JAX chunk's H.at[:, k].set / V.at[k+1].set);
-        # an inactive step writes back what is already there
-        H[:, kh] = torch.where(active, h_col, H[:, kh])
-        V[kh + 1] = torch.where(active, v_next, V[kh + 1])
-        k = k + (active & torch.logical_not(failed_now)).to(k.dtype)
-        breakdown = breakdown | (active & broke)
-        residue_prev = torch.where(active & torch.logical_not(failed_now), residue, residue_prev)
-        failed = failed | (active & failed_now)
+        k, breakdown, residue_prev, failed = tail(
+            V, H, c, w, residue, breakdown_threshold, kh, k, breakdown, residue_prev, failed)
 
     return ArnoldiState(V=V, H=H, k=k, breakdown=breakdown, residue=residue_prev, failed=failed)
 
@@ -241,10 +215,13 @@ def _arnoldi_chunk(
     The chunk's CGS2 work is counted here, which replays pass through too:
     ``cgs2.rows`` adds the rows one pass reads at each step (``kh + 1`` at
     step ``kh``), ``cgs2.steps`` the steps; on a mesh each shard counts its
-    own chunk."""
+    own chunk.  ``arnoldi.fused_steps`` counts the steps whose tail is one
+    launch of the kernel of :mod:`~eigenex_tpu_torch.ops.arnoldi_step`."""
     k_start, num_steps = int(k_start), int(num_steps)
     profiling.count("cgs2.rows", num_steps * (2 * k_start + num_steps + 1) // 2)
     profiling.count("cgs2.steps", num_steps)
+    if comm is None and arnoldi_step.fused(state.V):
+        profiling.count("arnoldi.fused_steps", num_steps)
 
     def body():
         return _arnoldi_chunk_body(op, state, shift, breakdown_threshold, deflate,

@@ -4,7 +4,8 @@ The JAX package compiles its Arnoldi chunk once per configuration,
 ``_arnoldi_chunk = jax.jit(_arnoldi_chunk_body, static_argnames=...)``
 (``eigenex_tpu/solvers/arnoldi.py:236-238``), and every later call with the
 same static arguments runs the compiled program.  Eager PyTorch replays the
-body from Python instead, about 40 torch ops and a kernel launch a step.
+body from Python instead, about 15 kernel launches a step on the card (the
+step's tail is one, :mod:`~eigenex_tpu_torch.ops.arnoldi_step`).
 Here a CUDA graph of the body stands for the compiled program: one replay
 launches every kernel of the chunk.
 

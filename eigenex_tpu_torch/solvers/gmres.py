@@ -6,10 +6,12 @@ systems.  Each cycle builds the Krylov basis and Hessenberg with the
 Arnoldi chunk (:mod:`eigenex_tpu_torch.solvers.arnoldi`, CGS2 over the
 live rows on the device; on the card one CUDA graph replayed every cycle,
 the cycle's state written anew into the same tensors), solves the tiny (m+1, m)
-least-squares problem on the host in float64 by SVD (``numpy.linalg.lstsq``;
-it stays right when the Hessenberg loses rank at breakdown, where the card's
-QR-only ``torch.linalg.lstsq`` would not), and updates the iterate with one
-basis product.
+least-squares problem on the host in float64 by a complete orthogonal
+factorisation (LAPACK ``gelsy``, QR with column pivoting, through
+``scipy.linalg.lstsq``: the minimum-norm solution, so it stays right when the
+Hessenberg loses rank at breakdown, where the card's QR-only
+``torch.linalg.lstsq`` would not; a quarter of the host time of the SVD
+route, ``gelsd``), and updates the iterate with one basis product.
 
 :func:`gmres_solve_jit` keeps the reference's name: in the JAX package it
 is the jittable, residual-controlled variant whose cycles run inside a
@@ -23,10 +25,13 @@ reaches it.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..core.operators import LinearOperator, aslinearoperator
+from ..utils import profiling
 from ..utils.exceptions import EigenexError
 from ..utils.precision import highest_f32_matmul
 from ..utils.tolerance import default_tolerance, real_dtype_of
@@ -39,11 +44,21 @@ __all__ = ["gmres_solve", "gmres_solve_jit", "shift_invert_operator_general"]
 
 def _lstsq_host(H: torch.Tensor, beta: float):
     """(y, H, beta e1) on the host in float64/complex128, y = argmin_y
-    ||beta e1 - H y|| for the (k+1, k) Hessenberg (SVD-based, any rank)."""
-    Hh = H.to(torch.complex128 if H.is_complex() else torch.float64).cpu().numpy()
-    e1 = np.zeros(Hh.shape[0], Hh.dtype)
-    e1[0] = beta
-    y, *_ = np.linalg.lstsq(Hh, e1, rcond=None)
+    ||beta e1 - H y|| of least norm for the (k+1, k) Hessenberg (``gelsy``,
+    any rank: the pivoted QR's rank cut at ``eps * (k + 1)``, the relative
+    cutoff ``numpy.linalg.lstsq`` gives its SVD).
+    The span ``eigenex.gmres.lstsq`` covers the Hessenberg's read and the
+    solve; counter ``gmres.host_ms`` adds their host ms, profiler or not."""
+    from scipy.linalg import lstsq
+
+    with profiling.annotate("eigenex.gmres.lstsq"):
+        t0 = time.perf_counter()
+        Hh = H.to(torch.complex128 if H.is_complex() else torch.float64).cpu().numpy()
+        e1 = np.zeros(Hh.shape[0], Hh.dtype)
+        e1[0] = beta
+        y = lstsq(Hh, e1, cond=np.finfo(np.float64).eps * max(Hh.shape),
+                  lapack_driver="gelsy", check_finite=False)[0]
+        profiling.count("gmres.host_ms", (time.perf_counter() - t0) * 1e3)
     return y, Hh, e1
 
 
@@ -106,6 +121,7 @@ def gmres_solve(op, b, x0=None, *, restart: int = 32, tol: float | None = None,
         for buffer, value in zip(*map(chunk_graph.state_tensors, (state, fresh))):
             buffer.copy_(value)
         state = arnoldi_steps(op, state, m, breakdown_threshold=0.0)
+        profiling.count("gmres.cycles")
         k = int(state.k)
         y, _, _ = _lstsq_host(state.H[: k + 1, :k], beta)
         x = x + state.V[:k].T @ torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
@@ -154,6 +170,7 @@ def gmres_solve_jit(op, b, x0=None, *, restart: int = 32, cycles: int = 10, tol=
         state.residue.copy_(beta_t)
         state.failed.zero_()
         state = _arnoldi_chunk(op, state, 0.0, 1e-30, None, k_start=0, num_steps=m)
+        profiling.count("gmres.cycles")
         beta = float(beta_t)
         y, Hh, e1 = _lstsq_host(state.H, beta)
         res_small = float(np.linalg.norm(Hh @ y - e1))
@@ -183,7 +200,13 @@ def shift_invert_operator_general(
     adjoint), warm-started from the GMRES iterate.  The operator's
     ``stats`` dict counts its applications, the matvecs of A and A^H inside
     them, the fallbacks, the CGLS iterations they took, and the extra
-    forward products of derived adjoints (``adjoint_forwards``)."""
+    forward products of derived adjoints (``adjoint_forwards``).
+
+    Each application is the span ``eigenex.si.apply``, its true-residual
+    product and read ``eigenex.si.check``, a fallback ``eigenex.cgls``; the
+    counter store adds ``si.applications``, ``si.matvecs``,
+    ``si.fallbacks`` and ``si.cgls_iterations`` (the ``stats`` of every such
+    operator, summed) and ``si.apply_ms``, the host ms inside the span."""
     op = aslinearoperator(op)
     restart = int(restart)
     cycles = int(cycles)
@@ -194,15 +217,26 @@ def shift_invert_operator_general(
     shifted = _Counted(op, _scalar_for(op, sigma), stats).operator()
 
     def si_matvec(_, x):
-        stats["applications"] += 1
-        y = gmres_solve_jit(shifted, x, restart=restart, cycles=cycles, tol=tol)
-        rel = float(torch.linalg.vector_norm(x - shifted.matvec(y)) / torch.linalg.vector_norm(x))
-        if np.isfinite(rel) and rel <= tol:
-            return y
-        stats["fallbacks"] += 1
-        y_safe = y if bool(torch.isfinite(y).all()) else torch.zeros_like(y)
-        y, _, it = _cgls_loop(shifted, x, y_safe, tol, max_iters=restart * cycles)
-        stats["iterations"] += int(it)
+        with profiling.annotate("eigenex.si.apply"):
+            t0 = time.perf_counter()
+            matvecs = stats["matvecs"]
+            stats["applications"] += 1
+            y = gmres_solve_jit(shifted, x, restart=restart, cycles=cycles, tol=tol)
+            with profiling.annotate("eigenex.si.check"):
+                rel = float(torch.linalg.vector_norm(x - shifted.matvec(y))
+                            / torch.linalg.vector_norm(x))
+            if not (np.isfinite(rel) and rel <= tol):
+                stats["fallbacks"] += 1
+                y_safe = y if bool(torch.isfinite(y).all()) else torch.zeros_like(y)
+                with profiling.annotate("eigenex.cgls"):
+                    y, _, it = _cgls_loop(shifted, x, y_safe, tol, max_iters=restart * cycles)
+                    it = int(it)
+                stats["iterations"] += it
+                profiling.count("si.fallbacks")
+                profiling.count("si.cgls_iterations", it)
+            profiling.count("si.applications")
+            profiling.count("si.matvecs", stats["matvecs"] - matvecs)
+            profiling.count("si.apply_ms", (time.perf_counter() - t0) * 1e3)
         return y
 
     si = LinearOperator(si_matvec, None, op.shape, op.dtype, op.device)

@@ -610,6 +610,45 @@ def test_a_chunk_from_a_restarted_state_replays_bit_equal_to_eager(card):
     assert (counts["warmups"], counts["captures"], counts["replays"]) == (1, 1, 3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["step", "breakdown", "failed", "inactive"])
+def test_arnoldi_step_kernel_is_its_plain_version(card, dtype, case):
+    """The tail of one Arnoldi step, fused and plain, on the same inputs:
+    a normal step, one whose residue breaks down, one with a NaN
+    coefficient, and one after a breakdown (inactive).  The basis, the
+    Hessenberg and the new flags bit-equal."""
+    from eigenex_tpu_torch.ops import arnoldi_step
+
+    gen = torch.Generator(card).manual_seed(11)
+    m, n, kh, thr = 12, 1000, 6, 1e-6
+    w = torch.randn(n, device=card, dtype=dtype, generator=gen)
+    c = torch.randn(kh + 1, device=card, dtype=dtype, generator=gen)
+    if case == "breakdown":
+        w *= 1e-9
+    if case == "failed":
+        c[3] = float("nan")
+    start = (torch.randn(m + 1, n, device=card, dtype=dtype, generator=gen),
+             torch.randn(m + 1, m, device=card, dtype=dtype, generator=gen),
+             torch.tensor(kh, device=card), torch.tensor(case == "inactive", device=card),
+             torch.tensor(0.5, device=card, dtype=dtype), torch.tensor(False, device=card))
+    assert arnoldi_step.fused(start[0])
+    outs = []
+    for tail in (arnoldi_step.step_tail, arnoldi_step.step_tail_plain):
+        V, H, k, breakdown, residue_prev, failed = (t.clone() for t in start)
+        residue = torch.linalg.vector_norm(w)
+        flags = tail(V, H, c, w, residue, thr, kh, k, breakdown, residue_prev, failed)
+        outs.append((V, H, *flags))
+    torch.cuda.synchronize()
+    for fused, plain in zip(*outs):
+        assert torch.equal(fused, plain)
+    V, H, k, breakdown, _, failed = outs[0]
+    # a breakdown step counts (its row of V is zero), a failed one does not
+    want = {"step": (kh + 1, False, False), "breakdown": (kh + 1, True, False),
+            "failed": (kh, False, True), "inactive": (kh, True, False)}[case]
+    assert (int(k), bool(breakdown), bool(failed)) == want
+    assert torch.equal(V[kh + 1], start[0][kh + 1]) == (case == "inactive")
+
+
 def graph_and_eager(solve):
     """The solve eagerly, then with graphs (counts from 0): both results,
     the graph run's launches and its graph counts."""

@@ -138,7 +138,7 @@ def test_importing_the_port_is_light():
         "assert 'scipy' not in sys.modules\n"
         "assert set(k.KERNEL_SOURCES) == {'bsr_spmv', 'sym_bsr_spmv', 'bsr_spmm', 'sym_bsr_spmm',\n"
         "                                 'csr_spmv'}\n"
-        "assert set(k.LIBRARY_SOURCES) == {'tridiag_solve'} and not direct._lib\n"
+        "assert set(k.LIBRARY_SOURCES) == {'tridiag_solve', 'arnoldi_step'} and not direct._lib\n"
         "assert callable(ext.svds) and callable(ext.expm_multiply)\n"
         "assert callable(ext.tridiagonal_shift_invert_operator)\n"
         "assert callable(ext.truncated_svd_via_lanczos) and callable(ext.tensor_svd)\n"
