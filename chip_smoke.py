@@ -33,12 +33,16 @@ filter) through the SpMM kernels -- at full size:
                          general SpMM kernel lies on a path.
 11. ``eigs_accelerated`` the general path at full width, BASELINE config 2: the upwind
                          convection-diffusion stencil at nx = 316 (n = 99,856) ->
-                         ``eigs(k=4, which="LM", accelerate=True)``: a (3124, 5, 32, 128)
-                         f32 general pack on the general SpMV kernel.
+                         ``eigs(k=4, which="LM", accelerate=True)``: on the card the f32
+                         row-compressed storage (498,016 entries, 4.4 MB; its (3124, 5, 32,
+                         128) general pack would read 256 MB) on ``csr_spmv``; then the same
+                         request on that general pack (``block_matrix()``, the storage an
+                         operator with full blocks keeps) on ``bsr_spmv``, held alike.
 12. ``eigs_sigma``       GMRES shift-invert ``eigs(sigma=...)`` on the same stencil at a
                          reduced nx = 128 (every outer matvec is a whole inner solve); the
                          benchmark times the same request in its cell ``convdiff_128.sigma``
-                         (``eigbench/traffic/sigma.json``), from seeded start vectors.
+                         (``eigbench/traffic/sigma.json``), from seeded start vectors; then
+                         on its general pack: ``bsr_spmv`` inner matvecs, ``bsr_spmm`` checks.
 13. ``eigsh_complex_accelerated``  a complex Hermitian hopping chain at n = 2^18 through
                          the real embedding (n = 2^19, f32) on the symmetric SpMV kernel.
 14. ``expm_accelerated`` ``expm_multiply`` on the bf16 accelerated operator of phase 5,
@@ -97,8 +101,10 @@ filter) through the SpMM kernels -- at full size:
                          sym_halo ring, E0 after the same f64 Rayleigh step against phase 24's and
                          the published one to 1e-10 (runs phase 24 first).
 28. ``mesh_general``     ``eigs(mesh=...)`` (Krylov-Schur) on the general pack of the nx = 128
-                         stencil in allgather and colsplit and on a 2x4 grid, held as phase 11
-                         holds its pairs; ``svds(mesh=...)`` on config 4's matrix.
+                         stencil (``block_matrix()`` of its row-compressed storage) in allgather
+                         and colsplit and on a 2x4 grid, held as phase 11 holds its pairs,
+                         beside one device on the same pack (``bsr_spmv`` once a matvec);
+                         ``svds(mesh=...)`` on config 4's matrix.
 29. ``mesh_filters``     ``eigsh_window`` and ``eigsh_range`` with ``mesh=`` on the bf16 pack of
                          phase 5 (one ``sym_bsr_spmm`` a shard a product), and
                          ``DistributedLOBPCGSolver`` on the banded operator, each beside its
@@ -123,14 +129,17 @@ filter) through the SpMM kernels -- at full size:
                          each kernel at its main-path shape (the config-2 pack of phase 11, the
                          banded operator f32 and bf16, 12-column panels for the SpMMs), its derived
                          A^H x and A^H X (a forward and a backward launch) bit-equal to the explicit
-                         adjoint, with times; (b) the interior-sigma (7.5) shift-invert of the
-                         config-2 pack on a closure, every application falling back to CGLS on the
-                         derived adjoint, bit-equal to the same operator with the explicit adjoint;
+                         adjoint, with times, and ``csr_spmv`` on the row-compressed config-2
+                         storage (its backward on the transposed storage); (b) the interior-sigma
+                         (7.5) shift-invert of the config-2 storage on a closure, every application
+                         falling back to CGLS on the derived adjoint, bit-equal to the same
+                         operator with the explicit adjoint;
                          (c) ``eigs(closure, sigma=8.5)`` on phase 12's operand from phase 12's
                          start, its eigenvalues bit-equal to phase 12's.
 35. ``mesh_adjoint``     the mesh operators' explicit adjoint on 4 shards of the card: each mode's
                          reverse product (allgather, colsplit and the 2x2 grid on the config-2
-                         pack of phase 11; halo and sym_halo on the banded operator of phase 4)
+                         pack of phase 11, ``block_matrix()``; halo and sym_halo on the banded
+                         operator of phase 4)
                          against the one-device A^H y, its ms beside the forward's, its launches a
                          shard piece; one application of the mesh shift-invert at the interior
                          sigma of phase 34, whose CGLS fallback takes the reverse products, against
@@ -138,7 +147,8 @@ filter) through the SpMM kernels -- at full size:
                          bit-equal to the one-process mesh.
 36. ``chunk_graphs``     the CUDA graphs of the Arnoldi chunk (``solvers/chunk_graph.py``):
                          ``eigsh_banded``, ``eigsh_accelerated``, ``eigs_accelerated``,
-                         ``eigs_sigma`` and ``heisenberg_l24`` each solved eagerly
+                         ``eigs_sigma`` (each on both general storages) and
+                         ``heisenberg_l24`` each solved eagerly
                          (``eager_chunks()``) and with graphs in turns (E G G E), at their
                          full widths: seconds, ms a matvec, graphs captured, replays, capture
                          ms, pool bytes and device peak of every run, the graph counts beside
@@ -157,9 +167,9 @@ standard output is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path, error, times and bound
 (``sym_bsr_spmv``, ``sym_bsr_spmm`` and ``csr_spmv`` twice each: their f32 and their bf16
 main case, each with the launches of the phases on that storage).  ``accelerate()`` stores
-the operators of phases 5 and 13 row-compressed on the card (fewer bytes than their block
-packs), so their solves launch ``csr_spmv``; the block filters and mesh phases on them take
-``block_matrix()``.  The ``kernels``
+the operators of phases 5, 11, 12 and 13 row-compressed on the card (fewer bytes than their
+block packs), so their solves launch ``csr_spmv``; the block filters and mesh phases on them
+take ``block_matrix()``.  The ``kernels``
 line also gives each SpMV wrapper's host time per call.
 
 Phases 18-20 build their operator once, on the host, and move it to the card through the
@@ -450,15 +460,16 @@ ALSO_REPLACES = {
 #: two or three containers gives each container's entry 1/2 or 1/3: the phases
 #: check their launch counts exactly); the other entries of a kernel carry the
 #: rest, split by block storage where there are several.  bsr_spmv: the (3124, 5,
-#: 32, 128) f32 pack of phase eigs_accelerated (the 32x128 f32 packs of the general
-#: path, on one device and on a mesh), the S_z = 0 sector pack of phase
+#: 32, 128) f32 pack of config 2 (``block_matrix()``; the 32x128 f32 packs of the
+#: general block routes, on one device and on a mesh), the S_z = 0 sector pack of phase
 #: block_heisenberg_bsr, and the shard-local containers of each mesh_modes run and of
 #: heisenberg_l24_mesh, and the reverse pieces ("<role>^H") of phase mesh_adjoint's
 #: modes (its sym_halo reverse product is the forward one).  sym_bsr_spmv: f32 and
 #: bf16 blocks of reach 1 (eigsh_banded, derived_adjoint) and the in-panel packs of the
 #: mesh phases.  csr_spmv: the row-compressed operators accelerate() makes on the card,
-#: bf16 (eigsh_accelerated, expm_accelerated), f32 (the complex chain's embedding) and
-#: the L = 24 sector (heisenberg_l24).  bsr_spmm and
+#: f32 config 2 (eigs_accelerated) and the nx = 128 stencil (eigs_sigma), bf16
+#: (eigsh_accelerated, expm_accelerated), f32 (the complex chain's embedding, and the
+#: other f32 phases) and the L = 24 sector (heisenberg_l24).  bsr_spmm and
 #: sym_bsr_spmm: the f32 12-column panel of LOBPCG, the bf16 8-column block of the
 #: window filter (sym_bsr_spmm),
 #: and the mesh_filters phases' shard-local containers at those widths; phase
@@ -516,7 +527,9 @@ MAIN_CASES = {
                           phases={"mesh_filters_lobpcg": 1}),
                      dict(match=(f"{_BF16M} main ", f"p={WINDOW_WIDTH} "),
                           phases={"mesh_filters_window": 1, "mesh_filters_range": 1})],
-    "csr_spmv": [dict(match=("accelerated banded", " bf16")),
+    "csr_spmv": [dict(match=("config-2 row-compressed", " f32"), phases={"eigs_accelerated": 1}),
+                 dict(match=(f"nx={SIGMA_NX} stencil row-compressed",), phases={"eigs_sigma": 1}),
+                 dict(match=("accelerated banded", " bf16")),
                  dict(match=("complex chain embedding", " f32")),
                  dict(match=(f"L={L24} S_z=0",), phases={"heisenberg_l24": 1})],
 }
@@ -967,6 +980,15 @@ def graph_replay_equal(op, x) -> bool:
     return bool(torch.equal(ys, eager))
 
 
+def sigma_check_launches(res, per_column: bool) -> int:
+    """The launches of the true-residual check closing a shift-invert ``eigs`` of
+    SIGMA_K pairs, which applies A to the real and the imaginary part of a complex
+    eigenvector block apart: one SpMV a column of each part (``per_column``: the
+    row-compressed storage, or a closure with no matmat), else one SpMM a part."""
+    complex_ = torch.as_tensor(res.eigenvectors).is_complex()  # host array or card tensor
+    return (2 if complex_ else 1) * (SIGMA_K if per_column else 1)
+
+
 def spmv_kernel_of(acc) -> str:
     """The SpMV kernel an accelerated symmetric operator's products launch."""
     return "csr_spmv" if acc.stats.get("storage") == "row_compressed" else "sym_bsr_spmv"
@@ -1155,6 +1177,8 @@ GRAPH_PREDICTION = {
     "eigs_accelerated": dict(keys="2-3", captures="1-2"),  # (0, 48), (12, 36), (11, 37)
     "eigs_sigma": dict(keys="2-4", captures=1),  # the outer solve's 1-3 (a closure: eager),
                                                  # and GMRES(48)'s (0, 48) on the shifted pack
+    "eigs_accelerated_block": dict(keys="2-3", captures="1-2"),  # as eigs_accelerated
+    "eigs_sigma_block": dict(keys="2-4", captures=1),  # as eigs_sigma
     "heisenberg_l24": dict(keys=1, captures=0),  # one chunk of 160 steps
 }
 GRAPH_ROUTES = ("eager", "graphs", "graphs", "eager")  # the runs of a case, in turns
@@ -1598,7 +1622,7 @@ def mesh_adjoint_phase(acc_cd, bsr32, drive, record, dev, peaks, kernel_cases) -
     from eigenex_tpu_torch.parallel.multiproc import save_operator, scenario_reverse, spawn
 
     t_phase = time.time()
-    pack = acc_cd.matrix
+    pack = acc_cd.block_matrix()
     cd_adj = pack.kernel_adjoint()  # cached since phase kernels
     n_cd = pack.shape[0]
     # colsplit and the grid split the 781 block columns of 128 over the shards: the pack
@@ -1797,14 +1821,21 @@ def heisenberg_l24_mesh_phase(acc24, triplets, e0_one, solve_one, drive, dev, pe
 
 def mesh_general_phase(drive, dev) -> None:
     """eigs(mesh=) (Krylov-Schur) on the f32 general pack of the nx = 128
-    stencil in allgather and colsplit, and on a 2x4 mesh (the panel grid),
-    each held as the single-device eigs is held, beside it; svds(mesh=) on
-    config 4's matrix against numpy."""
+    stencil (``block_matrix()`` of its row-compressed storage) in allgather and
+    colsplit, and on a 2x4 mesh (the panel grid), each held as the single-device
+    eigs on the same pack is held, beside it; svds(mesh=) on config 4's matrix
+    against numpy."""
     r, c, v, n = convection_diffusion_coo(SIGMA_NX)
     acc_s = accelerate(coo_on(r, c, v, n, dev))
     A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
     kw = dict(k=SIGMA_K, which="LM", tol=SIGMA_TOL, max_restarts=EIGS_MAX_RESTARTS)
-    one, seconds_one, _ = drive("mesh_general_one_device", acc_s.matrix, lambda: eigs(acc_s, **kw))
+    pack = acc_s.block_matrix()
+    blocked = dataclasses.replace(acc_s, matrix=pack)
+    one, seconds_one, counts_one = drive("mesh_general_one_device", pack,
+                                         lambda: eigs(blocked, **kw))
+    if counts_one != {k: (one.iterations if k == "bsr_spmv" else 0)
+                      for k in cuda_spmv.KERNEL_SOURCES}:
+        fail(f"mesh_general [one device]: launches {counts_one} for {one.iterations} matvecs")
     lam_one = np.asarray(one.eigenvalues, np.complex128)
     top = convection_diffusion_top(SIGMA_NX, SIGMA_K)
     re_max, im_max = convection_diffusion_range(SIGMA_NX)
@@ -1840,7 +1871,6 @@ def mesh_general_phase(drive, dev) -> None:
         if counts["bsr_spmv"] != res.iterations * MESH_SHARDS:
             fail(f"mesh_general [{mode}]: launches {counts} for {res.iterations} matvecs")
     # the 2x4 mesh: the single-controller Krylov-Schur over the panel-grid operator
-    pack = acc_s.matrix
     grid = card_grid(dev, (2, 4))
     res, seconds, counts = drive("mesh_general_grid", pack, lambda: eigs(pack, mesh=grid, **kw))
     held("grid 2x4", res, seconds, counts, lambda V: acc_s.restore(V))
@@ -1856,7 +1886,7 @@ def mesh_general_phase(drive, dev) -> None:
     emit("mesh_general", n=n, nx=SIGMA_NX, pack=list(pack.data.shape), storage="float32",
          shards=MESH_SHARDS, grid=[2, 4], k=SIGMA_K, which="LM", tol=SIGMA_TOL,
          one_device=dict(eigenvalues_re=lam_one.real.tolist(), eigenvalues_im=lam_one.imag.tolist(),
-                         matvecs=one.iterations, seconds=seconds_one),
+                         matvecs=one.iterations, launches=counts_one, seconds=seconds_one),
          resid_limit=SIGMA_RESID_LIMIT, below_top_limit=EIGS_BELOW_TOP, closed_form_top=top.tolist(),
          runs=runs, svds_config4=dict(
              singular_values=s4.tolist(), numpy=s_np.tolist(), max_abs_err=err4,
@@ -2314,18 +2344,23 @@ def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, pro
 
     # (a) each kernel, its derived adjoint against its explicit one
     cases = []
-    for tag, op in (("config2_f32", acc_cd.matrix), ("banded_f32", sym32),
+    for tag, op in (("config2_f32", acc_cd.block_matrix()),
+                    ("config2_row_compressed_f32", acc_cd.matrix), ("banded_f32", sym32),
                     ("banded_bf16", sym32.astype(torch.bfloat16))):
-        general = isinstance(op, BSRMatrix)
-        spmv, spmm = ("bsr_spmv", "bsr_spmm") if general else ("sym_bsr_spmv", "sym_bsr_spmm")
+        general = isinstance(op, (BSRMatrix, SymCSRMatrix))
+        # the row-compressed storage has no SpMM: its products a column are SpMVs
+        spmv, spmm = (("csr_spmv", None) if isinstance(op, SymCSRMatrix) else
+                      ("bsr_spmv", "bsr_spmm") if general else ("sym_bsr_spmv", "sym_bsr_spmm"))
         adj = op.kernel_adjoint() if general else op  # A^H (cached); A^T = A for the symmetric pack
         mv = closure(op, matmat_fn=lambda p, X: p.matmat(X))
         x = torch.randn(op.shape[0], generator=gen, device=dev)
         G = torch.randn((op.shape[0], DA_PANEL), generator=gen, device=dev)
-        explicit = {spmv: adj.matvec(x), spmm: adj.matmat(G)}
-        routes = {spmv: (lambda: mv.rmatvec(x), lambda: adj.matvec(x)),
-                  spmm: (lambda: pullback(mv.matmat, G, (op.shape[1], DA_PANEL), torch.float32),
-                         lambda: adj.matmat(G))}
+        explicit = {spmv: adj.matvec(x)}
+        routes = {spmv: (lambda: mv.rmatvec(x), lambda: adj.matvec(x))}
+        if spmm is not None:
+            explicit[spmm] = adj.matmat(G)
+            routes[spmm] = (lambda: pullback(mv.matmat, G, (op.shape[1], DA_PANEL), torch.float32),
+                            lambda: adj.matmat(G))
         phase = "derived_adjoint_" + tag
         derived, _, counts = drive(phase, op, lambda: {k: r[0]() for k, r in routes.items()})
         if counts != {k: (2 if k in routes else 0) for k in cuda_spmv.KERNEL_SOURCES}:
@@ -2347,7 +2382,7 @@ def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, pro
                      explicit=profile_calls(run_explicit))
         del mv, explicit, derived, routes
 
-    # (b) the interior-sigma shift-invert on a closure over the nx = 316 pack
+    # (b) the interior-sigma shift-invert on a closure over the nx = 316 storage
     pack = acc_cd.matrix
     rng = np.random.default_rng(SEED + 34)
     xs = [rng.standard_normal(acc_cd.orig_shape[1]) for _ in range(DA_APPLICATIONS)]
@@ -2394,7 +2429,8 @@ def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, pro
     res_e = [true_residual(x, y) for x, y in zip(xs, y_e)]
     st_d, st_e = dict(si_d.stats), dict(si_e.stats)
     shift_invert = dict(
-        n=n_cd, pack=list(pack.data.shape), sigma=DA_SIGMA, tol=SIGMA_INNER_TOL,
+        n=n_cd, storage=acc_cd.stats["storage"], shape=list(pack.shape), sigma=DA_SIGMA,
+        tol=SIGMA_INNER_TOL,
         applications=DA_APPLICATIONS, stats_derived=st_d, stats_explicit=st_e,
         cgls_iterations=st_d["iterations"], true_residuals_derived=res_d,
         true_residuals_explicit=res_e, bit_equal=all(torch.equal(a, b) for a, b in zip(y_d, y_e)),
@@ -2418,9 +2454,9 @@ def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, pro
     st_c = res.inner_stats
     # the true-residual check applies the closure (no matmat) to each column of the
     # eigenvector block, real and imaginary parts apart when it is complex
-    check = SIGMA_K * (2 if torch.as_tensor(res.eigenvectors).is_complex() else 1)
+    check = sigma_check_launches(res, per_column=True)
     want_c = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
-    want_c["bsr_spmv"] = st_c["matvecs"] + st_c["adjoint_forwards"] + check
+    want_c["csr_spmv"] = st_c["matvecs"] + st_c["adjoint_forwards"] + check
     eigs_sigma = dict(n=n, sigma=SIGMA, eigenvalues_re=lam.real.tolist(),
                       eigenvalues_im=lam.imag.tolist(),
                       eigs_sigma_eigenvalues_re=sigma_eigenvalues.real.tolist(),
@@ -2443,7 +2479,7 @@ def derived_adjoint_phase(acc_cd, sym32, sigma_eigenvalues, drive, dev, gen, pro
             or st_e["adjoint_forwards"] != 0 or st_d["adjoint_forwards"] <= 0):
         fail(f"derived_adjoint: inner stats {st_d} against the explicit route's {st_e}")
     if counts != {**{k: 0 for k in cuda_spmv.KERNEL_SOURCES},
-                  "bsr_spmv": st_d["matvecs"] + st_d["adjoint_forwards"]}:
+                  "csr_spmv": st_d["matvecs"] + st_d["adjoint_forwards"]}:
         fail(f"derived_adjoint: shift-invert launches {counts} for inner stats {st_d}")
     if res.termination == "inner_solve_failure" or not max(rr) <= SIGMA_RESID_LIMIT:
         fail(f"derived_adjoint: eigs on the closure: {res.termination}, residuals {rr}")
@@ -2593,9 +2629,12 @@ def main() -> None:
         acc_cd = accelerate(coo_cd)  # what eigs(coo_cd, accelerate=True) does first
         cd_pack_s = time.time() - t0
         cd_native = native.native_calls()
-        if tuple(acc_cd.matrix.data.shape) != CD_PACK or acc_cd.matrix.dtype != torch.float32:
-            fail(f"config-2 pack: {tuple(acc_cd.matrix.data.shape)} {acc_cd.matrix.dtype}, "
-                 f"expected {CD_PACK} float32")
+        # on the card the stencil fills 1 % of its general pack: stored row-compressed
+        if (acc_cd.stats["storage"] != "row_compressed" or acc_cd.stats["kmax"] != CD_PACK[1]
+                or acc_cd.matrix.dtype != torch.float32):
+            fail(f"config-2 storage: {acc_cd.stats['storage']} {acc_cd.matrix.dtype}, block pack "
+                 f"kmax {acc_cd.stats['kmax']}, expected row_compressed float32 beside kmax "
+                 f"{CD_PACK[1]}")
 
     kernel_cases: list[dict] = []
     # -- 3. kernels ----------------------------------------------------------
@@ -2680,13 +2719,30 @@ def main() -> None:
             spmm_cases("sym_bsr_spmm", f"scaled columns 1e-6..1e6, dyadic blocks reach=1 ku=1 {tag}",
                        sym_dy.astype(dt), scaled)
         del bsr_dy, sym_dy, scaled
-        # the general SpMV at the shape the general path gives it: the f32 pack
-        # accelerate() makes of BASELINE config 2 (phase eigs_accelerated)
-        cd_pack = acc_cd.matrix
+        # the general SpMV on the f32 block pack of BASELINE config 2: the pack the
+        # mesh routes take (block_matrix(), phases mesh_adjoint and mesh_general)
+        cd_pack = acc_cd.block_matrix()
+        if tuple(cd_pack.data.shape) != CD_PACK:
+            fail(f"config-2 pack: {tuple(cd_pack.data.shape)}, expected {CD_PACK}")
         x_cd = torch.randn(cd_pack.shape[1], generator=gen, device=dev)
         kernel_cases.append(check_kernel(
-            "bsr_spmv", "config-2 pack " + "x".join(map(str, CD_PACK)) + " f32 (main path)",
-            cd_pack, x_cd, peaks))
+            "bsr_spmv", "config-2 pack " + "x".join(map(str, CD_PACK)) + " f32", cd_pack, x_cd,
+            peaks))
+        # ... the row-compressed storage the general path takes on the card: config 2
+        # (phase eigs_accelerated), its transpose (the explicit adjoint of phase
+        # derived_adjoint) and the nx = 128 stencil (phase eigs_sigma)
+        kernel_cases.append(check_kernel(
+            "csr_spmv", f"config-2 row-compressed n={n_cd} f32 (main path)", acc_cd.matrix,
+            x_cd, peaks))
+        kernel_cases.append(check_kernel(
+            "csr_spmv", f"config-2 transposed row-compressed n={n_cd} f32",
+            acc_cd.matrix.kernel_adjoint(), x_cd, peaks))
+        acc_128 = accelerate(coo_on(*convection_diffusion_coo(SIGMA_NX), dev))
+        x_128 = torch.randn(acc_128.shape[1], generator=gen, device=dev)
+        kernel_cases.append(check_kernel(
+            "csr_spmv", f"nx={SIGMA_NX} stencil row-compressed n={SIGMA_NX ** 2} f32 (main path)",
+            acc_128.matrix, x_128, peaks))
+        del acc_128, x_128
         # ... its adjoint pack (the backward of phase derived_adjoint's products, built
         # once on the host and cached), and the general SpMM on both at the width of that
         # phase's vjps: the forward on the pack, the backward on its adjoint
@@ -3112,16 +3168,50 @@ def main() -> None:
             # eigs(coo_cd, accelerate=True) is accelerate(coo_cd), then this call
             return eigs(acc_cd, k=EIGS_K, which="LM", tol=EIGS_TOL, max_restarts=EIGS_MAX_RESTARTS)
 
+        # the same request on the general pack of the same operator (block_matrix()):
+        # the storage accelerate() keeps for an operator whose blocks are full
+        acc_cd_block = dataclasses.replace(acc_cd, matrix=acc_cd.block_matrix())
+
+        def solve_eigs_block():
+            return eigs(acc_cd_block, k=EIGS_K, which="LM", tol=EIGS_TOL,
+                        max_restarts=EIGS_MAX_RESTARTS)
+
+        def pairs(res):
+            """The eigenvalues, the f64 host residuals of the restored pairs and
+            whether the eigenvalues lie in the dominant strip."""
+            X = np.asarray(res.eigenvectors, np.complex128)
+            lam = np.asarray(res.eigenvalues, np.complex128)
+            rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+            in_strip = bool(np.all(lam.real >= top[0] - EIGS_BELOW_TOP)
+                            and np.all(lam.real <= re_max) and np.all(np.abs(lam.imag) <= im_max))
+            return X, lam, rr, in_strip
+
+        def held(tag, res, counts, kernel):
+            """Phase eigs_accelerated's checks of one storage's solve."""
+            X, lam, rr, in_strip = pairs(res)
+            if not res.converged:
+                fail(f"{tag}: not converged ({res.termination}) after {res.iterations} matvecs")
+            if X.shape != (n, EIGS_K) or not np.isfinite(X).all():
+                fail(f"{tag}: restored eigenvectors are not finite (n, k)")
+            if not max(rr) <= EIGS_RESID_LIMIT:
+                fail(f"{tag}: residual {max(rr):.3e} exceeds {EIGS_RESID_LIMIT}")
+            if not in_strip:
+                fail(f"{tag}: eigenvalues {lam.tolist()} outside the dominant strip: Re at least "
+                     f"{top[0] - EIGS_BELOW_TOP}, inside the numerical range (Re <= {re_max}, "
+                     f"|Im| <= {im_max})")
+            if counts != only_kernel(kernel, res.iterations):
+                fail(f"{tag}: launches {counts} for {res.iterations} matvecs")
+
         res, seconds, counts = drive("eigs_accelerated", acc_cd.matrix, solve_eigs)
-        X = np.asarray(res.eigenvectors, np.complex128)
-        lam = np.asarray(res.eigenvalues, np.complex128)
-        rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+        res_b, seconds_b, counts_b = drive("eigs_accelerated_block", acc_cd_block.matrix,
+                                           solve_eigs_block)
+        _, lam, rr, in_strip = pairs(res)
+        _, lam_b, rr_b, in_strip_b = pairs(res_b)
+        key = lambda z: np.sort_complex(z.real + 1j * np.abs(z.imag))
         top_dist = [float(np.min(np.abs(top - l.real))) for l in lam]
         # the largest residual bound of the tracked Schur vectors at every 10th restart,
         # relative to the dominant |lambda|
         bound_history = (np.asarray(res.trace.residuals[::10]) / np.abs(lam).max()).tolist()
-        in_strip = bool(np.all(lam.real >= top[0] - EIGS_BELOW_TOP) and np.all(lam.real <= re_max)
-                        and np.all(np.abs(lam.imag) <= im_max))
         emit("eigs_accelerated", n=n, nnz=int(A64.nnz), nx=CD_NX, conv=CD_CONV, k=EIGS_K,
              which="LM", tol=EIGS_TOL, converged=res.converged, termination=res.termination,
              eigenvalues_re=lam.real.tolist(), eigenvalues_im=lam.imag.tolist(),
@@ -3133,20 +3223,18 @@ def main() -> None:
              max_restarts=EIGS_MAX_RESTARTS, residual_bound_every_10th_restart=bound_history,
              launches=counts, seconds=seconds, ms_per_matvec=seconds * 1e3 / max(res.iterations, 1),
              pack=dict(acc_cd.stats), pack_seconds_wall=cd_pack_s, pack_native_calls=cd_native,
-             pack_numpy_route=numpy_route_pack(coo_cd))
+             pack_numpy_route=numpy_route_pack(coo_cd),
+             block_pack=dict(
+                 shape=list(acc_cd_block.matrix.data.shape), converged=res_b.converged,
+                 eigenvalues_re=lam_b.real.tolist(), eigenvalues_im=lam_b.imag.tolist(),
+                 rel_residuals_f64_host=rr_b, in_dominant_strip=in_strip_b,
+                 rel_diff_from_row_compressed=float(np.max(np.abs(key(lam_b) - key(lam)))
+                                                    / np.abs(lam).max()),
+                 matvecs=res_b.iterations, launches=counts_b, seconds=seconds_b,
+                 ms_per_matvec=seconds_b * 1e3 / max(res_b.iterations, 1)))
         native_total("eigs_accelerated", cd_native)
-        if not res.converged:
-            fail(f"eigs_accelerated: not converged ({res.termination}) after {res.iterations} matvecs")
-        if X.shape != (n, EIGS_K) or not np.isfinite(X).all():
-            fail("eigs_accelerated: restored eigenvectors are not finite (n, k)")
-        if not max(rr) <= EIGS_RESID_LIMIT:
-            fail(f"eigs_accelerated: residual {max(rr):.3e} exceeds {EIGS_RESID_LIMIT}")
-        if not in_strip:
-            fail(f"eigs_accelerated: eigenvalues {lam.tolist()} outside the dominant strip: Re at "
-                 f"least {top[0] - EIGS_BELOW_TOP}, inside the numerical range (Re <= {re_max}, "
-                 f"|Im| <= {im_max})")
-        if counts != only_kernel("bsr_spmv", res.iterations):
-            fail(f"eigs_accelerated: launches {counts} for {res.iterations} matvecs")
+        held("eigs_accelerated", res, counts, "csr_spmv")
+        held("eigs_accelerated [block pack]", res_b, counts_b, "bsr_spmv")
         if args.profile:
             emit("profile_eigs", solve="eigs_accelerated", route="graphs",
                  **profile_solve(solve_eigs))
@@ -3156,23 +3244,65 @@ def main() -> None:
         if wanted("chunk_graphs"):
             graph_cases.append(chunk_graphs_case(
                 "eigs_accelerated", solve_eigs, lambda r: r.iterations,
+                lambda r: only_kernel("csr_spmv", r.iterations), replaying=True))
+            graph_cases.append(chunk_graphs_case(
+                "eigs_accelerated_block", solve_eigs_block, lambda r: r.iterations,
                 lambda r: only_kernel("bsr_spmv", r.iterations), replaying=True))
+        del acc_cd_block
     if wanted("kernels") or wanted("eigs_accelerated") or wanted("chunk_graphs"):
         del coo_cd
-    # -- 12. eigs_sigma: GMRES shift-invert on the general kernel ---------------------
+    # -- 12. eigs_sigma: GMRES shift-invert on the row-compressed storage ---------------
     sigma_eigenvalues = None  # phase eigs_sigma's, held against phase derived_adjoint's (c)
     if wanted("eigs_sigma") or wanted("chunk_graphs"):
         r, c, v, n = convection_diffusion_coo(SIGMA_NX)
         acc_s = accelerate(coo_on(r, c, v, n, dev))
         A64 = sp.csr_matrix((v, (r, c)), shape=(n, n))
+        # ... and on the general pack of the same operator (block_matrix())
+        acc_s_block = dataclasses.replace(acc_s, matrix=acc_s.block_matrix())
+
         def solve_sigma():
             return eigs(acc_s, k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL)
 
+        def solve_sigma_block():
+            return eigs(acc_s_block, k=SIGMA_K, sigma=SIGMA, tol=SIGMA_TOL,
+                        inner_tol=SIGMA_INNER_TOL)
+
+        def sigma_launches(res, block):
+            """Every application of A inside the inner solves (and their residual
+            checks) is one SpMV; the true-residual check adds its own launches."""
+            if block:
+                return {**only_kernel("bsr_spmv", res.inner_stats["matvecs"]),
+                        "bsr_spmm": sigma_check_launches(res, per_column=False)}
+            return only_kernel("csr_spmv", res.inner_stats["matvecs"]
+                               + sigma_check_launches(res, per_column=True))
+
+        def sigma_pairs(res):
+            """The eigenvalues, the restored eigenvectors and their f64 host
+            residuals."""
+            X = np.asarray(res.eigenvectors, np.complex128)
+            lam = np.asarray(res.eigenvalues, np.complex128)
+            rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
+            return lam, X, rr
+
+        def sigma_held(tag, res, counts, block):
+            """Phase eigs_sigma's checks of one storage's solve."""
+            _, X, rr = sigma_pairs(res)
+            if res.termination == "inner_solve_failure":
+                fail(f"{tag}: the inner solve failed (true residual check)")
+            if X.shape != (n, SIGMA_K) or not np.isfinite(X).all():
+                fail(f"{tag}: restored eigenvectors are not finite (n, k)")
+            if not max(rr) <= SIGMA_RESID_LIMIT:
+                fail(f"{tag}: residual {max(rr):.3e} exceeds {SIGMA_RESID_LIMIT}")
+            if counts != sigma_launches(res, block):
+                fail(f"{tag}: launches {counts}, expected {sigma_launches(res, block)}")
+
         res, seconds, counts = drive("eigs_sigma", acc_s.matrix, solve_sigma)
-        X = np.asarray(res.eigenvectors, np.complex128)
-        lam = np.asarray(res.eigenvalues, np.complex128)
-        rr = (np.linalg.norm(A64 @ X - X * lam[None, :], axis=0) / np.abs(lam)).tolist()
-        st = res.inner_stats
+        res_b, seconds_b, counts_b = drive("eigs_sigma_block", acc_s_block.matrix,
+                                           solve_sigma_block)
+        lam, _, rr = sigma_pairs(res)
+        lam_b, _, rr_b = sigma_pairs(res_b)
+        st, st_b = res.inner_stats, res_b.inner_stats
+        key = lambda z: np.sort_complex(z.real + 1j * np.abs(z.imag))
         emit("eigs_sigma", n=n, nx=SIGMA_NX, reduced=f"nx {SIGMA_NX} of {CD_NX}: each outer matvec "
              "is a whole inner GMRES solve", sigma=SIGMA, sigma_moved_from=7.5, k=SIGMA_K,
              tol=SIGMA_TOL, inner_tol=SIGMA_INNER_TOL, converged=res.converged,
@@ -3183,27 +3313,27 @@ def main() -> None:
              cgls_fallbacks=st["fallbacks"], cgls_iterations=st["iterations"],
              launches=counts, seconds=seconds,
              ms_per_matvec=seconds * 1e3 / max(st["matvecs"], 1),
-             closed_form_top=convection_diffusion_top(SIGMA_NX, 2).tolist(), pack=dict(acc_s.stats))
-        if res.termination == "inner_solve_failure":
-            fail("eigs_sigma: the inner solve failed (true residual check)")
-        if X.shape != (n, SIGMA_K) or not np.isfinite(X).all():
-            fail("eigs_sigma: restored eigenvectors are not finite (n, k)")
-        if not max(rr) <= SIGMA_RESID_LIMIT:
-            fail(f"eigs_sigma: residual {max(rr):.3e} exceeds {SIGMA_RESID_LIMIT}")
-        # every application of A inside the inner solves (and their residual checks)
-        # is one general SpMV; the true-residual check applies A to the real and the
-        # imaginary part of the eigenvector block: two general SpMM launches
-        want = {k: 0 for k in cuda_spmv.KERNEL_SOURCES}
-        want.update(bsr_spmv=st["matvecs"], bsr_spmm=2)
-        if counts != want:
-            fail(f"eigs_sigma: launches {counts}, expected {want}")
+             closed_form_top=convection_diffusion_top(SIGMA_NX, 2).tolist(), pack=dict(acc_s.stats),
+             block_pack=dict(
+                 shape=list(acc_s_block.matrix.data.shape), termination=res_b.termination,
+                 eigenvalues_re=lam_b.real.tolist(), eigenvalues_im=lam_b.imag.tolist(),
+                 rel_residuals_f64_host=rr_b,
+                 rel_diff_from_row_compressed=float(np.max(np.abs(key(lam_b) - key(lam)))
+                                                    / np.abs(lam).max()),
+                 outer_matvecs=res_b.iterations, inner_matvecs=st_b["matvecs"],
+                 cgls_fallbacks=st_b["fallbacks"], launches=counts_b, seconds=seconds_b,
+                 ms_per_matvec=seconds_b * 1e3 / max(st_b["matvecs"], 1)))
+        sigma_held("eigs_sigma", res, counts, block=False)
+        sigma_held("eigs_sigma [block pack]", res_b, counts_b, block=True)
         sigma_eigenvalues = lam
         if wanted("chunk_graphs"):
             graph_cases.append(chunk_graphs_case(
                 "eigs_sigma", solve_sigma, lambda r: r.inner_stats["matvecs"],
-                lambda r: {**only_kernel("bsr_spmv", r.inner_stats["matvecs"]), "bsr_spmm": 2},
-                replaying=True))
-        del acc_s
+                lambda r: sigma_launches(r, False), replaying=True))
+            graph_cases.append(chunk_graphs_case(
+                "eigs_sigma_block", solve_sigma_block, lambda r: r.inner_stats["matvecs"],
+                lambda r: sigma_launches(r, True), replaying=True))
+        del acc_s, acc_s_block
 
     # -- 34. derived_adjoint: matrix-free adjoints through the kernels' backward ---------
     if wanted("derived_adjoint"):

@@ -105,7 +105,8 @@ def accelerated_from_numpy(meta: dict, perm, *, data=None, bcols=None, diag=None
     device = resolve_device(device)
     if rowptr is not None:
         mat = SymCSRMatrix(torch.as_tensor(rowptr).to(device), torch.as_tensor(col).to(device),
-                           torch.as_tensor(val).to(dtype).to(device), shape)
+                           torch.as_tensor(val).to(dtype).to(device), shape,
+                           hermitian=bool(meta["symmetric"]))
     elif diag is not None:
         mat = sym_bsr_from_numpy(diag, upper, ucols, shape, meta.get("band_reach", -1),
                                  dtype=dtype, device=device)

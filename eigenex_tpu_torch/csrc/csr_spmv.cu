@@ -1,15 +1,18 @@
-// Row-compressed (CSR) SpMV of a symmetric operator stored with both
-// triangles:  y[i] = sum_{j in row i} val[j] * x[col[j]].
+// Row-compressed (CSR) SpMV of a square operator, a symmetric one stored
+// with both triangles:  y[i] = sum_{j in row i} val[j] * x[col[j]].
 //
 // Replaces no TPU kernel.  The JAX package packs every symmetric operator
-// into 128x128 blocks (half storage) because the TPU multiplies on a
-// 128x128 matrix unit and streams only dense tiles well.  An operator whose
-// nonzeros fill few of those blocks -- the L = 24 Heisenberg sector fills
-// 0.41 % of its real blocks -- then moves about 39 times its own bytes a
-// product: 5.27 GB of block slots for 35 M nonzeros.  This card multiplies
-// the nonzeros on CUDA cores and gathers x from its 50 MB L2, so it needs no
-// tiles: sparse/accelerate.py picks this storage whenever it moves fewer
-// bytes than the block pack (sparse/sym_csr.py).
+// into 128x128 blocks (half storage) and every general one into 32x128
+// blocks because the TPU multiplies on a 128x128 matrix unit and streams
+// only dense tiles well.  An operator whose nonzeros fill few of those
+// blocks then moves many times its own bytes a product: the L = 24
+// Heisenberg sector fills 0.41 % of its real blocks (5.27 GB of block slots
+// for 35 M nonzeros), the config-2 stencil about 1 % of its general pack
+// (256 MB for 0.5 M nonzeros).  This card multiplies the nonzeros on CUDA
+// cores and gathers x from its 50 MB L2, so it needs no tiles:
+// sparse/accelerate.py picks this storage whenever it moves fewer bytes than
+// the block pack (sparse/sym_csr.py).  Nothing below assumes symmetry: the
+// adjoint of a general operator is this product on its transposed storage.
 //
 // Bound on this card: bytes.  A product reads rowptr ((n + 1) 4 bytes), col
 // (4 bytes a nonzero) and val (2 or 4 bytes a nonzero) once, reads x and

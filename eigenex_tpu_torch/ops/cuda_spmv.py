@@ -17,14 +17,15 @@ wrapper               replaces (Pallas kernel / entry point)      source
                       ``_sym_spmm_stream_kernel``,
                       ``_sym_spmm_ring_kernel`` /
                       ``sym_bsr_matmat_pallas``
-:func:`csr_spmv`      none (row-compressed symmetric operators)   ``csrc/csr_spmv.cu``
+:func:`csr_spmv`      none (row-compressed operators)             ``csrc/csr_spmv.cu``
 ====================  ==========================================  =====================
 
 and the precision rule ``_dot_mode``/``_sdot`` that all of them share:
 f32 or bf16 block storage, f32 x, f32 accumulation, f32 output.
-:func:`csr_spmv` has no TPU counterpart: it multiplies a symmetric operator
-stored row-compressed (:class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`),
-which ``accelerate()`` picks on the card where the block pack would move more
+:func:`csr_spmv` has no TPU counterpart: it multiplies a square operator,
+symmetric or general, stored row-compressed
+(:class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`), which
+``accelerate()`` picks on the card where the block pack would move more
 bytes; it keeps the same precision rule.  The SpMV
 kernels multiply with f32 FMAs on CUDA cores (``csrc/spmv_common.cuh``).
 The SpMM kernels take the ``(n, p)`` row-major panels the block solvers
@@ -48,9 +49,11 @@ pack.  When autograd records (grad enabled and x requiring grad) a CUDA
 launch goes through a ``torch.autograd.Function`` whose backward is a
 launch of the same kernel: on the cached adjoint pack
 (``BSRMatrix.kernel_adjoint()``) for the general kernels, on the same pack
-for the symmetric ones (a real symmetric A equals A^T).  A backward counts
-as one launch of its kernel.  Otherwise the wrapper launches directly, at
-no extra cost.  Complex operands never reach the kernels: they arrive
+for the symmetric ones (a real symmetric A equals A^T), and on
+``SymCSRMatrix.kernel_adjoint()`` for the row-compressed one (the same
+container where it is symmetric, its cached transpose where it is
+general).  A backward counts as one launch of its kernel.  Otherwise the
+wrapper launches directly, at no extra cost.  Complex operands never reach the kernels: they arrive
 through the real embedding of ``sparse/realify.py``, whose torch ops
 autograd differentiates around the real products, and a complex x is
 refused as any non-f32 x is.
@@ -116,8 +119,9 @@ KERNEL_SOURCES = {
     "csr_spmv": "csr_spmv.cu",
 }
 #: kernels whose operand is its own adjoint (symmetric storage): the backward
-#: of :class:`_KernelProduct` launches them on the same operand
-_SELF_ADJOINT = frozenset({"sym_bsr_spmv", "sym_bsr_spmm", "csr_spmv"})
+#: of :class:`_KernelProduct` launches them on the same operand (a
+#: row-compressed operand says so itself, through ``kernel_adjoint()``)
+_SELF_ADJOINT = frozenset({"sym_bsr_spmv", "sym_bsr_spmm"})
 #: kernel name -> its launch counter
 _LAUNCH_COUNTERS = {name: f"launch.{name}" for name in KERNEL_SOURCES}
 _HEADERS = ("spmv_common.cuh", "spmm_common.cuh")
@@ -686,7 +690,7 @@ def _launch_sym_bsr_spmm(sym, X: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel E: row-compressed SpMV of a symmetric operator, both triangles stored
+# kernel E: row-compressed SpMV of a square operator (of both triangles where symmetric)
 # ---------------------------------------------------------------------------
 #: lanes of the widest row group of :func:`csr_spmv` (a warp)
 _MAX_GROUP = 32
@@ -786,8 +790,9 @@ _LAUNCH = {
 
 class _KernelProduct(torch.autograd.Function):
     """y = A x by kernel ``name``; backward A^H g by the same kernel, on
-    ``kernel_adjoint()``'s pack for the general kernels and on the same
-    operand for the symmetric ones (A = A^T)."""
+    ``kernel_adjoint()``'s container for the general kernels and
+    ``csr_spmv``, and on the same operand for the symmetric block kernels
+    (A = A^T)."""
 
     @staticmethod
     def forward(ctx, x, op, name):

@@ -1243,17 +1243,19 @@ def _svds_accelerated(acc, k, *, tol, max_subspace, max_restarts, seed,
 
 def _svds_accelerated_mesh(acc, k, *, tol, max_subspace, max_restarts, seed,
                            return_singular_vectors, mesh, matvec_mode):
-    """The mesh form of :func:`_svds_accelerated` (a real general pack)."""
+    """The mesh form of :func:`_svds_accelerated` on the operand's general
+    block pack (``block_matrix()``) and that pack's adjoint."""
     from ..parallel.distributed import _padding_safe_v0, mesh_operator, prepare_packed_mesh
     from ..sparse.bsr import BSRMatrix
 
-    mat = acc.matrix
     if acc.symmetric:
         raise EigenexError(
             "svds(mesh=) on a SYMMETRIC accelerated operand is "
             "redundant — use eigsh(acc, mesh=...); the mesh Gram "
             "pipeline consumes general packs"
         )
+    mat = acc.block_matrix()
+    adj = mat.kernel_adjoint()
     mesh, matvec_mode = prepare_packed_mesh(mat, mesh, matvec_mode)
     axis = mesh.axis_names[0]
     nd = mesh.shape[axis]
@@ -1274,7 +1276,7 @@ def _svds_accelerated_mesh(acc, k, *, tol, max_subspace, max_restarts, seed,
     M2 = -(-mat.shape[0] // unit) * unit
     N2 = -(-mat.shape[1] // unit) * unit
     opA = mesh_operator(pad_to(mat, M2, N2), mesh, axis_name=axis, matvec_mode=matvec_mode)
-    opH = mesh_operator(pad_to(acc.adjoint_matrix(), N2, M2), mesh, axis_name=axis,
+    opH = mesh_operator(pad_to(adj, N2, M2), mesh, axis_name=axis,
                         matvec_mode=matvec_mode)
     nrows, ncols = acc.orig_shape
     small = min(nrows, ncols)

@@ -19,12 +19,13 @@ module is the bridge from "born scalar" to the block kernels of
    (no per-matvec gather), and eigenvectors are unpermuted at the end
    (:meth:`AcceleratedOperator.restore`).
 
-On the card, a symmetric operator whose nonzeros fill few of its blocks is
+On the card, a square operator whose nonzeros fill few of its blocks is
 stored row-compressed instead (:class:`~eigenex_tpu_torch.sparse.sym_csr.SymCSRMatrix`,
-both triangles, for the ``csr_spmv`` kernel): the real blocks the pack would
-hold are counted from the triplets, and the storage whose product reads fewer
-bytes is taken (:func:`symmetric_storage`).  The reference's 128x128 pack
-exists for the TPU's matrix unit; the card gathers x from L2 instead.  The
+both triangles of a symmetric one, for the ``csr_spmv`` kernel): the slots the
+block pack would hold are counted from the triplets, and the storage whose
+product reads fewer bytes is taken (:func:`choose_storage`).  The reference's
+128x128 and 32x128 packs exist for the TPU's matrix unit; the card gathers x
+from L2 instead.  The
 CPU keeps the reference's block pack, and
 :meth:`AcceleratedOperator.block_matrix` packs it on first need for the
 routes that take only blocks.
@@ -91,8 +92,8 @@ __all__ = [
     "accelerate",
     "band_permutation",
     "bipartite_band_permutation",
+    "choose_storage",
     "dedup_embedded_pairs",
-    "symmetric_storage",
 ]
 
 
@@ -278,23 +279,24 @@ def _no_stage(name, t_start):
     return time.perf_counter()
 
 
-def symmetric_storage(nnz: int, n_pad: int, blocks: int, block: int,
-                      value_bytes: int) -> tuple[str, dict]:
-    """(storage, bytes a product reads in each) of a symmetric operator on
-    the card: ``"row_compressed"`` (every stored entry of both triangles,
-    ``nnz``, as a value and an int32 column, and ``n_pad + 1`` int32 row
-    pointers) when that is fewer bytes than ``"block"`` (the ``blocks`` real
-    slots of the half-storage pack, block x block values each), else
-    ``"block"``."""
+def choose_storage(nnz: int, n_pad: int, block_slots: int,
+                   value_bytes: int) -> tuple[str, dict]:
+    """(storage, bytes a product reads in each) of a square operator on the
+    card: ``"row_compressed"`` (every stored entry, ``nnz`` -- both triangles
+    of a symmetric operator -- as a value and an int32 column, and
+    ``n_pad + 1`` int32 row pointers) when that is fewer bytes than
+    ``"block"`` (the ``block_slots`` values the block pack reads: the real
+    blocks of the half-storage pack, or every slot of the general BSR-ELL
+    pack), else ``"block"``."""
     sizes = {"row_compressed": nnz * (value_bytes + 4) + (n_pad + 1) * 4,
-             "block": blocks * block * block * value_bytes}
+             "block": block_slots * value_bytes}
     return ("row_compressed" if sizes["row_compressed"] < sizes["block"] else "block"), sizes
 
 
 def _storage_rule_applies(device: torch.device, dtype: torch.dtype) -> bool:
-    """Whether :func:`symmetric_storage` chooses the storage of a symmetric
-    pack: on the card, for the value types the row-compressed kernel takes.
-    The CPU keeps the reference's block pack."""
+    """Whether :func:`choose_storage` chooses the storage of a square pack:
+    on the card, for the value types the row-compressed kernel takes.  The
+    CPU keeps the reference's block pack."""
     from ..ops.cuda_spmv import kernel_storage
 
     return device.type == "cuda" and kernel_storage(dtype)
@@ -324,12 +326,21 @@ def _block_census(r, c, block: int, nbr: int) -> tuple[int, int, int]:
     return nbr + len(key), max(int(per_row.max()), 1), reach
 
 
+def _general_kmax(r, c, bm: int, bn: int, n_pad: int) -> int:
+    """k_max of the general (bm, bn) BSR-ELL pack these triplets would make:
+    the most distinct blocks a block row holds (at least 1, as the packers
+    make it), counted without packing."""
+    nbc = n_pad // bn
+    key = np.unique((r // bm) * nbc + c // bn)
+    return max(int(np.bincount(key // nbc, minlength=1).max()), 1)
+
+
 def _pack_row_compressed(r, c, v, n_pad, dtype: torch.dtype, device, use_native,
-                         stage=_no_stage) -> SymCSRMatrix:
-    """Permuted triplets (both triangles) -> SymCSRMatrix.  Native: the
-    row-major (row, column) argsort as two stable threaded counting passes of
-    the CSR builder; numpy: ``lexsort``.  Values are cast on the host and the
-    arrays reach the device in one copy each."""
+                         hermitian: bool, stage=_no_stage) -> SymCSRMatrix:
+    """Permuted triplets (both triangles where ``hermitian``) ->
+    SymCSRMatrix.  Native: the row-major (row, column) argsort as two stable
+    threaded counting passes of the CSR builder; numpy: ``lexsort``.  Values
+    are cast on the host and the arrays reach the device in one copy each."""
     ts = time.perf_counter()
     order = None
     if use_native:  # two stable threaded passes: by column, then by row
@@ -337,7 +348,7 @@ def _pack_row_compressed(r, c, v, n_pad, dtype: torch.dtype, device, use_native,
         _, order = native.build_csr(r[by_col], by_col, n_pad)
         del by_col
     ts = stage("row_sort", ts)
-    mat = sym_csr_from_triplets(r, c, v, n_pad, dtype, device, order)
+    mat = sym_csr_from_triplets(r, c, v, n_pad, dtype, device, order, hermitian=hermitian)
     stage("device_put", ts)
     return mat
 
@@ -479,7 +490,7 @@ class AcceleratedOperator:
     #: rectangular operators carry a separate ROW permutation (bipartite
     #: RCM); None for square operators, where ``perm`` applies to both sides
     row_perm: np.ndarray | None = None
-    #: PERMUTED host triplets, kept for general packs only:
+    #: PERMUTED host triplets, kept for general block packs only:
     #: :meth:`adjoint_matrix` packs A^H from them.  Not written by
     #: :meth:`save`.
     host_triplets: Any = None
@@ -654,18 +665,25 @@ class AcceleratedOperator:
     def block_matrix(self):
         """The operator as a block container, for the routes that take only
         blocks (the mesh, the block filters and KPM): ``matrix`` itself when
-        it is one; for a row-compressed operator the half-storage pack that
-        ``accelerate`` makes of the same triplets on the CPU, packed on first
-        need on the operator's device and cached (it then sits beside the
-        row-compressed storage)."""
+        it is one; for a row-compressed operator the pack that ``accelerate``
+        makes of the same triplets on the CPU (half storage where it is
+        symmetric, general BSR-ELL otherwise), packed on first need on the
+        operator's device and cached (it then sits beside the row-compressed
+        storage)."""
         if not isinstance(self.matrix, SymCSRMatrix):
             return self.matrix
         cached = self.__dict__.get("_block_cache")
         if cached is None:
             r, c, v = self.matrix.triplets()
             use_native = native.native_available() and np.isrealobj(v)
-            cached, _ = _pack_symmetric(r, c, v, self.shape[0], self.stats.get("block", 128),
-                                        self.matrix.dtype, self.device, use_native)
+            n_pad, dtype = self.shape[0], self.matrix.dtype
+            if self.matrix.hermitian:
+                cached, _ = _pack_symmetric(r, c, v, n_pad, self.stats.get("block", 128),
+                                            dtype, self.device, use_native)
+            else:
+                bm, bn = self.stats.get("general_block", (32, 128))
+                cached = _pack_general(r, c, v, n_pad, n_pad, bm, bn, dtype, self.device,
+                                       use_native)
             object.__setattr__(self, "_block_cache", cached)
         return cached
 
@@ -676,12 +694,15 @@ class AcceleratedOperator:
         (bn, bm) blocks, which the kernel does not take).  Packed once from
         the kept host triplets or, for a loaded pack that has none, from the
         stored blocks (:meth:`BSRMatrix.kernel_adjoint`); cached.  A
-        symmetric container is its own adjoint."""
+        symmetric container is its own adjoint; a row-compressed one gives
+        its :meth:`~SymCSRMatrix.kernel_adjoint`."""
         cached = self.__dict__.get("_adjoint_cache")
         if cached is not None:
             return cached
-        if isinstance(self.matrix, (SymBSRMatrix, SymCSRMatrix)):
+        if isinstance(self.matrix, SymBSRMatrix):
             return self.matrix
+        if isinstance(self.matrix, SymCSRMatrix):
+            return self.matrix.kernel_adjoint()
         if self.host_triplets is None:
             adj = self.matrix.kernel_adjoint()
         else:
@@ -704,7 +725,8 @@ class AcceleratedOperator:
         (npz has no bf16), the metadata as JSON bytes.  The pack is the
         largest set-up cost and is deterministic: pack once, reload.  A
         row-compressed operator is written as ``rowptr``/``col``/``val`` with
-        ``kind`` "csr", which only this package reads."""
+        ``kind`` "csr", which only this package reads (``symmetric`` says
+        whether it is Hermitian)."""
         import json
 
         def host(a: torch.Tensor) -> np.ndarray:
@@ -975,24 +997,40 @@ def accelerate(
         target = as_torch_dtype(dtype)
 
     storage, compared = "block", {}
+    bm, bn = general_block
     if symmetric:
         # pad to 32 BLOCK rows, as the JAX package does, so that packed
         # operators have the same shape in both packages
         n_pad = -(-n_work // (32 * block)) * (32 * block)
         nbr = n_pad // block
-        if _storage_rule_applies(device, target):
-            # the storage whose product reads fewer bytes, from the real
-            # blocks the block pack would hold
+    else:
+        # square stays square (eigs needs it): pad both sides to lcm(bm, bn)
+        mult = int(np.lcm(bm, bn))
+        n_pad = -(-n_work // mult) * mult
+    if _storage_rule_applies(device, target):
+        # the storage whose product reads fewer bytes, from the slots the
+        # block pack would hold: the real blocks of the half-storage pack,
+        # every slot of the general one
+        if symmetric:
             blocks, ku, reach = _block_census(r, c, block, nbr)
-            storage, sizes = symmetric_storage(nnz, n_pad, blocks, block,
-                                               torch.finfo(target).bits // 8)
-            compared = dict(blocks=blocks, storage_bytes=sizes)
-            ts = _stage("blk_count", ts)
+            block_slots = blocks * block * block
+            compared = dict(blocks=blocks)
+        else:
+            kmax = _general_kmax(r, c, bm, bn, n_pad)
+            block_slots = n_pad * kmax * bn
+        storage, sizes = choose_storage(nnz, n_pad, block_slots, torch.finfo(target).bits // 8)
+        compared["storage_bytes"] = sizes
+        ts = _stage("blk_count", ts)
     if storage == "row_compressed":
-        mat = _pack_row_compressed(r, c, v, n_pad, target, device, use_native, _stage)
-        # fill, ku and reach of the block pack the rule compared, as the CPU reports them
-        slots, applied = nnz, (nbr + 2 * nbr * ku) * block * block
-        widths = dict(ku=ku, band_reach=reach, block=block)
+        mat = _pack_row_compressed(r, c, v, n_pad, target, device, use_native, bool(symmetric),
+                                   _stage)
+        # fill and widths of the block pack the rule compared, as the CPU reports them
+        if symmetric:
+            slots, applied = nnz, (nbr + 2 * nbr * ku) * block * block
+            widths = dict(ku=ku, band_reach=reach, block=block)
+        else:
+            slots, applied = nnz, block_slots
+            widths = dict(kmax=kmax, general_block=[bm, bn])
     elif symmetric:
         mat, skipped = _pack_symmetric(r, c, v, n_pad, block, target, device, use_native, _stage)
         if skipped is not None:
@@ -1008,10 +1046,6 @@ def accelerate(
         applied = mat.diag_data.numel() + 2 * mat.upper_data.numel()
         widths = dict(ku=int(mat.upper_cols.shape[1]), band_reach=int(mat.band_reach))
     else:
-        bm, bn = general_block
-        # square stays square (eigs needs it): pad both sides to lcm(bm, bn)
-        mult = int(np.lcm(bm, bn))
-        n_pad = -(-n_work // mult) * mult
         mat = _pack_general(r, c, v, n_pad, n_pad, bm, bn, target, device, use_native, _stage)
         slots = applied = mat.data.numel()
         widths = dict(kmax=mat.k_max)
@@ -1040,7 +1074,7 @@ def accelerate(
         symmetric=bool(symmetric),
         complexified=complexified,
         stats=stats,
-        # general packs keep the permuted triplets, as the JAX package does
-        # for its adjoint pack; symmetric containers keep memory flat
-        host_triplets=None if symmetric else (r, c, v),
+        # general block packs keep the permuted triplets, as the JAX package
+        # does for its adjoint pack; the other containers keep memory flat
+        host_triplets=(r, c, v) if isinstance(mat, BSRMatrix) else None,
     )

@@ -1,12 +1,15 @@
-"""Symmetric/Hermitian operator in row-compressed (CSR) storage.
+"""Square operator in row-compressed (CSR) storage: symmetric/Hermitian,
+or general.
 
 No counterpart in ``eigenex_tpu``: the JAX package packs every symmetric
-operator into 128x128 half-storage blocks (:mod:`.sym_bsr`), which a TPU's
-matrix unit needs.  On the card, an operator whose nonzeros fill few of
-those blocks moves far fewer bytes a product stored by rows: both
-triangles, int32 row pointers and column ids, values in the storage dtype.
+operator into 128x128 half-storage blocks (:mod:`.sym_bsr`) and every
+general one into 32x128 BSR-ELL blocks (:mod:`.bsr`), which a TPU's matrix
+unit needs.  On the card, an operator whose nonzeros fill few of those
+blocks moves far fewer bytes a product stored by rows: every stored entry
+(both triangles of a symmetric operator), int32 row pointers and column
+ids, values in the storage dtype.
 :func:`~eigenex_tpu_torch.sparse.accelerate.accelerate` picks this storage
-on CUDA when its bytes are fewer than the block pack's real slots, and
+on CUDA when its bytes are fewer than the block pack's slots, and
 :meth:`~eigenex_tpu_torch.sparse.accelerate.AcceleratedOperator.block_matrix`
 packs the blocks on first need for the routes that take only blocks (the
 mesh, the block filters).
@@ -14,9 +17,11 @@ mesh, the block filters).
 On a CUDA tensor with f32 or bf16 values :meth:`SymCSRMatrix.matvec`
 launches ``csr_spmv`` of :mod:`eigenex_tpu_torch.ops.cuda_spmv`; on the CPU,
 and for f64/complex values, the plain gather + ``index_add_`` version runs,
-which is also the kernel's oracle.  Both triangles are stored, so a product
-reads every stored entry once and no transposed partials are summed: A x
-needs no second pass, and the same product is its own adjoint.
+which is also the kernel's oracle.  A product reads every stored entry once
+and sums no transposed partials.  A Hermitian container (``hermitian``
+True) is its own adjoint; a general one (``hermitian`` False) multiplies
+A^H by the same product on its transposed storage
+(:meth:`SymCSRMatrix.kernel_adjoint`), made on first need and cached.
 """
 
 from __future__ import annotations
@@ -36,14 +41,17 @@ __all__ = ["SymCSRMatrix", "sym_csr_from_triplets"]
 
 @dataclasses.dataclass(frozen=True)
 class SymCSRMatrix:
-    """Symmetric (real) / Hermitian (complex) operator, both triangles in
-    CSR: row ``i`` holds ``col[rowptr[i]:rowptr[i+1]]`` (ascending) and the
-    values beside them.  Immutable container of tensors."""
+    """Square operator in CSR: row ``i`` holds ``col[rowptr[i]:rowptr[i+1]]``
+    (ascending) and the values beside them.  ``hermitian``: the operator is
+    symmetric (real) / Hermitian (complex), both triangles stored, and is its
+    own adjoint; False for a general operator.  Every constructor states it:
+    the field has no default.  Immutable container of tensors."""
 
     rowptr: torch.Tensor  # (n + 1,) int32
     col: torch.Tensor  # (nnz,) int32, ascending within a row
     val: torch.Tensor  # (nnz,) storage dtype
     shape: tuple[int, int]
+    hermitian: bool
 
     @property
     def nnz(self) -> int:
@@ -62,22 +70,25 @@ class SymCSRMatrix:
         return accumulation_dtype(self.dtype)
 
     def to(self, device) -> "SymCSRMatrix":
-        return SymCSRMatrix(self.rowptr.to(device), self.col.to(device), self.val.to(device),
-                            self.shape)
+        return dataclasses.replace(self, rowptr=self.rowptr.to(device), col=self.col.to(device),
+                                   val=self.val.to(device))
 
     def astype(self, dtype) -> "SymCSRMatrix":
-        return SymCSRMatrix(self.rowptr, self.col, self.val.to(dtype), self.shape)
+        return dataclasses.replace(self, val=self.val.to(dtype))
 
     def row_ids(self) -> torch.Tensor:
         """The (nnz,) int64 row of each stored entry, for the plain product:
         built once on first use and cached."""
         cached = self.__dict__.get("_row_ids")
         if cached is None:
-            counts = (self.rowptr[1:] - self.rowptr[:-1]).long()
-            rows = torch.arange(self.shape[0], device=self.device)
-            cached = torch.repeat_interleave(rows, counts, output_size=self.nnz)
+            cached = self._expanded_rows()
             object.__setattr__(self, "_row_ids", cached)
         return cached
+
+    def _expanded_rows(self) -> torch.Tensor:
+        counts = (self.rowptr[1:] - self.rowptr[:-1]).long()
+        rows = torch.arange(self.shape[0], device=self.device)
+        return torch.repeat_interleave(rows, counts, output_size=self.nnz)
 
     #: what a kernel keeps on this container between calls (its checked launch
     #: arguments), made once per key and cached, as on the block containers
@@ -112,6 +123,31 @@ class SymCSRMatrix:
         launch of the SpMV kernel each; there is no row-compressed SpMM)."""
         return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
 
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A^H @ x: the same product on :meth:`kernel_adjoint`."""
+        return self.kernel_adjoint().matvec(x)
+
+    def kernel_adjoint(self) -> "SymCSRMatrix":
+        """A^H in the same storage: the container itself when it is
+        Hermitian; else its transpose (conjugated for complex values), sorted
+        row-major on the container's device from the stored entries once and
+        cached."""
+        if self.hermitian:
+            return self
+        cached = self.__dict__.get("_kernel_adjoint")
+        if cached is None:
+            m, n = self.shape
+            rows, col = self._expanded_rows(), self.col.long()
+            order = torch.argsort(col * m + rows, stable=True)  # by column, then row
+            rowptr = torch.zeros(n + 1, dtype=torch.int32, device=self.device)
+            rowptr[1:] = torch.cumsum(torch.bincount(col, minlength=n), 0)
+            val = self.val[order]
+            cached = SymCSRMatrix(rowptr, rows[order].to(torch.int32),
+                                  val.conj().resolve_conj() if val.is_complex() else val,
+                                  (n, m), hermitian=False)
+            object.__setattr__(self, "_kernel_adjoint", cached)
+        return cached
+
     def as_linear_operator(self) -> LinearOperator:
         """Capturable into the CUDA graph of a Krylov chunk where the product
         is a kernel launch (CUDA values in a kernel storage)."""
@@ -119,15 +155,15 @@ class SymCSRMatrix:
 
         return LinearOperator(
             _csr_matvec, self, self.shape, self._acc_dtype, self.device,
-            rmatvec_fn=_csr_matvec,  # Hermitian: A == A^H
-            matmat_fn=_csr_matmat,
+            rmatvec_fn=_csr_rmatvec, matmat_fn=_csr_matmat,
             capturable=self.val.is_cuda and cuda_spmv.kernel_storage(self.dtype),
         )
 
     # -- spectral-range estimation ---------------------------------------
     def gershgorin_discs(self):
         """Per-row Gershgorin (center, radius): the diagonal entry and the
-        row's other absolute values (both triangles are stored)."""
+        row's other absolute values (every stored entry of the row: both
+        triangles of a Hermitian container)."""
         acc = self._acc_dtype
         rows = self.row_ids()
         val = self.val.to(acc)
@@ -155,15 +191,19 @@ def _csr_matvec(p, x):
     return p.matvec(x)
 
 
+def _csr_rmatvec(p, x):
+    return p.rmatvec(x)
+
+
 def _csr_matmat(p, X):
     return p.matmat(X)
 
 
 def sym_csr_from_triplets(rows, cols, vals, n: int, dtype: torch.dtype, device,
-                          order=None) -> SymCSRMatrix:
-    """CSR of duplicate-free host triplets of an n x n operator, BOTH
-    triangles given: ``order`` argsorts them row-major (by row, then column;
-    ``np.lexsort`` when None).  Values are cast on the host to ``dtype``
+                          order=None, *, hermitian: bool) -> SymCSRMatrix:
+    """CSR of duplicate-free host triplets of an n x n operator (of BOTH
+    triangles where it is ``hermitian``): ``order`` argsorts them row-major
+    (by row, then column; ``np.lexsort`` when None).  Values are cast on the host to ``dtype``
     through f32 -- as the native packers round to bf16 -- and the three arrays
     reach ``device`` in one copy each."""
     rows = np.asarray(rows)
@@ -179,4 +219,4 @@ def sym_csr_from_triplets(rows, cols, vals, n: int, dtype: torch.dtype, device,
         vals = vals.astype(np.float32)
     val = torch.from_numpy(np.ascontiguousarray(vals[order])).to(dtype)
     return SymCSRMatrix(torch.from_numpy(rowptr).to(device), torch.from_numpy(col).to(device),
-                        val.to(device), (n, n))
+                        val.to(device), (n, n), hermitian)

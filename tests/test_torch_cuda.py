@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import _embed_reference as embed_reference
+from _stencil import stencil
 from eigenex_tpu_torch import eigsh
 from eigenex_tpu_torch.convert import bsr_from_numpy
 from eigenex_tpu_torch.ops import cuda_spmv
@@ -243,9 +244,10 @@ def test_bsr_spmv_every_work_split_matches_the_plain_version(card, storage, shap
 
 def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
     """``eigs`` on an accelerated non-symmetric operand (the upwind stencil of
-    BASELINE config 2 at nx = 40): every Krylov-Schur matvec is one launch of
-    the general SpMV kernel.  On the host in f64, each eigenvalue's backward
-    error sigma_min(A - lambda I) is at most sqrt(k) tol max|lambda|, and each
+    BASELINE config 2 at nx = 40, which ``accelerate()`` stores row-compressed
+    on the card): every Krylov-Schur matvec is one launch of ``csr_spmv``.
+    On the host in f64, each eigenvalue's backward error
+    sigma_min(A - lambda I) is at most sqrt(k) tol max|lambda|, and each
     returned eigenvector is the Ritz vector of its eigenvalue: its residual is
     orthogonal to the Krylov space, so to span(X), up to rounding.  Wrong
     columns, or the Schur vectors in their place, leave a component there of
@@ -255,44 +257,42 @@ def test_eigs_on_a_packed_general_operand_launches_once_a_matvec(card):
     own residual is held to 2 tol |lambda| as well
     (``test_torch_eigs.py::test_f32_eigs_meets_what_tol_certifies`` holds
     both packages to the same checks on the CPU)."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spl
+    from eigenex_tpu_torch import eigs
 
-    from eigenex_tpu_torch import accelerate, eigs
-
-    nx, conv = 40, 0.4
-    n = nx * nx
-    lap = sp.diags([-1.0 - conv, 4.0, -1.0 + conv], [-1, 0, 1], shape=(nx, nx))
-    A = (sp.kron(sp.eye(nx), lap) + sp.kron(sp.diags([-1.0 - conv, -1.0 + conv], [-1, 1],
-                                                     shape=(nx, nx)), sp.eye(nx))).tocoo()
-    acc = accelerate((A.row, A.col, A.data, A.shape), device=card)
-    assert acc.matrix.block_shape == (32, 128) and acc.matrix.dtype == torch.float32
+    n, A = 40 * 40, stencil(40)
+    acc = general_stencil_on(card, 40)
+    assert acc.matrix.dtype == torch.float32
     cuda_spmv.reset_launch_counts()
     res = eigs(acc, k=2, tol=1e-5, seed=1)
     assert res.converged
-    assert cuda_spmv.launch_counts() == {"bsr_spmv": res.iterations, "sym_bsr_spmv": 0,
-                                         "bsr_spmm": 0, "sym_bsr_spmm": 0, "csr_spmv": 0}
+    assert cuda_spmv.launch_counts() == {"bsr_spmv": 0, "sym_bsr_spmv": 0, "bsr_spmm": 0,
+                                         "sym_bsr_spmm": 0, "csr_spmv": res.iterations}
     X, lam = res.eigenvectors, np.asarray(res.eigenvalues, np.complex128)
     assert X.shape == (n, 2) and np.isfinite(X).all()
-
-    def backward_error(z, iters=8):
-        # sigma_min(A - z I) from above: power iteration on the inverse's normal operator
-        lu = spl.splu((A - z * sp.eye(n)).tocsc().astype(np.complex128))
-        v = np.ones(n, np.complex128) / np.sqrt(n)
-        for _ in range(iters):
-            w = lu.solve(v)
-            v = lu.solve(w / np.linalg.norm(w), trans="H")
-            norm = np.linalg.norm(v)
-            v /= norm
-        return 1.0 / norm
-
     limit = np.sqrt(2) * 1e-5 * np.abs(lam).max()
-    assert max(backward_error(z) for z in lam) <= limit
+    assert max(backward_error(A, z) for z in lam) <= limit
     X = np.asarray(X, np.complex128)
     R = A.tocsr() @ X - X * lam[None, :]
     inside = np.linalg.norm(np.linalg.qr(X)[0].conj().T @ R, axis=0) / np.linalg.norm(X, axis=0)
     assert inside.max() <= limit
     assert np.max(np.linalg.norm(R, axis=0) / (np.abs(lam) * np.linalg.norm(X, axis=0))) <= 2e-5
+
+
+def backward_error(A, z, iters=8):
+    """sigma_min(A - z I) of a scipy operator A from above, on the host in f64:
+    power iteration on the inverse's normal operator."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    n = A.shape[0]
+    lu = spl.splu((A - z * sp.eye(n)).tocsc().astype(np.complex128))
+    v = np.ones(n, np.complex128) / np.sqrt(n)
+    for _ in range(iters):
+        w = lu.solve(v)
+        v = lu.solve(w / np.linalg.norm(w), trans="H")
+        norm = np.linalg.norm(v)
+        v /= norm
+    return 1.0 / norm
 
 
 def test_solves_on_a_thread_share_one_side_stream_and_its_workspace(card):
@@ -453,23 +453,40 @@ def general_pack_on(card, storage, seed=3):
     return BSRMatrix(data, cols, (nbr * 32, nbc * 128))
 
 
+def general_stencil_on(card, nx, conv=0.4, dtype="auto"):
+    """``accelerate()`` of the stencil on the card: row-compressed storage."""
+    from eigenex_tpu_torch import accelerate
+    from eigenex_tpu_torch.sparse.sym_csr import SymCSRMatrix
+
+    A = stencil(nx, conv)
+    acc = accelerate((A.row, A.col, A.data, A.shape), dtype=dtype, device=card)
+    assert isinstance(acc.matrix, SymCSRMatrix) and not acc.matrix.hermitian
+    return acc
+
+
 @pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["bsr_spmv", "sym_bsr_spmv", "bsr_spmm", "sym_bsr_spmm"])
+@pytest.mark.parametrize("name", ["bsr_spmv", "sym_bsr_spmv", "bsr_spmm", "sym_bsr_spmm",
+                                  "csr_spmv"])
 def test_derived_adjoint_through_each_kernel_is_the_explicit_one(card, storage, name):
     """A closure over each kernel with no adjoint: its derived A^H x (or A^H X,
     by ``pullback`` of the closure's matmat) is one forward and one backward launch,
     bit-equal to the explicit adjoint (the same kernel on ``kernel_adjoint()``,
-    or on the same symmetric pack), f32 for bf16 packs too."""
+    or on the same symmetric pack), f32 for bf16 packs too.  ``csr_spmv`` runs
+    on a general stencil stored row-compressed, its backward on the transpose."""
     from eigenex_tpu_torch import LinearOperator
     from eigenex_tpu_torch.core.operators import pullback
 
-    op = general_pack_on(card, storage) if name.startswith("bsr") else \
-        sym_bsr_from_bsr(banded(24, 128, 0, card)).astype(storage)
+    if name == "csr_spmv":
+        op = general_stencil_on(card, 24, dtype=storage).matrix
+    elif name.startswith("bsr"):
+        op = general_pack_on(card, storage)
+    else:
+        op = sym_bsr_from_bsr(banded(24, 128, 0, card)).astype(storage)
     gen = torch.Generator(card).manual_seed(4)
     if name.endswith("spmv"):
         closure = LinearOperator(lambda p, v: p.matvec(v), op, op.shape, torch.float32, card)
         x = torch.randn(op.shape[0], generator=gen, device=card)
-        explicit = op.kernel_adjoint().matvec(x) if name == "bsr_spmv" else op.matvec(x)
+        explicit = op.matvec(x) if name == "sym_bsr_spmv" else op.kernel_adjoint().matvec(x)
         cuda_spmv.reset_launch_counts()
         with torch.no_grad():
             derived = closure.rmatvec(x)
@@ -485,20 +502,19 @@ def test_derived_adjoint_through_each_kernel_is_the_explicit_one(card, storage, 
     assert torch.equal(derived, explicit)
 
 
-def test_cgls_fallback_on_a_closure_over_the_general_kernel(card):
-    """``shift_invert_operator_general`` on a closure over the config-2 pack
+@pytest.mark.parametrize("storage,kernel", [("row_compressed", "csr_spmv"),
+                                            ("block", "bsr_spmv")])
+def test_cgls_fallback_on_a_closure_over_the_general_kernel(card, storage, kernel):
+    """``shift_invert_operator_general`` on a closure over config 2's storage
     (nx = 40) with no adjoint, at an interior shift where GMRES(8) stagnates:
     the CGLS fallback derives each adjoint through the kernels, and the result
-    is bit-equal to the same operator with the explicit adjoint."""
-    import scipy.sparse as sp
+    is bit-equal to the same operator with the explicit adjoint.  Both general
+    storages: the row-compressed one ``accelerate()`` makes on the card and its
+    block pack (``block_matrix()``)."""
+    from eigenex_tpu_torch import LinearOperator, shift_invert_operator_general
 
-    from eigenex_tpu_torch import LinearOperator, accelerate, shift_invert_operator_general
-
-    nx, conv = 40, 0.4
-    lap = sp.diags([-1.0 - conv, 4.0, -1.0 + conv], [-1, 0, 1], shape=(nx, nx))
-    A = (sp.kron(sp.eye(nx), lap) + sp.kron(sp.diags([-1.0 - conv, -1.0 + conv], [-1, 1],
-                                                     shape=(nx, nx)), sp.eye(nx))).tocoo()
-    pack = accelerate((A.row, A.col, A.data, A.shape), device=card).matrix
+    acc = general_stencil_on(card, 40)
+    pack = acc.matrix if storage == "row_compressed" else acc.block_matrix()
     routes = {}
     for route, rmv in (("derived", None), ("explicit", lambda p, v: p.rmatvec(v))):
         op = LinearOperator(lambda p, v: p.matvec(v), pack, pack.shape, torch.float32, card,
@@ -511,7 +527,8 @@ def test_cgls_fallback_on_a_closure_over_the_general_kernel(card):
     assert sd["fallbacks"] == 1 and sd["iterations"] > 0 and sd["adjoint_forwards"] > 0
     assert torch.equal(yd, ye)
     assert {k: sd[k] for k in ("matvecs", "iterations")} == {k: se[k] for k in ("matvecs", "iterations")}
-    assert cd["bsr_spmv"] == sd["matvecs"] + sd["adjoint_forwards"] and ce["bsr_spmv"] == se["matvecs"]
+    assert cd[kernel] == sd["matvecs"] + sd["adjoint_forwards"] and ce[kernel] == se["matvecs"]
+    assert sum(cd.values()) == cd[kernel] and sum(ce.values()) == ce[kernel]
 
 
 # ---------------------------------------------------------------------------
@@ -720,7 +737,7 @@ def row_compressed_case(per_row, storage, device):
         v = np.round(rng.standard_normal(len(r)) * 32) / 32
         r, c, v = (np.concatenate([r, c, np.arange(n)]), np.concatenate([c, r, np.arange(n)]),
                    np.concatenate([v, v, np.full(n, 2.0)]))
-    return sym_csr_from_triplets(r, c, v, n + 512, storage, device)
+    return sym_csr_from_triplets(r, c, v, n + 512, storage, device, hermitian=True)
 
 
 @pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
@@ -776,6 +793,91 @@ def test_a_low_fill_sector_is_stored_row_compressed_on_the_card(card):
     x = acc.embed(np.random.default_rng(6).standard_normal(acc.orig_shape[0]))
     y, yb = acc.matrix.matvec(x), block.matvec(x)
     assert float(torch.linalg.vector_norm(y - yb) / torch.linalg.vector_norm(yb)) <= 1e-6
+
+
+def test_a_general_stencil_is_stored_row_compressed_on_the_card(card, tmp_path):
+    """accelerate() on the card stores the nx = 64 stencil of config 2
+    row-compressed (it fills about 1 % of its 32x128 pack): ``csr_spmv``
+    bit-equal across re-runs and within 1e-5 of its plain version and of the
+    block pack's ``bsr_spmv``; ``rmatvec`` and ``adjoint_matrix()`` the dense
+    transpose; ``eigs(which="LM")`` with graphs bit-equal to the eager solve on
+    both storages, every eigenvalue of each within the backward error its tol
+    certifies (the top of this spectrum is ill-conditioned in f32: two such
+    solves part by about 1e-3, so the storages are held to the operator, not
+    to each other); ``block_matrix()`` feeds the mesh route; ``save``/``load``
+    round-trips the storage."""
+    import dataclasses
+
+    from eigenex_tpu_torch import AcceleratedOperator, eigs, make_mesh
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    acc = general_stencil_on(card, 64)
+    mat, sizes = acc.matrix, acc.stats["storage_bytes"]
+    assert acc.stats["bytes"] == sizes["row_compressed"] < sizes["block"] / 20
+    x = torch.randn(mat.shape[1], device=card, generator=torch.Generator(card).manual_seed(1))
+    cuda_spmv.reset_launch_counts()
+    y = mat.matvec(x)
+    assert cuda_spmv.launch_counts()["csr_spmv"] == 1 and torch.equal(y, mat.matvec(x))
+    assert rel(y, cuda_spmv.csr_spmv_plain(mat, x)) <= 1e-5
+    block = acc.block_matrix()
+    assert block.block_shape == (32, 128) and rel(y, block.matvec(x)) <= 1e-5
+    dense = mat.to_dense().double()
+    assert rel(mat.rmatvec(x).double(), dense.T @ x.double()) <= 1e-5
+    adj = acc.adjoint_matrix()
+    assert adj is mat.kernel_adjoint() and torch.equal(adj.to_dense().double(), dense.T)
+    A = stencil(64).tocsr()
+    v0 = np.random.default_rng(2).standard_normal(acc.orig_shape[0])
+    blocked = dataclasses.replace(acc, matrix=block)
+    for operand, kernel in ((acc, "csr_spmv"), (blocked, "bsr_spmv")):
+        eager, graphed, launches, counts = graph_and_eager(
+            lambda: eigs(operand, k=2, which="LM", tol=1e-5, v0=v0))
+        assert eager.converged and np.array_equal(eager.eigenvalues, graphed.eigenvalues)
+        assert np.array_equal(eager.eigenvectors, graphed.eigenvectors)
+        assert counts["captures"] >= 1 and counts["replays"] >= 1
+        assert launches[kernel] == sum(launches.values()) == graphed.iterations
+        lam = np.asarray(graphed.eigenvalues, np.complex128)
+        assert max(backward_error(A, z) for z in lam) <= np.sqrt(2) * 1e-5 * np.abs(lam).max()
+    cuda_spmv.reset_launch_counts()
+    on_mesh = eigs(acc, k=2, which="LM", tol=1e-5, v0=v0, mesh=make_mesh(devices=[card] * 2))
+    assert on_mesh.converged and cuda_spmv.launch_counts()["csr_spmv"] == 0
+    assert cuda_spmv.launch_counts()["bsr_spmv"] > 0
+    lam = np.asarray(on_mesh.eigenvalues, np.complex128)
+    assert max(backward_error(A, z) for z in lam) <= np.sqrt(2) * 1e-5 * np.abs(lam).max()
+    acc.save(tmp_path / "stencil.npz")
+    back = AcceleratedOperator.load(tmp_path / "stencil.npz", device=card)
+    assert not back.matrix.hermitian and back.stats == acc.stats
+    assert torch.equal(back.matrix.matvec(x), y)
+    assert torch.equal(back.matrix.rmatvec(x), adj.matvec(x))
+
+
+def test_shift_invert_on_a_general_stencil_gives_the_block_route_pairs(card):
+    """``eigs(sigma=8.5)`` on the nx = 32 stencil (convection 0.2, where the
+    pairs are well-conditioned) stored row-compressed and as its block pack:
+    the same eigenvalues to 1e-5 (the storages sum each product in another
+    order; they agree to 2e-7 on the CPU's plain products), every inner matvec
+    -- the A^H products of the CGLS fallbacks, on the transposed storage,
+    included -- and every column of the closing residual check one launch."""
+    import dataclasses
+
+    from eigenex_tpu_torch import eigs
+
+    acc = general_stencil_on(card, 32, conv=0.2)
+    v0 = np.random.default_rng(3).standard_normal(acc.orig_shape[0])
+    kw = dict(k=2, sigma=8.5, tol=1e-6, inner_tol=1e-6, v0=v0)
+    cuda_spmv.reset_launch_counts()
+    got = eigs(acc, **kw)
+    check = 2 * (2 if np.iscomplexobj(got.eigenvectors) else 1)
+    assert cuda_spmv.launch_counts()["csr_spmv"] == got.inner_stats["matvecs"] + check
+    want = eigs(dataclasses.replace(acc, matrix=acc.block_matrix()), **kw)
+    assert got.converged and want.converged
+
+    def key(z):
+        z = np.asarray(z, np.complex128)
+        return np.sort_complex(z.real + 1j * np.abs(z.imag))
+
+    np.testing.assert_allclose(key(got.eigenvalues), key(want.eigenvalues), rtol=1e-5)
 
 
 @pytest.mark.parametrize("ndim", [1, 2])

@@ -109,13 +109,14 @@ def test_storage_rule_at_both_sides_of_its_crossover(value_bytes):
     csr_bytes = nnz * (value_bytes + 4) + (n_pad + 1) * 4
     per_block = block * block * value_bytes
     at = -(-csr_bytes // per_block)  # fewest blocks whose bytes reach the row-compressed ones
-    below, sizes = acc_mod.symmetric_storage(nnz, n_pad, at - 1, block, value_bytes)
+    slots = block * block  # of one real block of the half-storage pack
+    below, sizes = acc_mod.choose_storage(nnz, n_pad, (at - 1) * slots, value_bytes)
     assert below == "block" and sizes == {"row_compressed": csr_bytes, "block": (at - 1) * per_block}
-    above, _ = acc_mod.symmetric_storage(nnz, n_pad, at, block, value_bytes)
+    above, _ = acc_mod.choose_storage(nnz, n_pad, at * slots, value_bytes)
     assert above == ("block" if at * per_block == csr_bytes else "row_compressed")
-    assert acc_mod.symmetric_storage(nnz, n_pad, at + 1, block, value_bytes)[0] == "row_compressed"
+    assert acc_mod.choose_storage(nnz, n_pad, (at + 1) * slots, value_bytes)[0] == "row_compressed"
     # the L = 24 sector: 221.7 MB against 5.27 GB
-    l24, sizes = acc_mod.symmetric_storage(35_154_028, 2_707_456, 160_828, 128, 2)
+    l24, sizes = acc_mod.choose_storage(35_154_028, 2_707_456, 160_828 * slots, 2)
     assert l24 == "row_compressed" and sizes["row_compressed"] == 221_753_996
 
 
@@ -246,7 +247,7 @@ def test_block_routes_take_the_block_pack(rule_on):
 
 def test_container_helpers():
     r, c, v, shape = random_symmetric(500, 8, 11)
-    mat = sym_csr_from_triplets(r, c, v, shape[0], torch.float64, "cpu")
+    mat = sym_csr_from_triplets(r, c, v, shape[0], torch.float64, "cpu", hermitian=True)
     dense = np.zeros(shape)
     np.add.at(dense, (r, c), v)
     centers, radii = mat.gershgorin_discs()
@@ -271,7 +272,8 @@ def test_lanes_a_row_follow_the_mean_row_length(nnz, rows, group):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    mat = sym_csr_from_triplets(*random_symmetric(200, 4, 1)[:3], 200, torch.float64, "cpu")
+    mat = sym_csr_from_triplets(*random_symmetric(200, 4, 1)[:3], 200, torch.float64, "cpu",
+                                hermitian=True)
     with pytest.raises(ext.EigenexError, match="float32/bfloat16"):
         cuda_spmv._check_csr(mat, "csr_spmv")
     f32 = mat.astype(torch.float32)
@@ -301,7 +303,7 @@ def test_backward_is_the_same_product(monkeypatch):
 
     monkeypatch.setitem(cuda_spmv._LAUNCH, "csr_spmv", launch)
     r, c, v, shape = random_symmetric(300, 6, 2)
-    mat = sym_csr_from_triplets(r, c, v, shape[0], torch.float32, "cpu")
+    mat = sym_csr_from_triplets(r, c, v, shape[0], torch.float32, "cpu", hermitian=True)
     x = torch.randn(shape[0], requires_grad=True)
     y = cuda_spmv._product("csr_spmv", mat, x)
     g = torch.randn(shape[0])
